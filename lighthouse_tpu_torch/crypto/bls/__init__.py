@@ -1,0 +1,15 @@
+"""BLS12-381 signatures: host containers (api.py) and the batched
+PyTorch verification backend (torch_backend/)."""
+
+from .api import (  # noqa: F401
+    BlsError,
+    PublicKey,
+    SecretKey,
+    Signature,
+    SignatureSet,
+    get_backend,
+    register_backend,
+    set_backend,
+    verify_signature_sets,
+)
+from . import params  # noqa: F401

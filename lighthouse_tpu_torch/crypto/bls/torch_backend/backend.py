@@ -1,0 +1,301 @@
+"""The "torch" BLS backend: batched signature-set verification on the card.
+
+Port of jax_backend/backend.py (JaxBackend.verify_signature_sets and the
+device program _verify_kernel / _verify_kernel_h2c), the twin of blst's
+``verify_multiple_aggregate_signatures`` behind the reference client's
+verify_signature_sets (crypto/bls/src/impls/blst.rs:35-117):
+
+  host:   per-set validation (empty sets, infinity signatures/pubkeys),
+          pubkey aggregation, hashing to Fp2 (or full hash-to-curve),
+          nonzero 64-bit random weights, limb encoding  -> marshal_sets
+  device: G2 subgroup checks, weight scalar muls, signature accumulation,
+          batched Miller loops, GT product, one final exponentiation
+          -> dispatch (enqueues on the current CUDA stream) / resolve
+          (the one host sync, returns the verdict)
+
+The device program runs eagerly: every field op is a launch, every
+Montgomery product one launch of kernel 1, every Miller step one launch of
+kernel 2 or 3.  The arm is the TPU default: fused Miller steps on, the
+opt-in chain, scalar-mul and MXU kernels absent.
+"""
+
+from __future__ import annotations
+
+import secrets
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import params
+from ..curve import Fp, G1_GENERATOR, affine_neg, from_jacobian, jac_add, to_jacobian
+from ..hash_to_curve import hash_to_field_fp2, hash_to_g2
+from . import fp as F
+from . import miller_kernel as ML
+from . import mont_kernel as MK
+from . import pairing as PR
+from . import points as P
+from . import tower as T
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel."""
+    return {"mont_mul": MK.launches, "miller_step_dbl": ML.dbl_launches,
+            "miller_step_add": ML.add_launches}
+
+
+def reset_launch_counts() -> None:
+    MK.launches = 0
+    ML.dbl_launches = 0
+    ML.add_launches = 0
+
+
+def _cat_lfp(x, y):
+    """Concatenate two LFp trees along the batch axis."""
+    if isinstance(x, F.LFp):
+        return F.LFp(torch.cat([x.limbs, y.limbs], dim=-1), max(x.bound, y.bound))
+    return tuple(_cat_lfp(a, b) for a, b in zip(x, y))
+
+
+def _slice_pt(pt, a, b):
+    def sl(x):
+        if isinstance(x, F.LFp):
+            return F.LFp(x.limbs[..., a:b], x.bound)
+        if isinstance(x, torch.Tensor):
+            return x[..., a:b]
+        return tuple(sl(c) for c in x)
+
+    return tuple(sl(c) for c in pt)
+
+
+def _tree_reduce_g2(pt):
+    """Sum a Jacobian G2 batch (X, Y, Z, inf) along the batch axis with the
+    COMPLETE addition (the summands are adversarial), padded with infinity
+    to a power of two."""
+    B = pt[3].shape[-1]
+    target = 1 << max(0, (B - 1).bit_length())
+    if target != B:
+        reps = target - B
+        dev = pt[3].device
+        one = F.LFp(F.bcast("ONE", (reps,), dev), 1.0)
+        zero = F.LFp(torch.zeros((F.N, reps), dtype=F.DTYPE, device=dev), 0.0)
+        X, Y, Z, inf = pt
+        pt = (
+            _cat_lfp(X, (one, zero)),
+            _cat_lfp(Y, (one, zero)),
+            _cat_lfp(Z, (zero, zero)),
+            torch.cat([inf, torch.ones((reps,), dtype=torch.bool, device=dev)]),
+        )
+    n = target
+    while n > 1:
+        half = n // 2
+        pt = P.jac_add(P.FP2_OPS, _slice_pt(pt, 0, half), _slice_pt(pt, half, 2 * half))
+        n = half
+    return pt
+
+
+def _neg_gen_const(device):
+    """-G1 generator as a batch-1 affine constant, uploaded once per device."""
+    dev = str(torch.device(device))
+    return tuple(F.LFp(F.int_col(c.v * F.R_INT % F.P_INT, dev), 1.0)
+                 for c in affine_neg(G1_GENERATOR))
+
+
+def _verify_kernel(pk_aff, sig_aff, h_aff, wbits):
+    """The device program; every input has trailing batch axis B.
+
+    pk_aff:  G1 affine (x, y), per-set aggregated pubkey
+    sig_aff: G2 affine, per-set signature
+    h_aff:   G2 affine, per-set message point H(m)
+    wbits:   (64, B) int32, bits of the nonzero random weights, MSB first
+    Returns a one-element bool tensor (not synchronised)."""
+    # 1. signature subgroup checks (blst.rs:71-81)
+    ok_sub = torch.all(P.g2_subgroup_check(sig_aff))
+    # 2. weight scalar muls
+    wpk = P.scalar_mul_bits(P.FP_OPS, P.from_affine(P.FP_OPS, pk_aff), wbits)
+    wsig = P.scalar_mul_bits(P.FP2_OPS, P.from_affine(P.FP2_OPS, sig_aff), wbits)
+    # 3. S = sum_i [r_i] sig_i
+    S = _tree_reduce_g2(wsig)
+    # 4. affinize
+    wpk_aff = P.to_affine(P.FP_OPS, wpk, F.fp_inv)
+    S_aff = P.to_affine(P.FP2_OPS, S, T.fp2_inv)
+    # 5. pairs (wpk_i, H_i) for each set plus (-G1, S)
+    neg_gen = _neg_gen_const(wbits.device)
+    p_side = (_cat_lfp(wpk_aff[0], neg_gen[0]), _cat_lfp(wpk_aff[1], neg_gen[1]))
+    q_side = (_cat_lfp(h_aff[0], S_aff[0]), _cat_lfp(h_aff[1], S_aff[1]))
+    # 6. Miller loops, GT product, final exponentiation.  An infinite S
+    # contributes e(P, O) = 1: mask its pair instead of trusting the
+    # garbage affinization.
+    f = PR.miller_loop(p_side, q_side)
+    B = wbits.shape[-1]
+    mask = torch.cat([torch.zeros((B,), dtype=torch.bool, device=wbits.device),
+                      S[3].reshape(1)])
+    f = T.fp12_select(mask, PR.fp12_one_like_from_fp2(q_side[0]), f)
+    return PR.final_exp_is_one(PR.gt_product(f)) & ok_sub
+
+
+def _verify_kernel_h2c(pk_aff, sig_aff, u0, u1, wbits):
+    """_verify_kernel with the map to G2 on the device: takes the
+    hash-to-field outputs (u0, u1 Fp2 batches) instead of H(m) points."""
+    from . import h2c
+
+    return _verify_kernel(pk_aff, sig_aff, h2c.map_to_g2(u0, u1), wbits)
+
+
+def _pack_wbits(weights: list[int]) -> torch.Tensor:
+    """(64, B) MSB-first weight bits, from two 32-bit halves."""
+    w_hi = np.array([(w >> 32) & 0xFFFFFFFF for w in weights], dtype=np.uint32)
+    w_lo = np.array([w & 0xFFFFFFFF for w in weights], dtype=np.uint32)
+    shifts = np.arange(31, -1, -1, dtype=np.uint32)[:, None]
+    hi_bits = (w_hi[None, :] >> shifts) & np.uint32(1)
+    lo_bits = (w_lo[None, :] >> shifts) & np.uint32(1)
+    return torch.as_tensor(np.concatenate([hi_bits, lo_bits], axis=0).astype(np.int32))
+
+
+def _to_device(x, device):
+    if isinstance(x, F.LFp):
+        return F.LFp(F.upload(x.limbs, device), x.bound)
+    if isinstance(x, torch.Tensor):
+        return F.upload(x, device)
+    return tuple(_to_device(c, device) for c in x)
+
+
+@dataclass
+class MarshalledBatch:
+    """Host-marshalled device operands for one padded batch.  ``args`` are
+    the positional operands of the device program, as CPU tensors;
+    ``invalid`` means host validation already rejected the batch."""
+
+    n: int  # real (unpadded) set count
+    B: int  # padded batch size
+    device_h2c: bool
+    args: tuple = field(default=())
+    invalid: bool = False
+
+
+class TorchBackend:
+    """Batch verification on a CUDA card (or, when asked, on the CPU
+    through the kernels' plain versions)."""
+
+    name = "torch"
+
+    def __init__(self, device="cuda", min_batch: int = 8, device_h2c: bool = True):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchBackend: CUDA is not available; pass device='cpu' to run "
+                "the plain PyTorch versions of the kernels")
+        self.device = device
+        self.min_batch = min_batch
+        self.device_h2c = device_h2c
+
+    # -- single-set conveniences over the batch path ----------------------
+
+    def verify(self, pubkey, msg: bytes, sig) -> bool:
+        from ..api import SignatureSet
+
+        return self.verify_signature_sets([SignatureSet(sig, [pubkey], msg)])
+
+    def fast_aggregate_verify(self, pubkeys, msg: bytes, sig) -> bool:
+        from ..api import SignatureSet
+
+        if not pubkeys:
+            return False
+        return self.verify_signature_sets([SignatureSet(sig, list(pubkeys), msg)])
+
+    # -- the batch path: verify == resolve(dispatch(marshal_sets)) ---------
+
+    def verify_signature_sets(self, sets) -> bool:
+        mb = self.marshal_sets(sets)
+        if mb.invalid:
+            return False
+        return self.resolve(self.dispatch(mb))
+
+    def marshal_sets(self, sets, weights=None) -> MarshalledBatch:
+        """Host stage: validation, pubkey aggregation, hashing, limb encode,
+        weight packing.  ``weights`` pins the per-set random weights (tests
+        only); otherwise each is a fresh nonzero ``secrets.randbits(64)`` —
+        predictable weights would break the soundness of the batch check."""
+        if not sets:
+            return MarshalledBatch(0, 0, self.device_h2c, invalid=True)
+        n = len(sets)
+        pk_pts, sig_pts, h_pts, ws = [], [], [], []
+        for idx, s in enumerate(sets):
+            if s.signature.point is None or not s.signing_keys:
+                return MarshalledBatch(n, 0, self.device_h2c, invalid=True)
+            if len(s.signing_keys) == 1:
+                agg = s.signing_keys[0].point
+            else:
+                acc = to_jacobian(None, Fp)
+                for pk in s.signing_keys:
+                    acc = jac_add(acc, to_jacobian(pk.point, Fp), Fp)
+                agg = from_jacobian(acc, Fp)
+            if agg is None:
+                return MarshalledBatch(n, 0, self.device_h2c, invalid=True)
+            if not self.device_h2c:
+                h = hash_to_g2(s.message)
+                if h is None:
+                    return MarshalledBatch(n, 0, self.device_h2c, invalid=True)
+                h_pts.append(h)
+            if weights is None:
+                r = 0
+                while r == 0:
+                    r = secrets.randbits(params.RAND_BITS)
+            else:
+                r = int(weights[idx])
+            pk_pts.append(agg)
+            sig_pts.append(s.signature.point)
+            ws.append(r)
+
+        # Pad to the batch size by replicating entry 0: a valid duplicate
+        # cannot flip the conjunction, an invalid one already fails it.
+        B = self._padded_size(n)
+        reps = B - n
+        pk_pts += [pk_pts[0]] * reps
+        sig_pts += [sig_pts[0]] * reps
+        ws += [ws[0]] * reps
+        host = torch.device("cpu")
+        pk_aff = P.g1_encode(pk_pts, host)
+        sig_aff = P.g2_encode(sig_pts, host)
+        wbits = _pack_wbits(ws)
+        if self.device_h2c:
+            us = [hash_to_field_fp2(s.message, 2) for s in sets]
+            us += [us[0]] * reps
+            u0 = T.fp2_encode([u[0] for u in us], host)
+            u1 = T.fp2_encode([u[1] for u in us], host)
+            args = (pk_aff, sig_aff, u0, u1, wbits)
+        else:
+            h_pts += [h_pts[0]] * reps
+            args = (pk_aff, sig_aff, P.g2_encode(h_pts, host), wbits)
+        return MarshalledBatch(n, B, self.device_h2c, args)
+
+    def dispatch(self, mb: MarshalledBatch):
+        """Device stage: copy the operands over and enqueue the program on
+        the current stream; returns the in-flight verdict tensor without
+        waiting for it (nothing in the program synchronises the host)."""
+        if mb.invalid:
+            return False
+        args = _to_device(mb.args, self.device)
+        fn = _verify_kernel_h2c if mb.device_h2c else _verify_kernel
+        with torch.inference_mode():
+            return fn(*args)
+
+    def resolve(self, handle) -> bool:
+        """Wait for an in-flight dispatch and return the verdict."""
+        return bool(handle)
+
+    def _padded_size(self, n: int) -> int:
+        """Next power-of-two batch size >= n."""
+        B = self.min_batch
+        while B < n:
+            B *= 2
+        return B
+
+
+def register() -> TorchBackend:
+    """Create the backend on the card and register it as "torch"."""
+    from .. import api
+
+    backend = TorchBackend()
+    api.register_backend(backend)
+    return backend

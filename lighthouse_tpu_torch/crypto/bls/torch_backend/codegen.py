@@ -1,0 +1,250 @@
+"""Generate the CUDA sources that are derived from Python tables and programs.
+
+* ``csrc/limb_constants.cuh``: P, P', R mod P and the eight subtraction
+  biases, from fp.py's re-derived tables.
+* ``csrc/miller_step.cu``: kernels 2 and 3, printed from the recorded step
+  programs of miller_kernel.py (one C statement per limb op, values kept in
+  a per-thread slot array reused by liveness).
+
+Both files are committed; ``tests/test_torch_miller.py`` regenerates them and
+requires the text to be identical.  Regenerate after changing the formulas:
+
+    python -m lighthouse_tpu_torch.crypto.bls.torch_backend.codegen
+"""
+
+from __future__ import annotations
+
+from . import _build
+from . import fp as F
+from . import miller_kernel as MK
+
+HEADER = "// Generated by lighthouse_tpu_torch/crypto/bls/torch_backend/codegen.py; do not edit.\n"
+
+
+def _array(values) -> str:
+    return "{" + ", ".join(str(int(v)) for v in values) + "}"
+
+
+def limb_constants() -> str:
+    bias_rows = ",\n    ".join(_array(F.BIAS_NP[k]) for k in F.BIAS_KS)
+    return f"""{HEADER}// Montgomery constants of the 26 x 15-bit limb plane (R = 2^390), from
+// torch_backend/fp.py.
+#pragma once
+
+#include <cstdint>
+
+namespace lh {{
+
+__constant__ uint32_t kP[26] = {_array(F.P_NP)};
+__constant__ uint32_t kPPrime[26] = {_array(F.PPRIME_NP)};  // -P^-1 mod R
+__constant__ uint32_t kOne[26] = {_array(F.ONE_NP)};  // R mod P
+// k*P with every non-top limb boosted past QMAX (fp._biased_kp), for
+// k = {", ".join(str(k) for k in F.BIAS_KS)}: the subtraction bias a + kP - b.
+__constant__ uint32_t kBias[{len(F.BIAS_KS)}][26] = {{
+    {bias_rows}}};
+
+}}  // namespace lh
+"""
+
+
+_PREAMBLE = """// Kernels 2 and 3: the fused Miller doubling and addition steps, replacing
+// lighthouse_tpu/crypto/bls/jax_backend/pallas_miller.py:_step_dbl_kernel and
+// _step_add_kernel.  Printed from the step programs that
+// torch_backend/miller_kernel.py records from the formulas of
+// pallas_miller.py; the plain PyTorch version runs the same programs.
+//
+// One thread per lane.  Planes are (planes, 26, n) limb-major, so limb i of
+// neighbouring lanes are neighbouring words and every load and store
+// coalesces.  Intermediates live in the slot array s (registers spilling to
+// local memory); every Montgomery product is one call of the non-inlined
+// k_mul, which keeps the build short.
+#include "mont.cuh"
+
+namespace {
+
+using lh::NL;
+
+constexpr int kBlock = 32;  // 4,097 lanes -> 129 blocks, one per SM
+
+__device__ __noinline__ void k_mul(uint32_t* o, const uint32_t* a, const uint32_t* b) {
+  uint32_t x[NL], y[NL], r[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    x[i] = a[i];
+    y[i] = b[i];
+  }
+  lh::mont_core(x, y, r);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = r[i];
+}
+
+__device__ __forceinline__ void carry_store(uint32_t* o, uint32_t (&c)[NL]) {
+  lh::compress1(c);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = c[i];
+}
+
+// a + b, one carry pass
+__device__ __noinline__ void k_add(uint32_t* o, const uint32_t* a, const uint32_t* b) {
+  uint32_t c[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) c[i] = a[i] + b[i];
+  carry_store(o, c);
+}
+
+// a + kP - b, one carry pass (the bias dominates b limb by limb)
+__device__ __noinline__ void k_sub(uint32_t* o, const uint32_t* a, const uint32_t* b, int kidx) {
+  uint32_t c[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) c[i] = a[i] + lh::kBias[kidx][i] - b[i];
+  carry_store(o, c);
+}
+
+// kP - a, one carry pass
+__device__ __noinline__ void k_neg(uint32_t* o, const uint32_t* a, int kidx) {
+  uint32_t c[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) c[i] = lh::kBias[kidx][i] - a[i];
+  carry_store(o, c);
+}
+
+__device__ __forceinline__ void k_sel(uint32_t* o, bool take, const uint32_t* a,
+                                      const uint32_t* b) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = take ? a[i] : b[i];
+}
+
+__device__ __forceinline__ void k_one(uint32_t* o) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = lh::kOne[i];
+}
+
+__device__ __forceinline__ void k_load(uint32_t* o, const uint32_t* base, int plane, int n,
+                                       int lane) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = base[(static_cast<size_t>(plane) * NL + i) * n + lane];
+}
+
+__device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int lane,
+                                        const uint32_t* v) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i];
+}
+
+}  // namespace
+"""
+
+_SIGNATURES = {
+    "dbl": ("f", "t", "xp", "yp"),
+    "add": ("f", "t", "q", "xp", "yp", "bit"),
+}
+
+
+def _body(prog: MK.Program) -> tuple[list, int]:
+    """C statements for a program, slots assigned by liveness: an output
+    slot is taken before the op's dead inputs are released, so no op reads
+    and writes one slot."""
+    last = {}
+    for idx, op in enumerate(prog.ops):
+        for i in op.ins:
+            last[i] = idx
+    stores = {vid: (buf, plane) for buf, plane, vid in prog.outputs}
+    free, slot, n_slots, lines = [], {}, 0, []
+
+    def s(vid):
+        return "take" if prog.ops[vid].kind == "bit" else f"s[{slot[vid]}]"
+
+    for idx, op in enumerate(prog.ops):
+        if op.kind == "bit":
+            lines.append("const bool take = bit[lane] != 0;")
+            continue
+        if free:
+            slot[op.out] = free.pop()
+        else:
+            slot[op.out] = n_slots
+            n_slots += 1
+        o, ins = s(op.out), [s(i) for i in op.ins]
+        if op.kind == "in":
+            buf, plane = op.arg
+            lines.append(f"k_load({o}, {buf}, {plane}, n, lane);")
+        elif op.kind == "one":
+            lines.append(f"k_one({o});")
+        elif op.kind == "mul":
+            lines.append(f"k_mul({o}, {ins[0]}, {ins[1]});")
+        elif op.kind == "add":
+            lines.append(f"k_add({o}, {ins[0]}, {ins[1]});")
+        elif op.kind == "sub":
+            lines.append(f"k_sub({o}, {ins[0]}, {ins[1]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}")
+        elif op.kind == "neg":
+            lines.append(f"k_neg({o}, {ins[0]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}")
+        elif op.kind == "sel":
+            lines.append(f"k_sel({o}, {ins[0]}, {ins[1]}, {ins[2]});")
+        else:
+            raise AssertionError(op.kind)
+        if op.out in stores:
+            buf, plane = stores[op.out]
+            lines.append(f"k_store({buf}, {plane}, n, lane, {o});")
+        dead = {i for i in op.ins if last[i] == idx and prog.ops[i].kind != "bit"}
+        if op.out not in last:
+            dead.add(op.out)
+        free.extend(sorted(slot[v] for v in dead))
+    return lines, n_slots
+
+
+def _kernel(step: str) -> str:
+    prog = MK.program(step)
+    lines, n_slots = _body(prog)
+    params = []
+    for name in _SIGNATURES[step]:
+        ctype = "const int32_t*" if name == "bit" else "const uint32_t*"
+        params.append(f"{ctype} __restrict__ {name}")
+    params += ["uint32_t* __restrict__ f_out", "uint32_t* __restrict__ t_out", "int n"]
+    body = "\n".join("  " + ln for ln in lines)
+    c_args = ", ".join(f"const void* {nm}" for nm in _SIGNATURES[step])
+    casts = ", ".join(
+        f"static_cast<const {'int32_t' if nm == 'bit' else 'uint32_t'}*>({nm})"
+        for nm in _SIGNATURES[step])
+    return f"""
+// {prog.name}: {len(prog.ops)} limb ops, {prog.n_mul} Montgomery products, {n_slots} slots.
+static __global__ void __launch_bounds__(kBlock)
+{prog.name}_kernel({", ".join(params)}) {{
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  uint32_t s[{n_slots}][NL];
+{body}
+}}
+
+extern "C" int lh_{prog.name}({c_args}, void* f_out, void* t_out, int n,
+                              void* stream) {{
+  if (n > 0) {{
+    {prog.name}_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        {casts},
+        static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
+  }}
+  return static_cast<int>(cudaGetLastError());
+}}
+"""
+
+
+def miller_step_source() -> str:
+    kernels = "".join(_kernel(step) for step in ("dbl", "add"))
+    return HEADER + _PREAMBLE + kernels
+
+
+def generate_sources() -> dict:
+    """{file name under csrc/: text} for every generated source."""
+    return {
+        "limb_constants.cuh": limb_constants(),
+        "miller_step.cu": miller_step_source(),
+    }
+
+
+def main() -> None:
+    for name, text in generate_sources().items():
+        (_build.CSRC / name).write_text(text)
+        print(f"wrote {_build.CSRC / name}")
+
+
+if __name__ == "__main__":
+    main()

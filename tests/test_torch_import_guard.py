@@ -1,0 +1,50 @@
+"""The port stands alone: in a fresh interpreter that refuses to import jax
+and the JAX package, every module of lighthouse_tpu_torch and chip_smoke.py
+still import."""
+
+import os
+import subprocess
+import sys
+
+_GUARD = r"""
+import importlib, pkgutil, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "jaxlib", "lighthouse_tpu"):
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+assert not any(m.split(".")[0] in ("jax", "lighthouse_tpu") for m in sys.modules)
+sys.meta_path.insert(0, Refuse())
+import lighthouse_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lighthouse_tpu_torch.__path__,
+                                               "lighthouse_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert callable(chip_smoke.main)
+print(len(names), "modules")
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert int(proc.stdout.split()[0]) >= 15
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    """Without a card the script exits non-zero and prints no result line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import torch, sys; torch.cuda.is_available = lambda: False; "
+            "sys.argv = ['chip_smoke.py']; import chip_smoke; sys.exit(chip_smoke.main())")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
