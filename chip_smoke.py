@@ -9,8 +9,10 @@ PyTorch built for CUDA.  Phases, one JSON line each:
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/.
 3. kernel checks: each hand-written kernel (mont_mul, miller_step_dbl,
-   miller_step_add) against its plain PyTorch version on the card at
-   N = 4096 lanes, byte equality required; times from CUDA events.
+   miller_step_add) against its plain PyTorch version on the card, on
+   seeded inputs at the Miller loop's width of 4,097 lanes (4,096 sets
+   plus the (-G1, S) pair, a ragged edge for every block size), byte
+   equality required.
 4. reference: the device map-to-G2 on a few messages against the host
    hash_to_g2.
 5. path: TorchBackend(device="cuda", device_h2c=True).verify_signature_sets
@@ -19,7 +21,14 @@ PyTorch built for CUDA.  Phases, one JSON line each:
    swapped for a valid signature of another message.  The first verify's
    dispatch runs under torch's sync debug mode set to "error", so any host
    sync in the device program fails the run; launch counts come from each
-   of the two verifies, timings from three more.
+   of the two verifies.  The second verify also keeps copies of the
+   kernels' operands (mont_mul: the first call at every width; the Miller
+   steps: each step whose addition bit is set, and the last), and each
+   kernel is held byte for byte against its plain version on them.
+   Kernel times: CUDA events around runs of back-to-back launches on those
+   operands (mont_mul at its most-launched width), queued while the card
+   sleeps so that the host's wrapper time stays out.  Path timings and
+   peak memory from three more verifies.
 6. profile: one more verify under torch.profiler, giving every kernel the
    card ran and the share of the wall time the card was busy.
 
@@ -37,13 +46,15 @@ import subprocess
 import sys
 import time
 
-N_LANES = 4096  # kernel-check width: the gossip attestation batch
 N_SETS = 4096  # BASELINE.json configs[2]: 4096 unaggregated attestations
+N_LANES = N_SETS + 1  # seeded-check width: the Miller loop's, sets + (-G1, S)
 POOL = 64  # distinct signed sets, tiled to N_SETS
 MULTI = 4  # of them: 16 signers on one message (host aggregation runs)
 SEED = 20261016
-KERNEL_RUNS = 20
-PLAIN_RUNS = 5
+TIME_WINDOWS = 5  # timing windows per function; the median is kept
+KERNEL_LAUNCHES = 50  # back-to-back kernel launches per window
+PLAIN_LAUNCHES = 3  # back-to-back plain-version calls per window
+SLEEP_CYCLES = 50_000_000  # ~25 ms at 1980 MHz: covers the host queueing a window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 
@@ -59,20 +70,73 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, runs: int) -> float:
-    """Median of ``runs`` timings of fn() on the card (CUDA events)."""
+def time_ms(torch, fn, calls: int, queue_first: bool = False) -> float:
+    """ms per call of fn() on the card: CUDA events around ``calls``
+    back-to-back calls, divided by ``calls``; the median of TIME_WINDOWS
+    such windows, after a warm-up call.  With ``queue_first`` the card
+    sleeps before the start event while the host queues every call, so a
+    kernel shorter than its wrapper's host time is timed on the card alone."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    for _ in range(TIME_WINDOWS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_first:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+STEP_NAMES = ("miller_step_dbl", "miller_step_add")
+
+
+def capture_kernel_operands(MK, ML, run):
+    """Run ``run()`` (one verify) with the three kernel wrappers wrapped.
+    Every call goes through to the wrapper unchanged (and is counted there);
+    clones of some operands are kept for the kernel-vs-plain check on the
+    path's own shapes: the first mont_mul call at each width, with the
+    number of calls per width, and the Miller-step calls whose addition bit
+    is set, and the last.  Returns (run's result, {width: (a, b)},
+    {width: calls}, {step: [(call index, operands)]})."""
+    keep = {i for i, b in enumerate(ML.X_BITS[1:]) if b} | {len(ML.X_BITS) - 2}
+    orig = {"mont_mul": MK.mont_mul, **{s: getattr(ML, s) for s in STEP_NAMES}}
+    mont_ops, mont_calls = {}, {}
+    steps = {s: [] for s in STEP_NAMES}
+
+    def mont_mul(a, b):
+        n = a.shape[1]
+        mont_calls[n] = mont_calls.get(n, 0) + 1
+        if n not in mont_ops:
+            mont_ops[n] = (a.clone(), b.clone())
+        return orig["mont_mul"](a, b)
+
+    def step(name):
+        seen = [0]
+
+        def wrapped(*args):
+            if seen[0] in keep:
+                steps[name].append((seen[0], tuple(x.clone() for x in args)))
+            seen[0] += 1
+            return orig[name](*args)
+
+        return wrapped
+
+    MK.mont_mul = mont_mul
+    for s in STEP_NAMES:
+        setattr(ML, s, step(s))
+    try:
+        result = run()
+    finally:
+        MK.mont_mul = orig["mont_mul"]
+        for s in STEP_NAMES:
+            setattr(ML, s, orig[s])
+    return result, mont_ops, mont_calls, steps
 
 
 def profile_verify(torch, bk, sets) -> dict:
@@ -155,7 +219,20 @@ def main() -> int:
         t_ops = imads / imad_per_s * 1e3
         return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
-    kernels = {}
+    def max_abs_err(got, ref):
+        return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+
+    # equal and max_abs_err per kernel, over the seeded and the path checks
+    checked = {name: {"equal": True, "max_abs_err": 0} for name in ("mont_mul",) + STEP_NAMES}
+
+    def hold(name, got, ref):
+        """Byte equality of a kernel's outputs with its plain version's."""
+        torch.cuda.synchronize()
+        eq = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
+        checked[name]["equal"] &= eq
+        checked[name]["max_abs_err"] = max(checked[name]["max_abs_err"], max_abs_err(got, ref))
+        return eq
+
     n = N_LANES
     a, b = F.LFp(rand_limbs(n), 1.0), F.LFp(rand_limbs(n), 1.0)
     s, t = F.fp_add(a, a), F.fp_sub(b, a)
@@ -165,28 +242,10 @@ def main() -> int:
         "lazy_sub_neg": (t.limbs, F.fp_neg(t).limbs),
         "all_qmax": (torch.full((F.N, n), F.QMAX, dtype=F.DTYPE, device=dev),) * 2,
     }
-
-    def max_abs_err(got, ref):
-        return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
-
-    equal, err = True, 0
     for name, (x, y) in corpora.items():
         x, y = x.contiguous(), y.contiguous()
-        got, ref = MK.mont_mul(x, y), MK.mont_mul_plain(x, y)
-        torch.cuda.synchronize()
-        eq = bool(torch.equal(got, ref))
-        equal &= eq
-        err = max(err, max_abs_err([got], [ref]))
+        eq = hold("mont_mul", [MK.mont_mul(x, y)], [MK.mont_mul_plain(x, y)])
         emit({"phase": "kernel_check", "kernel": "mont_mul", "corpus": name, "n": n, "equal": eq})
-    x, y = a.limbs.contiguous(), b.limbs.contiguous()
-    bms, by = bound_ms(3 * F.N * 4 * n, MK.IMAD_PER_LANE * n)
-    kernels["mont_mul"] = {
-        "route": "cuda", "source": "lighthouse_tpu_torch/csrc/mont.cu",
-        "replaces": "lighthouse_tpu/crypto/bls/jax_backend/pallas_fp.py:141",
-        "equal": equal, "max_abs_err": err,
-        "ms": time_ms(torch, lambda: MK.mont_mul(x, y), KERNEL_RUNS),
-        "plain_ms": time_ms(torch, lambda: MK.mont_mul_plain(x, y), PLAIN_RUNS),
-        "bound_ms": bms, "bound_by": by, "library_ms": None}
 
     # Miller-step inputs from a real pairing's first steps: n distinct
     # pairs ([r]G1, [s]G2) made on the card, then two dbl+add steps.
@@ -218,26 +277,15 @@ def main() -> int:
     bit = torch.tensor([rng.getrandbits(1) for _ in range(n)], dtype=F.DTYPE, device=dev)
     step_args = {"miller_step_dbl": (f, tpt, xp, yp),
                  "miller_step_add": (f, tpt, q, xp, yp, bit)}
+    # name: (kernel wrapper, plain version, step program, input planes, TPU kernel line)
     steps = {"miller_step_dbl": (ML.miller_step_dbl, ML.miller_step_dbl_plain, "dbl", 20, 423),
-             "miller_step_add": (ML.miller_step_add, ML.miller_step_add_plain, "add", 25, 449)}
-    for name, (kern, plain, step, planes_in, line) in steps.items():
+             "miller_step_add": (ML.miller_step_add, ML.miller_step_add_plain, "add", 24, 449)}
+    for name, (kern, plain, *_) in steps.items():
         args = step_args[name]
-        got, ref = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        eq = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
-        equal &= eq
+        eq = hold(name, kern(*args), plain(*args))
         emit({"phase": "kernel_check", "kernel": name, "corpus": "pairing_steps", "n": n,
               "equal": eq})
-        bytes_moved = (planes_in + 18) * F.N * 4 * n + (4 * n if step == "add" else 0)
-        bms, by = bound_ms(bytes_moved, ML.program(step).n_mul * MK.IMAD_PER_LANE * n)
-        kernels[name] = {
-            "route": "cuda", "source": "lighthouse_tpu_torch/csrc/miller_step.cu",
-            "replaces": f"lighthouse_tpu/crypto/bls/jax_backend/pallas_miller.py:{line}",
-            "equal": eq, "max_abs_err": max_abs_err(got, ref),
-            "ms": time_ms(torch, lambda: kern(*args), KERNEL_RUNS),
-            "plain_ms": time_ms(torch, lambda: plain(*args), PLAIN_RUNS),
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
-    if not equal:
+    if not all(c["equal"] for c in checked.values()):
         emit({"phase": "kernel_check", "error": "a kernel disagrees with its plain version"})
         return 1
 
@@ -274,7 +322,6 @@ def main() -> int:
           "signers_per_multi_key_set": 16, "seconds": round(time.perf_counter() - t0, 3)})
 
     bk = backend.TorchBackend(device="cuda", device_h2c=True)
-    torch.cuda.reset_peak_memory_stats()
     backend.reset_launch_counts()
     mb = bk.marshal_sets(sets)
     torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
@@ -285,7 +332,8 @@ def main() -> int:
     verdict = bk.resolve(handle)
     counts = backend.launch_counts()
     backend.reset_launch_counts()
-    bad_verdict = bk.verify_signature_sets(bad)
+    bad_verdict, mont_ops, mont_calls, step_ops = capture_kernel_operands(
+        MK, ML, lambda: bk.verify_signature_sets(bad))
     bad_counts = backend.launch_counts()
     emit({"phase": "path", "verdict_valid": verdict, "verdict_one_bad": bad_verdict,
           "launches_per_verify": counts, "launches_one_bad": bad_counts})
@@ -296,6 +344,52 @@ def main() -> int:
                 and c["mont_mul"] > 0):
             return 1
 
+    # -- the kernels on the path's own operands, and their times ----------
+    kernels = {}
+    with torch.inference_mode():
+        eqs = [hold("mont_mul", [MK.mont_mul(x, y)], [MK.mont_mul_plain(x, y)])
+               for x, y in mont_ops.values()]
+        emit({"phase": "path_kernel_check", "kernel": "mont_mul", "widths": len(mont_ops),
+              "ragged_widths": sum(1 for w in mont_ops if w % 128),
+              "calls_by_width": dict(sorted(mont_calls.items())), "equal": all(eqs)})
+        for name, (kern, plain, *_) in steps.items():
+            eqs = [hold(name, kern(*args), plain(*args)) for _, args in step_ops[name]]
+            emit({"phase": "path_kernel_check", "kernel": name,
+                  "calls": [i for i, _ in step_ops[name]],
+                  "n": step_ops[name][0][1][0].shape[-1], "equal": all(eqs)})
+        if not all(c["equal"] for c in checked.values()):
+            emit({"phase": "path_kernel_check",
+                  "error": "a kernel disagrees with its plain version on the path's operands"})
+            return 1
+
+        # mont_mul at its most-launched width on the path; the Miller steps
+        # at the last kept step with the addition bit set (live f and T).
+        n_mont = max(mont_calls, key=mont_calls.get)
+        x, y = mont_ops[n_mont]
+        bms, by = bound_ms(3 * F.N * 4 * n_mont, MK.IMAD_PER_LANE * n_mont)
+        kernels["mont_mul"] = {
+            "route": "cuda", "source": "lighthouse_tpu_torch/csrc/mont.cu",
+            "replaces": "lighthouse_tpu/crypto/bls/jax_backend/pallas_fp.py:141",
+            **checked["mont_mul"], "n": n_mont,
+            "ms": time_ms(torch, lambda: MK.mont_mul(x, y), KERNEL_LAUNCHES, queue_first=True),
+            "plain_ms": time_ms(torch, lambda: MK.mont_mul_plain(x, y), PLAIN_LAUNCHES),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+        for name, (kern, plain, step, planes_in, line) in steps.items():
+            call, args = [c for c in step_ops[name] if ML.X_BITS[1 + c[0]]][-1]
+            n_step = args[0].shape[-1]
+            # f, T (, Q), xp, yp planes read and f, T written; the add step's bit
+            bytes_moved = (planes_in + 18) * F.N * 4 * n_step + (4 * n_step if step == "add" else 0)
+            bms, by = bound_ms(bytes_moved, ML.program(step).n_mul * MK.IMAD_PER_LANE * n_step)
+            kernels[name] = {
+                "route": "cuda", "source": "lighthouse_tpu_torch/csrc/miller_step.cu",
+                "replaces": f"lighthouse_tpu/crypto/bls/jax_backend/pallas_miller.py:{line}",
+                **checked[name], "n": n_step, "step": call,
+                "ms": time_ms(torch, lambda: kern(*args), KERNEL_LAUNCHES, queue_first=True),
+                "plain_ms": time_ms(torch, lambda: plain(*args), PLAIN_LAUNCHES),
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+    del mont_ops, step_ops
+
+    torch.cuda.reset_peak_memory_stats()  # peak_mem_gib: the timed verifies alone
     timings = []
     for _ in range(3):
         t0 = time.perf_counter()

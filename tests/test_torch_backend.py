@@ -4,7 +4,8 @@
   device_h2c settings, weights pinned), and convert.operands_from_jax
   carries the JAX operands over to the same tensors;
 * verify_signature_sets verdicts at B=8 equal the JAX package's pure-Python
-  oracle on the edge corpora (run on the CPU through the plain versions);
+  oracle on the edge corpora (run on the CPU through the plain versions;
+  the one-invalid corpus through the default device_h2c program);
 * the whole device program against JAX's jitted _verify_kernel_h2c: the
   Fp12 value before the final exponentiation and the verdict (slow: the
   JAX CPU compile takes minutes).
@@ -106,10 +107,16 @@ def cpu_backend():
 
 @pytest.mark.parametrize("corpus", _CORPORA)
 def test_verdicts_match_oracle(cpu_backend, corpus):
+    """The rejecting corpus runs the card's default program (the map to G2
+    on the device); the valid one the host-hashed program, whose device_h2c
+    twin the slow whole-slice test runs.  The edge corpora stop on the host."""
     spec = _spec(corpus)
     want = japi.cpu_backend().verify_signature_sets(_sets(japi, spec))
     assert want is (corpus == "valid")
-    assert cpu_backend.verify_signature_sets(_sets(tapi, spec)) is want
+    backend = (TB.TorchBackend(device="cpu", min_batch=8) if corpus == "one_invalid"
+               else cpu_backend)
+    assert backend.device_h2c is (corpus == "one_invalid")
+    assert backend.verify_signature_sets(_sets(tapi, spec)) is want
 
 
 def test_infinity_key_is_refused_as_in_jax():
