@@ -4,33 +4,46 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA.  Phases, one JSON line each:
+PyTorch built for CUDA.  It drives the path under both arms: the default
+(fused Miller steps; chains and fused scalar muls off, as on the TPU by
+default) and the chain-and-WSM arm (fp.set_chains(True), fp.set_wsm(True)).
+Phases, one JSON line each:
 
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/.
-3. kernel checks: each hand-written kernel (mont_mul, miller_step_dbl,
-   miller_step_add) against its plain PyTorch version on the card, on
-   seeded inputs at the Miller loop's width of 4,097 lanes (4,096 sets
-   plus the (-G1, S) pair, a ragged edge for every block size), byte
-   equality required.
+3. kernel checks: each hand-written kernel against its plain PyTorch version
+   on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
+   (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
+   byte equality required: mont_mul on four corpora; the Miller steps on
+   live pairing steps; the Fp chain at p-2 on strict and lazy bases; the Fp2
+   chain at (p^2+7)/16; one G1 and one G2 WSM step on live points with
+   random bits and infinity flags on either side.
 4. reference: the device map-to-G2 on a few messages against the host
-   hash_to_g2.
-5. path: TorchBackend(device="cuda", device_h2c=True).verify_signature_sets
-   on 4,096 signature sets (a tiled pool of seeded signed sets, with
-   multi-key sets); True on the valid batch, False with one signature
-   swapped for a valid signature of another message.  The first verify's
-   dispatch runs under torch's sync debug mode set to "error", so any host
-   sync in the device program fails the run; launch counts come from each
-   of the two verifies.  The second verify also keeps copies of the
-   kernels' operands (mont_mul: the first call at every width; the Miller
-   steps: each step whose addition bit is set, and the last), and each
-   kernel is held byte for byte against its plain version on them.
-   Kernel times: CUDA events around runs of back-to-back launches on those
-   operands (mont_mul at its most-launched width), queued while the card
-   sleeps so that the host's wrapper time stays out.  Path timings and
-   peak memory from three more verifies.
-6. profile: one more verify under torch.profiler, giving every kernel the
-   card ran and the share of the wall time the card was busy.
+   hash_to_g2; the chains' outputs on a few lanes against host pow and the
+   oracle's Fp2.pow.
+5. path, for each arm: TorchBackend(device="cuda", device_h2c=True)
+   .verify_signature_sets on 4,096 signature sets (a tiled pool of seeded
+   signed sets, with multi-key sets); True on the valid batch, False with
+   one signature swapped for a valid signature of another message.  The
+   valid verify's dispatch runs under torch's sync debug mode set to
+   "error", so any host sync in the device program fails the run; launch
+   counts come from each verify (Miller 63/63 in both arms; under the arm
+   12 Fp chains, 4 Fp2 chains and 64 WSM steps per curve, none in the
+   default arm).  The one-bad verify keeps copies of the kernels' operands
+   (mont_mul and the chains: the first call at every width; the Miller
+   steps: each step whose addition bit is set, and the last; the WSM
+   steps: four bits), and each kernel is held byte for byte against its
+   plain version on them (path_kernel_check).
+6. kernel times, on the captured operands: CUDA events around runs of
+   back-to-back launches (mont_mul at the default path's most-launched
+   width; the chains at the arm's most-launched width; every other kernel
+   on the arm's operands), queued while the card sleeps so that the host's
+   wrapper time stays out.
+7. path_timing: verifies of both arms interleaved (default, arm, arm,
+   default, twice), with marshal, dispatch and resolve times and peak
+   memory for each arm.
+8. profile: one more verify of each arm under torch.profiler, giving every
+   kernel the card ran and the share of the wall time the card was busy.
 
 Then the kernels line, the nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -52,11 +65,18 @@ POOL = 64  # distinct signed sets, tiled to N_SETS
 MULTI = 4  # of them: 16 signers on one message (host aggregation runs)
 SEED = 20261016
 TIME_WINDOWS = 5  # timing windows per function; the median is kept
-KERNEL_LAUNCHES = 50  # back-to-back kernel launches per window
+KERNEL_LAUNCHES = 50  # back-to-back launches per window of a short kernel
+LONG_LAUNCHES = 10  # ... of a kernel of a millisecond or more
 PLAIN_LAUNCHES = 3  # back-to-back plain-version calls per window
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 1980 MHz: covers the host queueing a window
+TIMING_ORDER = ("default", "arm", "arm", "default") * 2  # interleaved path verifies
+WSM_KEEP = (0, 1, 32, 63)  # WSM step calls whose operands are kept
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
+
+STEP_NAMES = ("miller_step_dbl", "miller_step_add")
+WSM_NAMES = ("wsm_step_g1", "wsm_step_g2")
+KERNEL_NAMES = ("mont_mul",) + STEP_NAMES + ("fp_chain", "fp2_chain") + WSM_NAMES
 
 
 def emit(obj) -> None:
@@ -70,16 +90,17 @@ def nvidia_smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, calls: int, queue_first: bool = False) -> float:
+def time_ms(torch, fn, calls: int, queue_first: bool = False,
+            windows: int = TIME_WINDOWS) -> float:
     """ms per call of fn() on the card: CUDA events around ``calls``
-    back-to-back calls, divided by ``calls``; the median of TIME_WINDOWS
+    back-to-back calls, divided by ``calls``; the median of ``windows``
     such windows, after a warm-up call.  With ``queue_first`` the card
     sleeps before the start event while the host queues every call, so a
     kernel shorter than its wrapper's host time is timed on the card alone."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIME_WINDOWS):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if queue_first:
@@ -93,50 +114,57 @@ def time_ms(torch, fn, calls: int, queue_first: bool = False) -> float:
     return statistics.median(times)
 
 
-STEP_NAMES = ("miller_step_dbl", "miller_step_add")
+def _clone(args):
+    return tuple(x.clone() if hasattr(x, "clone") else x for x in args)
 
 
-def capture_kernel_operands(MK, ML, run):
-    """Run ``run()`` (one verify) with the three kernel wrappers wrapped.
-    Every call goes through to the wrapper unchanged (and is counted there);
+def capture_kernel_operands(mods, run):
+    """Run ``run()`` (one verify) with every kernel wrapper wrapped.  Every
+    call goes through to the wrapper unchanged (and is counted there);
     clones of some operands are kept for the kernel-vs-plain check on the
-    path's own shapes: the first mont_mul call at each width, with the
-    number of calls per width, and the Miller-step calls whose addition bit
-    is set, and the last.  Returns (run's result, {width: (a, b)},
-    {width: calls}, {step: [(call index, operands)]})."""
-    keep = {i for i, b in enumerate(ML.X_BITS[1:]) if b} | {len(ML.X_BITS) - 2}
-    orig = {"mont_mul": MK.mont_mul, **{s: getattr(ML, s) for s in STEP_NAMES}}
-    mont_ops, mont_calls = {}, {}
-    steps = {s: [] for s in STEP_NAMES}
+    path's own shapes: mont_mul and the chains, the first call at each
+    width (with the number of calls per width); the Miller steps, the calls
+    whose addition bit is set, and the last; the WSM steps, the calls in
+    WSM_KEEP.  ``mods`` maps each kernel name to the module holding its
+    wrapper.  Returns (run's result, {name: {key: operands}},
+    {name: {width: calls}})."""
+    ML = mods["miller_step_dbl"]
+    keep = {"miller_step_dbl": {i for i, b in enumerate(ML.X_BITS[1:]) if b}
+            | {len(ML.X_BITS) - 2}}
+    keep["miller_step_add"] = keep["miller_step_dbl"]
+    attrs = {"mont_mul": "mont_mul", "fp_chain": "pow_chain", "fp2_chain": "fp2_pow_chain",
+             **{s: s for s in STEP_NAMES + WSM_NAMES}}
+    orig = {name: getattr(mods[name], attrs[name]) for name in KERNEL_NAMES}
+    ops = {name: {} for name in KERNEL_NAMES}
+    widths = {name: {} for name in KERNEL_NAMES}
 
-    def mont_mul(a, b):
-        n = a.shape[1]
-        mont_calls[n] = mont_calls.get(n, 0) + 1
-        if n not in mont_ops:
-            mont_ops[n] = (a.clone(), b.clone())
-        return orig["mont_mul"](a, b)
-
-    def step(name):
+    def wrap(name):
         seen = [0]
 
         def wrapped(*args):
-            if seen[0] in keep:
-                steps[name].append((seen[0], tuple(x.clone() for x in args)))
+            n = args[0].shape[-1]
+            widths[name][n] = widths[name].get(n, 0) + 1
+            if name in keep:
+                if seen[0] in keep[name]:
+                    ops[name][seen[0]] = _clone(args)
+            elif name in WSM_NAMES:
+                if seen[0] in WSM_KEEP:
+                    ops[name][seen[0]] = _clone(args)
+            elif n not in ops[name]:
+                ops[name][n] = _clone(args)
             seen[0] += 1
             return orig[name](*args)
 
         return wrapped
 
-    MK.mont_mul = mont_mul
-    for s in STEP_NAMES:
-        setattr(ML, s, step(s))
+    for name in KERNEL_NAMES:
+        setattr(mods[name], attrs[name], wrap(name))
     try:
         result = run()
     finally:
-        MK.mont_mul = orig["mont_mul"]
-        for s in STEP_NAMES:
-            setattr(ML, s, orig[s])
-    return result, mont_ops, mont_calls, steps
+        for name in KERNEL_NAMES:
+            setattr(mods[name], attrs[name], orig[name])
+    return result, ops, widths
 
 
 def profile_verify(torch, bk, sets) -> dict:
@@ -169,7 +197,7 @@ def profile_verify(torch, bk, sets) -> dict:
         name = name.split("(")[0].split("<")[0].split("::")[-1][:60]
         count, us = by_name.get(name, (0, 0.0))
         by_name[name] = (count + 1, us + e["dur"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return {"wall_s": wall_s, "device_kernels": len(kernels), "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall_s if kernels else None,
             "top_kernels": [{"name": k, "launches": c, "s": us / 1e6} for k, (c, us) in top]}
@@ -184,11 +212,12 @@ def main() -> int:
     try:
         from lighthouse_tpu_torch.crypto.bls import api
         from lighthouse_tpu_torch.crypto.bls.curve import G1_GENERATOR, G2_GENERATOR
+        from lighthouse_tpu_torch.crypto.bls.fields import Fp2 as OFp2
         from lighthouse_tpu_torch.crypto.bls.hash_to_curve import (
             hash_to_field_fp2, hash_to_g2)
         from lighthouse_tpu_torch.crypto.bls.torch_backend import (
-            _build, backend, fp as F, h2c, miller_kernel as ML, mont_kernel as MK,
-            points as P, tower as T)
+            _build, backend, chain_kernel as CK, fp as F, h2c, miller_kernel as ML,
+            mont_kernel as MK, points as P, tower as T, wsm_kernel as W)
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 2
@@ -210,9 +239,11 @@ def main() -> int:
           "ptxas": built["ptxas"]})
 
     # -- kernel checks ----------------------------------------------------
+    def rand_ints(n, k=1):
+        return [rng.randrange(k * F.P_INT) for _ in range(n)]
+
     def rand_limbs(n, k=1):
-        return torch.as_tensor(
-            F.ints_to_limbs([rng.randrange(k * F.P_INT) for _ in range(n)])).to(dev)
+        return torch.as_tensor(F.ints_to_limbs(rand_ints(n, k))).to(dev)
 
     def bound_ms(bytes_moved, imads):
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -223,18 +254,31 @@ def main() -> int:
         return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
 
     # equal and max_abs_err per kernel, over the seeded and the path checks
-    checked = {name: {"equal": True, "max_abs_err": 0} for name in ("mont_mul",) + STEP_NAMES}
+    checked = {name: {"equal": True, "max_abs_err": 0} for name in KERNEL_NAMES}
+    # name: (kernel wrapper, plain version)
+    funcs = {"mont_mul": (lambda *a: [MK.mont_mul(*a)], lambda *a: [MK.mont_mul_plain(*a)]),
+             "miller_step_dbl": (ML.miller_step_dbl, ML.miller_step_dbl_plain),
+             "miller_step_add": (ML.miller_step_add, ML.miller_step_add_plain),
+             "fp_chain": (lambda *a: [CK.pow_chain(*a)], lambda *a: [CK.pow_chain_plain(*a)]),
+             "fp2_chain": (CK.fp2_pow_chain, CK.fp2_pow_chain_plain),
+             "wsm_step_g1": (W.wsm_step_g1, W.wsm_step_g1_plain),
+             "wsm_step_g2": (W.wsm_step_g2, W.wsm_step_g2_plain)}
 
-    def hold(name, got, ref):
-        """Byte equality of a kernel's outputs with its plain version's."""
+    def hold(name, args):
+        """Byte equality of a kernel's outputs with its plain version's on
+        the same operands; returns (equal, the kernel's outputs)."""
+        kern, plain = funcs[name]
+        got, ref = kern(*args), plain(*args)
         torch.cuda.synchronize()
         eq = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
         checked[name]["equal"] &= eq
         checked[name]["max_abs_err"] = max(checked[name]["max_abs_err"], max_abs_err(got, ref))
-        return eq
+        return eq, got
 
     n = N_LANES
-    a, b = F.LFp(rand_limbs(n), 1.0), F.LFp(rand_limbs(n), 1.0)
+    a_ints, b_ints = rand_ints(n), rand_ints(n)
+    a = F.LFp(torch.as_tensor(F.encode_mont(a_ints)).to(dev), 1.0)
+    b = F.LFp(torch.as_tensor(F.encode_mont(b_ints)).to(dev), 1.0)
     s, t = F.fp_add(a, a), F.fp_sub(b, a)
     corpora = {
         "strict": (a.limbs, b.limbs),
@@ -243,22 +287,21 @@ def main() -> int:
         "all_qmax": (torch.full((F.N, n), F.QMAX, dtype=F.DTYPE, device=dev),) * 2,
     }
     for name, (x, y) in corpora.items():
-        x, y = x.contiguous(), y.contiguous()
-        eq = hold("mont_mul", [MK.mont_mul(x, y)], [MK.mont_mul_plain(x, y)])
+        eq, _ = hold("mont_mul", (x.contiguous(), y.contiguous()))
         emit({"phase": "kernel_check", "kernel": "mont_mul", "corpus": name, "n": n, "equal": eq})
 
-    # Miller-step inputs from a real pairing's first steps: n distinct
-    # pairs ([r]G1, [s]G2) made on the card, then two dbl+add steps.
+    # Miller-step and WSM-step inputs from live points: n distinct
+    # [r]G1 and [s]G2 made on the card, then two dbl+add Miller steps.
     def gen_points(ops, gen_aff, encode):
         base = encode([gen_aff] * n, dev)
         bits = torch.tensor([[rng.getrandbits(1) for _ in range(n)] for _ in range(64)],
                             dtype=F.DTYPE, device=dev)
         bits[0] = 1
         jac = P.scalar_mul_bits(ops, P.from_affine(ops, base), bits)
-        return P.to_affine(ops, jac, F.fp_inv if ops is P.FP_OPS else T.fp2_inv)
+        return jac, P.to_affine(ops, jac, F.fp_inv if ops is P.FP_OPS else T.fp2_inv)
 
-    p_aff = gen_points(P.FP_OPS, G1_GENERATOR, P.g1_encode)
-    q_aff = gen_points(P.FP2_OPS, G2_GENERATOR, P.g2_encode)
+    p_jac, p_aff = gen_points(P.FP_OPS, G1_GENERATOR, P.g1_encode)
+    q_jac, q_aff = gen_points(P.FP2_OPS, G2_GENERATOR, P.g2_encode)
 
     def flat(c):
         return F.fp_reduce(c).limbs.contiguous()
@@ -275,21 +318,46 @@ def main() -> int:
         f, tpt = ML.miller_step_dbl(f, tpt, xp, yp)
         f, tpt = ML.miller_step_add(f, tpt, q, xp, yp, ones)
     bit = torch.tensor([rng.getrandbits(1) for _ in range(n)], dtype=F.DTYPE, device=dev)
-    step_args = {"miller_step_dbl": (f, tpt, xp, yp),
-                 "miller_step_add": (f, tpt, q, xp, yp, bit)}
-    # name: (kernel wrapper, plain version, step program, input planes, TPU kernel line)
-    steps = {"miller_step_dbl": (ML.miller_step_dbl, ML.miller_step_dbl_plain, "dbl", 20, 423),
-             "miller_step_add": (ML.miller_step_add, ML.miller_step_add_plain, "add", 24, 449)}
-    for name, (kern, plain, *_) in steps.items():
-        args = step_args[name]
-        eq = hold(name, kern(*args), plain(*args))
+    for name, args in (("miller_step_dbl", (f, tpt, xp, yp)),
+                       ("miller_step_add", (f, tpt, q, xp, yp, bit))):
+        eq, _ = hold(name, args)
         emit({"phase": "kernel_check", "kernel": name, "corpus": "pairing_steps", "n": n,
+              "equal": eq})
+
+    # The chains: p-2 on strict and lazy (bound 4, inside the 4.3 P
+    # contract) bases; (p^2+7)/16 on reduced Fp2 elements.
+    lazy = F.fp_add(F.fp_add(t, a), F.LFp(torch.zeros_like(a.limbs), 0.0))
+    chain_out = {}
+    for name, base in (("strict", a.limbs), ("lazy_bound4", lazy.limbs.contiguous())):
+        eq, got = hold("fp_chain", (base, F.P_INT - 2))
+        chain_out[name] = got[0]
+        emit({"phase": "kernel_check", "kernel": "fp_chain", "corpus": name, "n": n,
+              "exponent": "p-2", "equal": eq})
+    eq, fp2_out = hold("fp2_chain", (a.limbs, b.limbs, h2c.SQRT_EXP_BITS))
+    emit({"phase": "kernel_check", "kernel": "fp2_chain", "corpus": "strict", "n": n,
+          "exponent": "(p^2+7)/16", "equal": eq})
+
+    # One WSM step per curve on live points: the acc a reduced Jacobian
+    # multiple of the generator, the base another lane's affine multiple;
+    # random bits, and infinity flags set on about one lane in four on each
+    # side, so every (acc flag, base flag) state occurs.
+    def flags(p_one):
+        return torch.tensor([[int(rng.random() < p_one) for _ in range(n)]], dtype=F.DTYPE,
+                            device=dev)
+
+    for name, ops, jac, aff in (("wsm_step_g1", P.FP_OPS, p_jac, p_aff),
+                                ("wsm_step_g2", P.FP2_OPS, q_jac, q_aff)):
+        acc = torch.stack([flat(lane) for c in jac[:3] for lane in ops.lanes(c)])
+        base = torch.stack([flat(lane) for c in aff for lane in ops.lanes(c)]).roll(1, -1)
+        args = (acc, flags(0.25), base.contiguous(), flags(0.25), flags(0.5))
+        eq, _ = hold(name, args)
+        emit({"phase": "kernel_check", "kernel": name, "corpus": "live_points_flags", "n": n,
               "equal": eq})
     if not all(c["equal"] for c in checked.values()):
         emit({"phase": "kernel_check", "error": "a kernel disagrees with its plain version"})
         return 1
 
-    # -- reference: device map-to-G2 against the host hash_to_g2 ----------
+    # -- reference --------------------------------------------------------
     msgs = [bytes([i]) * 32 for i in range(4)]
     us = [hash_to_field_fp2(m, 2) for m in msgs]
     h_aff = h2c.map_to_g2(T.fp2_encode([u[0] for u in us], dev),
@@ -298,10 +366,24 @@ def main() -> int:
     ref_ok = got == [hash_to_g2(m) for m in msgs]
     emit({"phase": "reference", "check": "map_to_g2 vs host hash_to_g2", "n": len(msgs),
           "equal": ref_ok})
-    if not ref_ok:
+    k = 4
+    lazy_ints = F.decode_mont(lazy.limbs[:, :k])
+    fp_ok = (F.decode_mont(chain_out["strict"][:, :k]) == [pow(v, F.P_INT - 2, F.P_INT)
+                                                          for v in a_ints[:k]]
+             and F.decode_mont(chain_out["lazy_bound4"][:, :k])
+             == [pow(v, F.P_INT - 2, F.P_INT) for v in lazy_ints])
+    emit({"phase": "reference", "check": "fp_chain vs host pow(x, p-2, p)", "n": k,
+          "equal": fp_ok})
+    got2 = [(x % F.P_INT, y % F.P_INT) for x, y in zip(F.decode_mont(fp2_out[0][:, :k]),
+                                                      F.decode_mont(fp2_out[1][:, :k]))]
+    want2 = [OFp2(x, y).pow(h2c.SQRT_EXP) for x, y in zip(a_ints[:k], b_ints[:k])]
+    fp2_ok = got2 == [(w.c0, w.c1) for w in want2]
+    emit({"phase": "reference", "check": "fp2_chain vs oracle Fp2.pow((p^2+7)/16)", "n": k,
+          "equal": fp2_ok})
+    if not (ref_ok and fp_ok and fp2_ok):
         return 1
 
-    # -- path -------------------------------------------------------------
+    # -- path, under both arms --------------------------------------------
     t0 = time.perf_counter()
     pool = []
     for i in range(POOL):
@@ -321,77 +403,123 @@ def main() -> int:
     emit({"phase": "path_setup", "sets": N_SETS, "distinct": POOL, "multi_key_sets": MULTI,
           "signers_per_multi_key_set": 16, "seconds": round(time.perf_counter() - t0, 3)})
 
-    bk = backend.TorchBackend(device="cuda", device_h2c=True)
-    backend.reset_launch_counts()
-    mb = bk.marshal_sets(sets)
-    torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
-    try:
-        handle = bk.dispatch(mb)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    verdict = bk.resolve(handle)
-    counts = backend.launch_counts()
-    backend.reset_launch_counts()
-    bad_verdict, mont_ops, mont_calls, step_ops = capture_kernel_operands(
-        MK, ML, lambda: bk.verify_signature_sets(bad))
-    bad_counts = backend.launch_counts()
-    emit({"phase": "path", "verdict_valid": verdict, "verdict_one_bad": bad_verdict,
-          "launches_per_verify": counts, "launches_one_bad": bad_counts})
-    if not (verdict is True and bad_verdict is False):
-        return 1
-    for c in (counts, bad_counts):
-        if not (c["miller_step_dbl"] == 63 and c["miller_step_add"] == 63
-                and c["mont_mul"] > 0):
-            return 1
+    def set_arm(arm: str) -> None:
+        F.set_chains(arm == "arm")
+        F.set_wsm(arm == "arm")
 
-    # -- the kernels on the path's own operands, and their times ----------
-    kernels = {}
+    mods = {"mont_mul": MK, "fp_chain": CK, "fp2_chain": CK,
+            **{s: ML for s in STEP_NAMES}, **{s: W for s in WSM_NAMES}}
+    want_counts = {
+        "default": {"miller_step_dbl": 63, "miller_step_add": 63, "fp_chain": 0,
+                    "fp2_chain": 0, "wsm_step_g1": 0, "wsm_step_g2": 0},
+        "arm": {"miller_step_dbl": 63, "miller_step_add": 63, "fp_chain": 12,
+                "fp2_chain": 4, "wsm_step_g1": 64, "wsm_step_g2": 64},
+    }
+    bk = backend.TorchBackend(device="cuda", device_h2c=True)
+    counts, path_ops, path_widths = {}, {}, {}
+    for arm in ("default", "arm"):
+        set_arm(arm)
+        backend.reset_launch_counts()
+        mb = bk.marshal_sets(sets)
+        torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
+        try:
+            handle = bk.dispatch(mb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        verdict = bk.resolve(handle)
+        counts[arm] = backend.launch_counts()
+        backend.reset_launch_counts()
+        bad_verdict, path_ops[arm], path_widths[arm] = capture_kernel_operands(
+            mods, lambda: bk.verify_signature_sets(bad))
+        bad_counts = backend.launch_counts()
+        emit({"phase": "path", "arm": arm, "verdict_valid": verdict,
+              "verdict_one_bad": bad_verdict, "launches_per_verify": counts[arm],
+              "launches_one_bad": bad_counts,
+              "launches_per_verify_total": sum(counts[arm].values())})
+        if not (verdict is True and bad_verdict is False):
+            return 1
+        for c in (counts[arm], bad_counts):
+            if c["mont_mul"] <= 0 or any(c[k] != v for k, v in want_counts[arm].items()):
+                emit({"phase": "path", "arm": arm, "error": "unexpected launch counts",
+                      "want": want_counts[arm]})
+                return 1
+
+    # -- the kernels on the path's own operands ----------------------------
     with torch.inference_mode():
-        eqs = [hold("mont_mul", [MK.mont_mul(x, y)], [MK.mont_mul_plain(x, y)])
-               for x, y in mont_ops.values()]
-        emit({"phase": "path_kernel_check", "kernel": "mont_mul", "widths": len(mont_ops),
-              "ragged_widths": sum(1 for w in mont_ops if w % 128),
-              "calls_by_width": dict(sorted(mont_calls.items())), "equal": all(eqs)})
-        for name, (kern, plain, *_) in steps.items():
-            eqs = [hold(name, kern(*args), plain(*args)) for _, args in step_ops[name]]
-            emit({"phase": "path_kernel_check", "kernel": name,
-                  "calls": [i for i, _ in step_ops[name]],
-                  "n": step_ops[name][0][1][0].shape[-1], "equal": all(eqs)})
+        for arm in ("default", "arm"):
+            for name in KERNEL_NAMES:
+                kept = path_ops[arm][name]
+                if not kept:
+                    continue
+                eqs = [hold(name, args)[0] for args in kept.values()]
+                emit({"phase": "path_kernel_check", "arm": arm, "kernel": name,
+                      "kept": sorted(kept), "calls_by_width": dict(sorted(
+                          path_widths[arm][name].items())), "equal": all(eqs)})
         if not all(c["equal"] for c in checked.values()):
             emit({"phase": "path_kernel_check",
                   "error": "a kernel disagrees with its plain version on the path's operands"})
             return 1
 
-        # mont_mul at its most-launched width on the path; the Miller steps
-        # at the last kept step with the addition bit set (live f and T).
-        n_mont = max(mont_calls, key=mont_calls.get)
-        x, y = mont_ops[n_mont]
-        bms, by = bound_ms(3 * F.N * 4 * n_mont, MK.IMAD_PER_LANE * n_mont)
-        kernels["mont_mul"] = {
-            "route": "cuda", "source": "lighthouse_tpu_torch/csrc/mont.cu",
-            "replaces": "lighthouse_tpu/crypto/bls/jax_backend/pallas_fp.py:141",
-            **checked["mont_mul"], "n": n_mont,
-            "ms": time_ms(torch, lambda: MK.mont_mul(x, y), KERNEL_LAUNCHES, queue_first=True),
-            "plain_ms": time_ms(torch, lambda: MK.mont_mul_plain(x, y), PLAIN_LAUNCHES),
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
-        for name, (kern, plain, step, planes_in, line) in steps.items():
-            call, args = [c for c in step_ops[name] if ML.X_BITS[1 + c[0]]][-1]
+        # -- kernel times on the arm's operands ----------------------------
+        kernels = {}
+        ops, widths = path_ops["arm"], path_widths["arm"]
+
+        def record(name, args, source, replaces, bytes_moved, imads, long, **extra):
+            kern, plain = funcs[name]
+            bms, by = bound_ms(bytes_moved, imads)
+            kernels[name] = {
+                "route": "cuda", "source": f"lighthouse_tpu_torch/csrc/{source}",
+                "replaces": f"lighthouse_tpu/crypto/bls/jax_backend/{replaces}",
+                **checked[name], "n": args[0].shape[-1], **extra,
+                "ms": time_ms(torch, lambda: kern(*args),
+                              LONG_LAUNCHES if long else KERNEL_LAUNCHES, queue_first=True),
+                "plain_ms": (time_ms(torch, lambda: plain(*args), 1, windows=3) if long
+                             else time_ms(torch, lambda: plain(*args), PLAIN_LAUNCHES)),
+                "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+        plane = F.N * 4  # bytes of one (26,) limb column
+        # mont_mul at the default path's most-launched width, where most of
+        # its launches and device time are (the arm's is a 2-lane call)
+        mont_widths = path_widths["default"]["mont_mul"]
+        n_mont = max(mont_widths, key=mont_widths.get)
+        record("mont_mul", path_ops["default"]["mont_mul"][n_mont], "mont.cu",
+               "pallas_fp.py:141", 3 * plane * n_mont, MK.IMAD_PER_LANE * n_mont, False)
+        for name, step, planes_in, line in (("miller_step_dbl", "dbl", 20, 423),
+                                            ("miller_step_add", "add", 24, 449)):
+            call = [c for c in sorted(ops[name]) if ML.X_BITS[1 + c]][-1]
+            args = ops[name][call]
             n_step = args[0].shape[-1]
             # f, T (, Q), xp, yp planes read and f, T written; the add step's bit
-            bytes_moved = (planes_in + 18) * F.N * 4 * n_step + (4 * n_step if step == "add" else 0)
-            bms, by = bound_ms(bytes_moved, ML.program(step).n_mul * MK.IMAD_PER_LANE * n_step)
-            kernels[name] = {
-                "route": "cuda", "source": "lighthouse_tpu_torch/csrc/miller_step.cu",
-                "replaces": f"lighthouse_tpu/crypto/bls/jax_backend/pallas_miller.py:{line}",
-                **checked[name], "n": n_step, "step": call,
-                "ms": time_ms(torch, lambda: kern(*args), KERNEL_LAUNCHES, queue_first=True),
-                "plain_ms": time_ms(torch, lambda: plain(*args), PLAIN_LAUNCHES),
-                "bound_ms": bms, "bound_by": by, "library_ms": None}
-    del mont_ops, step_ops
+            record(name, args, "miller_step.cu", f"pallas_miller.py:{line}",
+                   (planes_in + 18) * plane * n_step + (4 * n_step if step == "add" else 0),
+                   ML.program(step).n_mul * MK.IMAD_PER_LANE * n_step, True, step=call)
+        for name, source, line, planes in (("fp_chain", "chain.cu", 181, 2),
+                                           ("fp2_chain", "chain.cu", 278, 4)):
+            n_ch = max(widths[name], key=widths[name].get)
+            args = ops[name][n_ch]
+            bits = bin(args[1])[2:] if name == "fp_chain" else "".join(map(str, args[2]))
+            nd = len(CK.window_digits(bits))
+            record(name, args, source, f"pallas_fp.py:{line}",
+                   planes * plane * n_ch + 4 * nd,
+                   CK.imads_per_lane(name.split("_")[0], nd) * n_ch, True, digits=nd)
+        for name, nc in (("wsm_step_g1", 1), ("wsm_step_g2", 2)):
+            call = max(ops[name])
+            args = ops[name][call]
+            n_w = args[0].shape[-1]
+            prog = W.program(nc)
+            record(name, args, "wsm_step.cu", "pallas_wsm.py:172",
+                   8 * nc * plane * n_w + 4 * 4 * n_w,
+                   (prog.n_mul * MK.IMAD_PER_LANE + prog.n_sqr * MK.SQR_IMAD_PER_LANE) * n_w,
+                   False, step=call)
+    del path_ops, ops
 
-    torch.cuda.reset_peak_memory_stats()  # peak_mem_gib: the timed verifies alone
-    timings = []
-    for _ in range(3):
+    # -- path timing, both arms interleaved ---------------------------------
+    timings = {"default": [], "arm": []}
+    peak = {"default": 0, "arm": 0}
+    for arm in TIMING_ORDER:
+        set_arm(arm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         mb = bk.marshal_sets(sets)
         t1 = time.perf_counter()
@@ -401,18 +529,28 @@ def main() -> int:
         t3 = time.perf_counter()
         if ok is not True:
             return 1
-        timings.append((t1 - t0, t2 - t1, t3 - t2))
-    med = [statistics.median(c) for c in zip(*timings)]
-    emit({"phase": "path_timing", "sets": N_SETS, "reps": len(timings),
-          "marshal_s": med[0], "dispatch_s": med[1], "resolve_s": med[2],
-          "sets_per_s": N_SETS / sum(med),
-          "device_sets_per_s": N_SETS / (med[1] + med[2]),
-          "card": smi, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    emit({"phase": "profile", "sets": N_SETS, "card": smi, **profile_verify(torch, bk, sets)})
+        timings[arm].append((t1 - t0, t2 - t1, t3 - t2))
+        peak[arm] = max(peak[arm], torch.cuda.max_memory_allocated())
+    for arm in ("default", "arm"):
+        med = [statistics.median(c) for c in zip(*timings[arm])]
+        emit({"phase": "path_timing", "arm": arm, "sets": N_SETS, "order": TIMING_ORDER,
+              "reps": len(timings[arm]), "marshal_s": med[0], "dispatch_s": med[1],
+              "resolve_s": med[2], "sets_per_s": N_SETS / sum(med),
+              "device_sets_per_s": N_SETS / (med[1] + med[2]),
+              "sets_per_s_each": [N_SETS / sum(r) for r in timings[arm]],
+              "dispatch_s_each": [r[1] for r in timings[arm]],
+              "launches_per_verify": sum(counts[arm].values()),
+              "card": smi, "peak_mem_gib": peak[arm] / 2**30})
+    for arm in ("default", "arm"):
+        set_arm(arm)
+        emit({"phase": "profile", "arm": arm, "sets": N_SETS, "card": smi,
+              **profile_verify(torch, bk, sets)})
+    set_arm("default")
 
     out = []
     for name, rec in kernels.items():
-        out.append({"name": name, **rec, "launches": counts[name]})
+        out.append({"name": name, **rec, "launches": counts["arm"][name],
+                    "launches_default": counts["default"][name]})
     emit({"kernels": out})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_ROOT = Path(__file__).resolve().parents[3]
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
-LIBRARIES = ("mont", "miller_step")  # csrc/<name>.cu -> lib<name>.so
+LIBRARIES = ("mont", "miller_step", "chain", "wsm_step")  # csrc/<name>.cu -> lib<name>.so
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

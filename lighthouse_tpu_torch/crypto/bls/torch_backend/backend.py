@@ -15,8 +15,12 @@ verify_signature_sets (crypto/bls/src/impls/blst.rs:35-117):
 
 The device program runs eagerly: every field op is a launch, every
 Montgomery product one launch of kernel 1, every Miller step one launch of
-kernel 2 or 3.  The arm is the TPU default: fused Miller steps on, the
-opt-in chain, scalar-mul and MXU kernels absent.
+kernel 2 or 3.  The default arm is the TPU default: fused Miller steps on,
+the opt-in chain and scalar-mul kernels off, MXU absent.  The chain-and-WSM
+arm (``fp.set_chains(True)``, ``fp.set_wsm(True)`` or LIGHTHOUSE_TPU_CHAINS=1
+/ LIGHTHOUSE_TPU_WSM=1) runs every static-exponent chain as one launch of
+kernel 4 or 5 and each bit of the weight scalar muls as one launch of
+kernel 6 per curve.
 """
 
 from __future__ import annotations
@@ -30,24 +34,32 @@ import torch
 from .. import params
 from ..curve import Fp, G1_GENERATOR, affine_neg, from_jacobian, jac_add, to_jacobian
 from ..hash_to_curve import hash_to_field_fp2, hash_to_g2
+from . import chain_kernel as CK
 from . import fp as F
 from . import miller_kernel as ML
 from . import mont_kernel as MK
 from . import pairing as PR
 from . import points as P
 from . import tower as T
+from . import wsm_kernel as W
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel."""
     return {"mont_mul": MK.launches, "miller_step_dbl": ML.dbl_launches,
-            "miller_step_add": ML.add_launches}
+            "miller_step_add": ML.add_launches, "fp_chain": CK.fp_launches,
+            "fp2_chain": CK.fp2_launches, "wsm_step_g1": W.g1_launches,
+            "wsm_step_g2": W.g2_launches}
 
 
 def reset_launch_counts() -> None:
     MK.launches = 0
     ML.dbl_launches = 0
     ML.add_launches = 0
+    CK.fp_launches = 0
+    CK.fp2_launches = 0
+    W.g1_launches = 0
+    W.g2_launches = 0
 
 
 def _cat_lfp(x, y):
@@ -111,9 +123,15 @@ def _verify_kernel(pk_aff, sig_aff, h_aff, wbits):
     Returns a one-element bool tensor (not synchronised)."""
     # 1. signature subgroup checks (blst.rs:71-81)
     ok_sub = torch.all(P.g2_subgroup_check(sig_aff))
-    # 2. weight scalar muls
-    wpk = P.scalar_mul_bits(P.FP_OPS, P.from_affine(P.FP_OPS, pk_aff), wbits)
-    wsig = P.scalar_mul_bits(P.FP2_OPS, P.from_affine(P.FP2_OPS, sig_aff), wbits)
+    # 2. weight scalar muls: under the WSM arm one kernel-6 launch per bit
+    # per curve, with the bases passed affine (none is at infinity)
+    if F.wsm_fused_active():
+        no_inf = torch.zeros(wbits.shape[1:], dtype=torch.bool, device=wbits.device)
+        wpk = W.scalar_mul_bits_fused(P.FP_OPS, pk_aff, no_inf, wbits)
+        wsig = W.scalar_mul_bits_fused(P.FP2_OPS, sig_aff, no_inf, wbits)
+    else:
+        wpk = P.scalar_mul_bits(P.FP_OPS, P.from_affine(P.FP_OPS, pk_aff), wbits)
+        wsig = P.scalar_mul_bits(P.FP2_OPS, P.from_affine(P.FP2_OPS, sig_aff), wbits)
     # 3. S = sum_i [r_i] sig_i
     S = _tree_reduce_g2(wsig)
     # 4. affinize

@@ -1,0 +1,215 @@
+"""Kernels 4 and 5: static-exponent chains in Fp and Fp2, and their plain
+versions.
+
+Replaces ``lighthouse_tpu/crypto/bls/jax_backend/pallas_fp.py``:
+
+* kernel 4, ``_make_megachain_kernel`` / ``_megachain_call`` /
+  ``pow_chain_limbs``: a^e in Fp, behind ``fp.fp_pow`` (so every Fermat
+  inversion, ``fp_inv``) under the chain arm;
+* kernel 5, ``_make_fp2_megachain_kernel`` / ``_fp2_megachain_call`` /
+  ``fp2_pow_chain``: a^e in Fp2, behind ``h2c.fp2_pow_static`` (the
+  (p^2 + 7) / 16 square-root chain of the SSWU map).
+
+Contract (as the reference's): the exponent is an MSB-first tape of
+base-2^4 digits.  powers[0] is the Montgomery one, powers[1] the base,
+powers[k] = powers[k-1] * base; the accumulator starts at powers[tape[0]]
+and each later digit costs 4 squares and one multiply by powers[digit] (a
+0 digit multiplies by the one, which rewrites the limbs: never skipped).
+The Fp chain squares with the triangle square; its base must be bounded
+below 4.3 P.  The Fp2 chain uses its own Karatsuba cores with fixed 16P /
+2P biases and the full product only; its inputs are reduced (bound <= 2).
+Outputs are the reference's limbs byte for byte.
+
+Hopper design (csrc/chain.cu): one launch per chain, one thread per lane,
+the power table in local memory, the digit tape in device memory uploaded
+once per device and exponent.  What bounds it on the card: integer
+multiplies (about 0.75M per lane for the p-2 chain, 3.6M for the Fp2 square
+root) against a few hundred bytes per lane; at one thread per lane the
+card is far from that bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from . import fp as F
+from .mont_kernel import IMAD_PER_LANE, SQR_IMAD_PER_LANE, mont_mul_plain, mont_sqr_plain
+
+N = F.N
+CHAIN_WINDOW = 4  # pallas_fp.CHAIN_WINDOW: 2^w table entries, w squares + 1 multiply per digit
+
+fp_launches = 0  # kernel launches (plain-version calls do not count)
+fp2_launches = 0
+
+
+def window_digits(bitstr: str, w: int = CHAIN_WINDOW) -> list[int]:
+    """MSB-aligned base-2^w digits of a binary string (pallas_fp._window_digits)."""
+    pad = (-len(bitstr)) % w
+    bitstr = "0" * pad + bitstr
+    return [int(bitstr[i:i + w], 2) for i in range(0, len(bitstr), w)]
+
+
+def _fp2_bits(bits) -> str:
+    bits = tuple(int(b) for b in bits)
+    if not bits or bits[0] != 1:
+        raise ValueError("the Fp2 chain takes MSB-first bits with a leading 1")
+    return "".join(str(b) for b in bits)
+
+
+def products_per_lane(n_digits: int) -> dict:
+    """Montgomery products one lane of each chain runs: the table, then
+    4 squares and one multiply for every digit after the first."""
+    table = (1 << CHAIN_WINDOW) - 2
+    steps = n_digits - 1
+    return {"fp": {"mul": table + steps, "sqr": CHAIN_WINDOW * steps},
+            "fp2": {"mul": 3 * table + steps * (2 * CHAIN_WINDOW + 3), "sqr": 0}}
+
+
+def imads_per_lane(kind: str, n_digits: int) -> int:
+    """32-bit multiplies one lane of the ``kind`` ("fp" or "fp2") chain does."""
+    c = products_per_lane(n_digits)[kind]
+    return c["mul"] * IMAD_PER_LANE + c["sqr"] * SQR_IMAD_PER_LANE
+
+
+@functools.lru_cache(maxsize=None)
+def _tape(digits: tuple, device: str) -> torch.Tensor:
+    """The digit tape on ``device``, uploaded once per device and exponent
+    (pinned, without a host sync)."""
+    return F.upload(torch.tensor(digits, dtype=torch.int32), device)
+
+
+def _check(name: str, *planes: torch.Tensor) -> None:
+    a = planes[0]
+    for x in planes:
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} takes int32 limb tensors")
+        if x.dim() != 2 or x.shape[0] != N or x.shape != a.shape:
+            raise ValueError(f"{name} takes (26, n) tensors of one shape, got {tuple(x.shape)}")
+        if x.device != a.device:
+            raise ValueError(f"{name} operands on different devices")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} has no path for device {a.device}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("chain")
+    if not lib.lh_fp_chain.argtypes:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lh_fp_chain.argtypes = [vp, ci, vp, vp, ci, vp]
+        lib.lh_fp2_chain.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp]
+        lib.lh_fp_chain.restype = ctypes.c_int
+        lib.lh_fp2_chain.restype = ctypes.c_int
+    return lib
+
+
+# -- kernel 4: Fp ----------------------------------------------------------------
+
+
+def pow_chain_plain(base: torch.Tensor, exponent: int) -> torch.Tensor:
+    """The plain version of kernel 4: base^exponent in the Montgomery domain,
+    the same limbs as pallas_fp.pow_chain_limbs."""
+    digits = window_digits(bin(exponent)[2:])
+    powers = [F.const("ONE", base).expand_as(base), base]
+    for _ in range(2, 1 << CHAIN_WINDOW):
+        powers.append(mont_mul_plain(powers[-1], base))
+    acc = powers[digits[0]]
+    for d in digits[1:]:
+        for _ in range(CHAIN_WINDOW):
+            acc = mont_sqr_plain(acc)
+        acc = mont_mul_plain(acc, powers[d])
+    return acc
+
+
+def pow_chain(base: torch.Tensor, exponent: int) -> torch.Tensor:
+    """base^exponent for (26, n) limbs of values below 4.3 P -> (26, n)
+    strict limbs.  CUDA tensors launch kernel 4 on the current stream; CPU
+    tensors take the plain version."""
+    _check("pow_chain", base)
+    if exponent < 1:
+        raise ValueError("pow_chain takes a positive exponent")
+    if base.device.type == "cpu":
+        return pow_chain_plain(base, exponent)
+    digits = tuple(window_digits(bin(exponent)[2:]))
+    out = torch.empty_like(base)
+    n = base.shape[1]
+    if n == 0:
+        return out
+    lib = _lib()
+    err = lib.lh_fp_chain(_tape(digits, str(base.device)).data_ptr(), len(digits),
+                          base.data_ptr(), out.data_ptr(), n,
+                          torch.cuda.current_stream(base.device).cuda_stream)
+    _build.check(lib, err, "fp_chain kernel")
+    global fp_launches
+    fp_launches += 1
+    return out
+
+
+# -- kernel 5: Fp2 ---------------------------------------------------------------
+
+
+def _sub_biased(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """a - b + kP, one carry pass (pallas_fp._sub_biased)."""
+    return F.compress1(a + F.const(k, a) - b)
+
+
+def _fp2_mul_core(a0, a1, b0, b1):
+    """Karatsuba (pallas_fp._fp2_mul_core), the three products stacked into
+    one call."""
+    n = a0.shape[1]
+    x = torch.cat([a0, a1, F.compress1(a0 + a1)], dim=1)
+    y = torch.cat([b0, b1, F.compress1(b0 + b1)], dim=1)
+    v0, v1, m = mont_mul_plain(x, y).split(n, dim=1)
+    return _sub_biased(v0, v1, 2), _sub_biased(_sub_biased(m, v0, 2), v1, 2)
+
+
+def _fp2_sqr_core(a0, a1):
+    """(a0 + a1)(a0 - a1 + 16P), 2 a0 a1 (pallas_fp._fp2_sqr_core), the two
+    products stacked into one call."""
+    n = a0.shape[1]
+    x = torch.cat([F.compress1(a0 + a1), a0], dim=1)
+    y = torch.cat([_sub_biased(a0, a1, 16), a1], dim=1)
+    r0, t = mont_mul_plain(x, y).split(n, dim=1)
+    return r0, F.compress1(t + t)
+
+
+def fp2_pow_chain_plain(a0: torch.Tensor, a1: torch.Tensor, bits) -> tuple:
+    """The plain version of kernel 5: (a0 + a1 u)^e for MSB-first ``bits``
+    (leading bit 1), the same limbs as pallas_fp.fp2_pow_chain."""
+    digits = window_digits(_fp2_bits(bits))
+    powers = [(F.const("ONE", a0).expand_as(a0), torch.zeros_like(a0)), (a0, a1)]
+    for _ in range(2, 1 << CHAIN_WINDOW):
+        powers.append(_fp2_mul_core(*powers[-1], a0, a1))
+    c0, c1 = powers[digits[0]]
+    for d in digits[1:]:
+        for _ in range(CHAIN_WINDOW):
+            c0, c1 = _fp2_sqr_core(c0, c1)
+        c0, c1 = _fp2_mul_core(c0, c1, *powers[d])
+    return c0, c1
+
+
+def fp2_pow_chain(a0: torch.Tensor, a1: torch.Tensor, bits) -> tuple:
+    """(a0 + a1 u)^e for reduced (26, n) limb planes and MSB-first ``bits``
+    -> (r0, r1), each bounded by 6 P.  CUDA tensors launch kernel 5 on the
+    current stream; CPU tensors take the plain version."""
+    _check("fp2_pow_chain", a0, a1)
+    if a0.device.type == "cpu":
+        return fp2_pow_chain_plain(a0, a1, bits)
+    digits = tuple(window_digits(_fp2_bits(bits)))
+    o0, o1 = torch.empty_like(a0), torch.empty_like(a1)
+    n = a0.shape[1]
+    if n == 0:
+        return o0, o1
+    lib = _lib()
+    err = lib.lh_fp2_chain(_tape(digits, str(a0.device)).data_ptr(), len(digits),
+                           a0.data_ptr(), a1.data_ptr(), o0.data_ptr(), o1.data_ptr(), n,
+                           torch.cuda.current_stream(a0.device).cuda_stream)
+    _build.check(lib, err, "fp2_chain kernel")
+    global fp2_launches
+    fp2_launches += 1
+    return o0, o1

@@ -5,8 +5,10 @@
 * ``csrc/miller_step.cu``: kernels 2 and 3, printed from the recorded step
   programs of miller_kernel.py (one C statement per limb op, values kept in
   a per-thread slot array reused by liveness).
+* ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed the
+  same way from the step programs of wsm_kernel.py.
 
-Both files are committed; ``tests/test_torch_miller.py`` regenerates them and
+The files are committed; ``tests/test_torch_miller.py`` regenerates them and
 requires the text to be identical.  Regenerate after changing the formulas:
 
     python -m lighthouse_tpu_torch.crypto.bls.torch_backend.codegen
@@ -17,6 +19,7 @@ from __future__ import annotations
 from . import _build
 from . import fp as F
 from . import miller_kernel as MK
+from . import wsm_kernel as WK
 
 HEADER = "// Generated by lighthouse_tpu_torch/crypto/bls/torch_backend/codegen.py; do not edit.\n"
 
@@ -47,13 +50,26 @@ __constant__ uint32_t kBias[{len(F.BIAS_KS)}][26] = {{
 """
 
 
-_PREAMBLE = """// Kernels 2 and 3: the fused Miller doubling and addition steps, replacing
+_MILLER_DOC = """// Kernels 2 and 3: the fused Miller doubling and addition steps, replacing
 // lighthouse_tpu/crypto/bls/jax_backend/pallas_miller.py:_step_dbl_kernel and
 // _step_add_kernel.  Printed from the step programs that
 // torch_backend/miller_kernel.py records from the formulas of
 // pallas_miller.py; the plain PyTorch version runs the same programs.
 //
-// One thread per lane.  Planes are (planes, 26, n) limb-major, so limb i of
+"""
+
+_WSM_DOC = """// Kernel 6: one double-and-always-add bit of the 64-bit weight scalar
+// multiplication, for G1 and for G2, replacing
+// lighthouse_tpu/crypto/bls/jax_backend/pallas_wsm.py:_make_step_kernel
+// (_step_call).  Printed from the step programs that
+// torch_backend/wsm_kernel.py records from the formulas of pallas_wsm.py
+// (Jacobian double, mixed add of the affine base, the bit and infinity-flag
+// selects); the plain PyTorch version runs the same programs.  Flags are
+// (1, n) planes of 0/1 words, kept per lane in uint32 values.
+//
+"""
+
+_HELPERS = """// One thread per lane.  Planes are (planes, 26, n) limb-major, so limb i of
 // neighbouring lanes are neighbouring words and every load and store
 // coalesces.  Intermediates live in the slot array s (registers spilling to
 // local memory); every Montgomery product is one call of the non-inlined
@@ -130,20 +146,42 @@ __device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int la
 #pragma unroll
   for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i];
 }
+"""
 
+_SQR_HELPERS = """
+__device__ __noinline__ void k_sqr(uint32_t* o, const uint32_t* a) {
+  uint32_t x[NL], r[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) x[i] = a[i];
+  lh::mont_sqr_core(x, r);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = r[i];
+}
+
+__device__ __forceinline__ void k_zero(uint32_t* o) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i] = 0;
+}
+"""
+
+_END_HELPERS = """
 }  // namespace
 """
 
+# program -> (input buffers, output buffers), in the kernel's argument order
 _SIGNATURES = {
-    "dbl": ("f", "t", "xp", "yp"),
-    "add": ("f", "t", "q", "xp", "yp", "bit"),
+    "miller_step_dbl": (("f", "t", "xp", "yp"), ("f_out", "t_out")),
+    "miller_step_add": (("f", "t", "q", "xp", "yp", "bit"), ("f_out", "t_out")),
+    "wsm_step_g1": (("acc", "inf_acc", "base", "inf_base", "bit"), ("acc_out", "inf_out")),
+    "wsm_step_g2": (("acc", "inf_acc", "base", "inf_base", "bit"), ("acc_out", "inf_out")),
 }
 
 
 def _body(prog: MK.Program) -> tuple[list, int]:
     """C statements for a program, slots assigned by liveness: an output
     slot is taken before the op's dead inputs are released, so no op reads
-    and writes one slot."""
+    and writes one slot.  Flags live in named uint32 values, not slots;
+    the Miller addition bit is the bool ``take``."""
     last = {}
     for idx, op in enumerate(prog.ops):
         for i in op.ins:
@@ -152,11 +190,30 @@ def _body(prog: MK.Program) -> tuple[list, int]:
     free, slot, n_slots, lines = [], {}, 0, []
 
     def s(vid):
-        return "take" if prog.ops[vid].kind == "bit" else f"s[{slot[vid]}]"
+        kind = prog.ops[vid].kind
+        if kind == "bit":
+            return "take"
+        if kind in MK.FLAGS:
+            return f"f{vid}"
+        return f"s[{slot[vid]}]"
+
+    def mask(vid):
+        return s(vid) if prog.ops[vid].kind == "bit" else f"{s(vid)} != 0"
 
     for idx, op in enumerate(prog.ops):
-        if op.kind == "bit":
-            lines.append("const bool take = bit[lane] != 0;")
+        if op.kind in MK.FLAGS:
+            if op.kind == "bit":
+                lines.append("const bool take = bit[lane] != 0;")
+            elif op.kind == "flag":
+                lines.append(f"const uint32_t {s(op.out)} = {op.arg}[lane];")
+            elif op.kind == "and":
+                lines.append(f"const uint32_t {s(op.out)} = {s(op.ins[0])} & {s(op.ins[1])};")
+            else:  # fsel
+                lines.append(f"const uint32_t {s(op.out)} = {mask(op.ins[0])} ? "
+                             f"{s(op.ins[1])} : {s(op.ins[2])};")
+            if op.out in stores:
+                buf, _ = stores[op.out]
+                lines.append(f"{buf}[lane] = {s(op.out)};")
             continue
         if free:
             slot[op.out] = free.pop()
@@ -169,8 +226,12 @@ def _body(prog: MK.Program) -> tuple[list, int]:
             lines.append(f"k_load({o}, {buf}, {plane}, n, lane);")
         elif op.kind == "one":
             lines.append(f"k_one({o});")
+        elif op.kind == "zero":
+            lines.append(f"k_zero({o});")
         elif op.kind == "mul":
             lines.append(f"k_mul({o}, {ins[0]}, {ins[1]});")
+        elif op.kind == "sqr":
+            lines.append(f"k_sqr({o}, {ins[0]});")
         elif op.kind == "add":
             lines.append(f"k_add({o}, {ins[0]}, {ins[1]});")
         elif op.kind == "sub":
@@ -178,34 +239,37 @@ def _body(prog: MK.Program) -> tuple[list, int]:
         elif op.kind == "neg":
             lines.append(f"k_neg({o}, {ins[0]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}")
         elif op.kind == "sel":
-            lines.append(f"k_sel({o}, {ins[0]}, {ins[1]}, {ins[2]});")
+            lines.append(f"k_sel({o}, {mask(op.ins[0])}, {ins[1]}, {ins[2]});")
         else:
             raise AssertionError(op.kind)
         if op.out in stores:
             buf, plane = stores[op.out]
             lines.append(f"k_store({buf}, {plane}, n, lane, {o});")
-        dead = {i for i in op.ins if last[i] == idx and prog.ops[i].kind != "bit"}
+        dead = {i for i in op.ins if last[i] == idx and prog.ops[i].kind not in MK.FLAGS}
         if op.out not in last:
             dead.add(op.out)
         free.extend(sorted(slot[v] for v in dead))
     return lines, n_slots
 
 
-def _kernel(step: str) -> str:
-    prog = MK.program(step)
+def _kernel(prog: MK.Program) -> str:
     lines, n_slots = _body(prog)
-    params = []
-    for name in _SIGNATURES[step]:
-        ctype = "const int32_t*" if name == "bit" else "const uint32_t*"
-        params.append(f"{ctype} __restrict__ {name}")
-    params += ["uint32_t* __restrict__ f_out", "uint32_t* __restrict__ t_out", "int n"]
+    inputs, outputs = _SIGNATURES[prog.name]
+    # the Miller addition bit is an (n,) int32 row; limb and flag planes are uint32
+    has_bit = any(op.kind == "bit" for op in prog.ops)
+    ctypes = {nm: "int32_t" if nm == "bit" and has_bit else "uint32_t" for nm in inputs}
+    params = [f"const {ctypes[nm]}* __restrict__ {nm}" for nm in inputs]
+    params += [f"uint32_t* __restrict__ {name}" for name in outputs] + ["int n"]
     body = "\n".join("  " + ln for ln in lines)
-    c_args = ", ".join(f"const void* {nm}" for nm in _SIGNATURES[step])
-    casts = ", ".join(
-        f"static_cast<const {'int32_t' if nm == 'bit' else 'uint32_t'}*>({nm})"
-        for nm in _SIGNATURES[step])
+    c_args = ", ".join(f"const void* {nm}" for nm in inputs)
+    c_outs = ", ".join(f"void* {nm}" for nm in outputs)
+    casts = ", ".join(f"static_cast<const {ctypes[nm]}*>({nm})" for nm in inputs)
+    out_casts = ", ".join(f"static_cast<uint32_t*>({nm})" for nm in outputs)
+    counts = f"{prog.n_mul} Montgomery products"
+    if prog.n_sqr:
+        counts += f", {prog.n_sqr} squares"
     return f"""
-// {prog.name}: {len(prog.ops)} limb ops, {prog.n_mul} Montgomery products, {n_slots} slots.
+// {prog.name}: {len(prog.ops)} limb ops, {counts}, {n_slots} slots.
 static __global__ void __launch_bounds__(kBlock)
 {prog.name}_kernel({", ".join(params)}) {{
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -214,13 +278,13 @@ static __global__ void __launch_bounds__(kBlock)
 {body}
 }}
 
-extern "C" int lh_{prog.name}({c_args}, void* f_out, void* t_out, int n,
+extern "C" int lh_{prog.name}({c_args}, {c_outs}, int n,
                               void* stream) {{
   if (n > 0) {{
     {prog.name}_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         {casts},
-        static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
+        {out_casts}, n);
   }}
   return static_cast<int>(cudaGetLastError());
 }}
@@ -228,8 +292,13 @@ extern "C" int lh_{prog.name}({c_args}, void* f_out, void* t_out, int n,
 
 
 def miller_step_source() -> str:
-    kernels = "".join(_kernel(step) for step in ("dbl", "add"))
-    return HEADER + _PREAMBLE + kernels
+    kernels = "".join(_kernel(MK.program(step)) for step in ("dbl", "add"))
+    return HEADER + _MILLER_DOC + _HELPERS + _END_HELPERS + kernels
+
+
+def wsm_step_source() -> str:
+    kernels = "".join(_kernel(WK.program(nc)) for nc in (1, 2))
+    return HEADER + _WSM_DOC + _HELPERS + _SQR_HELPERS + _END_HELPERS + kernels
 
 
 def generate_sources() -> dict:
@@ -237,6 +306,7 @@ def generate_sources() -> dict:
     return {
         "limb_constants.cuh": limb_constants(),
         "miller_step.cu": miller_step_source(),
+        "wsm_step.cu": wsm_step_source(),
     }
 
 

@@ -31,6 +31,7 @@ Op contracts (identical to the JAX package):
 from __future__ import annotations
 
 import functools
+import os
 from fractions import Fraction
 
 import numpy as np
@@ -362,21 +363,79 @@ def fp_is_zero(a: LFp) -> torch.Tensor:
     return torch.all(fp_canon(a) == 0, dim=0)
 
 
+# ---------------------------------------------------------------------------
+# Arm gates (jax_backend/fp.py:409-467): opt-in, off by default as in the
+# reference.  The reference also requires a TPU backend; here the gate means
+# "route through the chain and scalar-mul kernels' code", which launches the
+# kernels on CUDA tensors and runs their plain versions on CPU tensors.
+# ---------------------------------------------------------------------------
+
+_CHAINS_MODE: bool | None = None
+_WSM_MODE: bool | None = None
+
+
+def chains_enabled() -> bool:
+    """LIGHTHOUSE_TPU_CHAINS=1 routes static-exponent chains (fp_pow, so
+    fp_inv, and h2c.fp2_pow_static) through kernels 4 and 5."""
+    global _CHAINS_MODE
+    if _CHAINS_MODE is None:
+        _CHAINS_MODE = os.environ.get("LIGHTHOUSE_TPU_CHAINS", "") == "1"
+    return _CHAINS_MODE
+
+
+def set_chains(enabled: bool) -> None:
+    """In-process toggle of the chain arm."""
+    global _CHAINS_MODE
+    _CHAINS_MODE = enabled
+
+
+def chains_active() -> bool:
+    """The one gate for chain-kernel routing."""
+    return chains_enabled()
+
+
+def wsm_enabled() -> bool:
+    """LIGHTHOUSE_TPU_WSM=1 runs the 64-bit weight scalar muls as one fused
+    double-and-add step kernel per bit per curve (kernel 6)."""
+    global _WSM_MODE
+    if _WSM_MODE is None:
+        _WSM_MODE = os.environ.get("LIGHTHOUSE_TPU_WSM", "") == "1"
+    return _WSM_MODE
+
+
+def set_wsm(enabled: bool) -> None:
+    """In-process toggle of the fused scalar-mul arm."""
+    global _WSM_MODE
+    _WSM_MODE = enabled
+
+
+def wsm_fused_active() -> bool:
+    """The one gate for the fused scalar-mul step kernels."""
+    return wsm_enabled()
+
+
 # The fixpoint bound of a pow carry: 4.3 * 4.3 = 18.5 <= 2000 and
 # 18.5 / 625 + 1.1 < 4.3, so the label closes under square and multiply.
 POW_FIX = MAX_MUL_PRODUCT / MONT_DIVISOR + MONT_EPS
 
 
 def fp_pow(a: LFp, e: int) -> LFp:
-    """a^e for a static exponent, square-and-multiply MSB first.  The JAX
-    package scans over the bits and selects; the bits are host constants,
-    so here the multiply runs only where the bit is set — the same limbs
-    as the select would keep."""
+    """a^e for a static exponent.  Under the chain arm (e > 3) the whole
+    chain is one launch of kernel 4 (chain_kernel.pow_chain).  Otherwise
+    square-and-multiply MSB first: the JAX package scans over the bits and
+    selects; the bits are host constants, so here the multiply runs only
+    where the bit is set — the same limbs as the select would keep."""
     assert e >= 0
     if e == 0:
         return one_like(a)
     if a.bound > 4.0:
         a = fp_reduce(a)
+    if e > 3 and chains_active():
+        from . import chain_kernel
+
+        batch = a.limbs.shape[1:]
+        flat = chain_kernel.pow_chain(a.limbs.reshape(N, -1).contiguous(), e)
+        return LFp(flat.reshape((N,) + batch), POW_FIX)
     acc = relabel(one_like(a), POW_FIX)
     for bit in bin(e)[2:]:
         acc = mont_sqr(acc)

@@ -55,10 +55,21 @@ def _stable(a):
 
 
 def fp2_pow_static(a, bits: list[int]):
-    """a^e for a static exponent (MSB-first bits), square-and-multiply.
-    The multiply runs only where the bit is set; the JAX scan computes it
-    every step and selects, which keeps the same limbs."""
+    """a^e for a static exponent (MSB-first bits).  Under the chain arm the
+    whole chain is one launch of kernel 5 (chain_kernel.fp2_pow_chain).
+    Otherwise square-and-multiply: the multiply runs only where the bit is
+    set; the JAX scan computes it every step and selects, which keeps the
+    same limbs."""
     a = _stable(a)
+    if F.chains_active() and bits[0] == 1 and len(bits) > 4:
+        from . import chain_kernel
+
+        bshape = F.batch_shape(a[0])
+        r0, r1 = chain_kernel.fp2_pow_chain(
+            a[0].limbs.reshape(F.N, -1).contiguous(),
+            a[1].limbs.reshape(F.N, -1).contiguous(), bits)
+        return _stable((F.LFp(r0.reshape((F.N,) + bshape), 6.0),
+                        F.LFp(r1.reshape((F.N,) + bshape), 6.0)))
     acc = tuple(F.relabel(c, 2.0) for c in T.fp2_one_like(a))
     for bit in bits:
         acc = _stable(T.fp2_sqr(acc))

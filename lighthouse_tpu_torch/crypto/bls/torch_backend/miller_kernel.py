@@ -47,7 +47,7 @@ from .. import params
 from . import _build
 from . import fp as F
 from . import tower as T
-from .mont_kernel import mont_mul_plain
+from .mont_kernel import mont_mul_plain, mont_sqr_plain
 
 N = F.N
 
@@ -56,43 +56,51 @@ N = F.N
 
 @dataclasses.dataclass(frozen=True)
 class Op:
-    """One limb op: ``out = kind(*ins)``.  ``arg`` is the bias k of a sub or
-    neg, or the (buffer, plane) an input is read from."""
+    """One op: ``out = kind(*ins)``.  ``arg`` is the bias k of a sub or neg,
+    the (buffer, plane) a limb input is read from, or the buffer a flag is
+    read from."""
 
-    kind: str  # in | bit | one | add | sub | neg | mul | sel
+    kind: str  # limbs: in | one | zero | add | sub | neg | mul | sqr | sel
+    #            flags: bit | flag | and | fsel
     out: int
     ins: tuple
     arg: object = None
 
 
+PRODUCTS = ("mul", "sqr")  # the Montgomery product and the triangle square
+FLAGS = ("bit", "flag", "and", "fsel")  # per-lane flag values, not limbs
+
+
 class Program:
-    """A straight-line step program over 26-limb values."""
+    """A straight-line step program over 26-limb values and per-lane flags."""
 
     def __init__(self, name: str, ops: list, outputs: list):
         self.name = name
         self.ops = ops
         self.outputs = outputs  # [(buffer, plane, value id)]
         self.n_mul = sum(op.kind == "mul" for op in ops)
+        self.n_sqr = sum(op.kind == "sqr" for op in ops)
         self.stages = self._stages()
 
     def _stages(self):
         """Execution order of the plain version: by dependency level, where
         a product sits one level above its deepest operand and any other op
-        at the level of its deepest operand.  Products of one level depend
-        only on lower levels, so they run as one stacked call; the other
-        ops of a level follow them in program order."""
+        at the level of its deepest operand.  Products of one kind and level
+        depend only on lower levels, so they run as one stacked call; the
+        other ops of a level follow them in program order."""
         level = {}
         for op in self.ops:
             base = max((level[i] for i in op.ins), default=0)
-            level[op.out] = base + 1 if op.kind == "mul" else base
+            level[op.out] = base + 1 if op.kind in PRODUCTS else base
         top = max(level.values())
         stages = []
         for lv in range(top + 1):
-            muls = [op for op in self.ops if op.kind == "mul" and level[op.out] == lv]
-            if muls:
-                stages.append(("mul", muls))
+            for kind in PRODUCTS:
+                prods = [op for op in self.ops if op.kind == kind and level[op.out] == lv]
+                if prods:
+                    stages.append((kind, prods))
             stages += [("op", op) for op in self.ops
-                       if op.kind != "mul" and level[op.out] == lv]
+                       if op.kind not in PRODUCTS and level[op.out] == lv]
         return stages
 
 
@@ -114,6 +122,19 @@ class _Recorder:
     def bit(self) -> int:
         return self._op("bit", ())
 
+    def flag(self, buffer: str) -> int:
+        """A (1, n) flag plane, read as its per-lane value."""
+        return self._op("flag", (), buffer)
+
+    def flag_and(self, a, b) -> int:
+        return self._op("and", (a, b))
+
+    def flag_select(self, mask, a, b) -> int:
+        return self._op("fsel", (mask, a, b))
+
+    def zero(self) -> int:
+        return self._op("zero", ())
+
     def add(self, a, b):
         return self._op("add", (a, b))
 
@@ -125,6 +146,9 @@ class _Recorder:
 
     def mont(self, a, b):
         return self._op("mul", (a, b))
+
+    def msqr(self, a):
+        return self._op("sqr", (a,))
 
     def select(self, mask, a, b):
         return self._op("sel", (mask, a, b))
@@ -170,6 +194,13 @@ def kmul(ctx, a: KFp, b: KFp) -> KFp:
     return KFp(ctx.mont(a.cols, b.cols), prod / F.MONT_DIVISOR + F.MONT_EPS)
 
 
+def ksqr(ctx, a: KFp) -> KFp:
+    """The triangle square (pallas_miller.ksqr -> pallas_fp._mont_sqr_core)."""
+    prod = a.bound * a.bound
+    assert prod <= F.MAX_MUL_PRODUCT
+    return KFp(ctx.msqr(a.cols), prod / F.MONT_DIVISOR + F.MONT_EPS)
+
+
 def kreduce(ctx, a: KFp) -> KFp:
     out = kmul(ctx, a, KFp(ctx.one, 1.0))
     assert out.bound <= F.REDUCE_PIN
@@ -204,6 +235,10 @@ def k2_guard(ctx, a, m: float = 11.0):
     if max(a[0].bound, a[1].bound) > m:
         return (kreduce(ctx, a[0]), kreduce(ctx, a[1]))
     return a
+
+
+def k2_select(ctx, mask, a, b):
+    return (kselect(ctx, mask, a[0], b[0]), kselect(ctx, mask, a[1], b[1]))
 
 
 def k2_mul(ctx, a, b):
@@ -425,19 +460,24 @@ def program(step: str) -> Program:
     return Program(f"miller_step_{step}", ctx.ops, outputs)
 
 
-def run_plain(prog: Program, bufs: dict) -> tuple:
-    """The plain PyTorch reading of a step program.  ``bufs`` maps "f",
-    "t", "q" to (planes, 26, n) and "xp", "yp" to (26, n) int32 tensors,
-    and "bit" to an (n,) int32 tensor; returns (f_out, t_out)."""
-    f = bufs["f"]
-    n = f.shape[-1]
+def run_plain(prog: Program, bufs: dict) -> dict:
+    """The plain PyTorch reading of a program.  ``bufs`` maps each limb
+    input buffer to (planes, 26, n) or (26, n), each flag buffer to (1, n)
+    and "bit" to (n,) int32 tensors; returns {output buffer: tensor}, limb
+    outputs as (planes, 26, n) and flag outputs as (1, n)."""
+    ref = next(b for b in bufs.values() if b.dim() >= 2)
+    n = ref.shape[-1]
     vals = {}
-    out = {"f_out": torch.empty_like(f), "t_out": torch.empty_like(bufs["t"])}
     for kind, item in prog.stages:
         if kind == "mul":
             a = torch.cat([vals[op.ins[0]] for op in item], dim=1)
             b = torch.cat([vals[op.ins[1]] for op in item], dim=1)
             for op, r in zip(item, mont_mul_plain(a, b).split(n, dim=1)):
+                vals[op.out] = r
+            continue
+        if kind == "sqr":
+            a = torch.cat([vals[op.ins[0]] for op in item], dim=1)
+            for op, r in zip(item, mont_sqr_plain(a).split(n, dim=1)):
                 vals[op.out] = r
             continue
         op = item
@@ -448,8 +488,12 @@ def run_plain(prog: Program, bufs: dict) -> tuple:
             vals[op.out] = src if src.dim() == 2 else src[plane]
         elif op.kind == "bit":
             vals[op.out] = (bufs["bit"] != 0)[None]
+        elif op.kind == "flag":
+            vals[op.out] = bufs[op.arg]
         elif op.kind == "one":
-            vals[op.out] = F.const("ONE", f[0]).expand(N, n)
+            vals[op.out] = F.bcast("ONE", (n,), ref.device)
+        elif op.kind == "zero":
+            vals[op.out] = torch.zeros((N, n), dtype=F.DTYPE, device=ref.device)
         elif op.kind == "add":
             vals[op.out] = F.compress1(x[0] + x[1])
         elif op.kind == "sub":
@@ -457,12 +501,25 @@ def run_plain(prog: Program, bufs: dict) -> tuple:
         elif op.kind == "neg":
             vals[op.out] = F.compress1(F.const(op.arg, x[0]) - x[0])
         elif op.kind == "sel":
-            vals[op.out] = torch.where(x[0], x[1], x[2])
+            vals[op.out] = torch.where(x[0] != 0, x[1], x[2])
+        elif op.kind == "and":
+            vals[op.out] = x[0] & x[1]
+        elif op.kind == "fsel":
+            vals[op.out] = torch.where(x[0] != 0, x[1], x[2])
         else:
             raise AssertionError(op.kind)
+    planes = {}
     for buf, plane, vid in prog.outputs:
+        planes[buf] = max(planes.get(buf, 0), plane + 1)
+    out = {}
+    for buf, plane, vid in prog.outputs:
+        if prog.ops[vid].kind in FLAGS:
+            out[buf] = vals[vid]
+            continue
+        if buf not in out:
+            out[buf] = torch.empty((planes[buf], N, n), dtype=F.DTYPE, device=ref.device)
         out[buf][plane] = vals[vid]
-    return out["f_out"], out["t_out"]
+    return out
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -500,11 +557,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def miller_step_dbl_plain(f, t, xp, yp):
-    return run_plain(program("dbl"), {"f": f, "t": t, "xp": xp, "yp": yp})
+    out = run_plain(program("dbl"), {"f": f, "t": t, "xp": xp, "yp": yp})
+    return out["f_out"], out["t_out"]
 
 
 def miller_step_add_plain(f, t, q, xp, yp, bit):
-    return run_plain(program("add"), {"f": f, "t": t, "q": q, "xp": xp, "yp": yp, "bit": bit})
+    out = run_plain(program("add"), {"f": f, "t": t, "q": q, "xp": xp, "yp": yp, "bit": bit})
+    return out["f_out"], out["t_out"]
 
 
 def miller_step_dbl(f, t, xp, yp):

@@ -26,6 +26,7 @@ bound by launch latency.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +36,7 @@ from .fp import BITS, MASK, N, compress1, compress2, const
 launches = 0  # kernel launches (plain-version calls do not count)
 
 IMAD_PER_LANE = 26 * 26 + 26 * 27 // 2 + 26 * 26  # multiplies per lane in the kernel
+SQR_IMAD_PER_LANE = 26 * 27 // 2 + 26 * 27 // 2 + 26 * 26  # the triangle square's
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -78,20 +80,41 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _wide_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(26, n) x (26, n|1) int64 -> (52, n) schoolbook columns of the split
-    32-bit products, two carry passes applied (pallas_fp._wide_product).
+def _columns(p: torch.Tensor) -> torch.Tensor:
+    """(26, 26, n) int64 products, entry (i, j) of weight 2^(15 (i + j)) ->
+    (52, n) schoolbook columns: its low 15 bits at column i+j, its high
+    bits at i+j+1, two carry passes applied.
 
-    Row i of the (26, 26, n) product matrix lands at columns i..i+25 of a
-    (26, 53, n) buffer through one strided view (the lo halves) and the
-    same view shifted by one column (the hi halves); summing the rows gives
-    the column sums."""
-    n = x.shape[1]
-    p = x[:, None, :] * y[None, :, :]
-    rows = torch.zeros((N, 2 * N + 1, n), dtype=torch.int64, device=x.device)
+    Row i of the product matrix lands at columns i..i+25 of a (26, 53, n)
+    buffer through one strided view (the lo halves) and the same view
+    shifted by one column (the hi halves); summing the rows gives the
+    column sums."""
+    n = p.shape[-1]
+    rows = torch.zeros((N, 2 * N + 1, n), dtype=torch.int64, device=p.device)
     rows.as_strided((N, N, n), ((2 * N + 2) * n, n, 1)).copy_(p & MASK)
     rows.as_strided((N, N, n), ((2 * N + 2) * n, n, 1), n).add_(p >> BITS)
     return compress2(rows.sum(0)[: 2 * N])
+
+
+def _wide_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(26, n) x (26, n|1) int64 -> (52, n) schoolbook columns of the split
+    32-bit products, two carry passes applied (pallas_fp._wide_product)."""
+    return _columns(x[:, None, :] * y[None, :, :])
+
+
+@functools.lru_cache(maxsize=None)
+def _triangle(device: str) -> torch.Tensor:
+    """(26, 26, 1) weights of the square's triangle: 2 above the diagonal,
+    1 on it, 0 below."""
+    w = torch.triu(torch.full((N, N), 2, dtype=torch.int64), 1) + torch.eye(N, dtype=torch.int64)
+    return w.reshape(N, N, 1).to(device)
+
+
+def _wide_square(x: torch.Tensor) -> torch.Tensor:
+    """(26, n) int64 -> the (52, n) columns of pallas_fp._wide_square: the
+    j >= i triangle, each cross product doubled BEFORE its lo/hi split (the
+    column sums differ from _wide_product(x, x)'s), then two carry passes."""
+    return _columns(x[:, None, :] * x[None, :, :] * _triangle(str(x.device)))
 
 
 def _reduce_tail(s: torch.Tensor) -> torch.Tensor:
@@ -109,10 +132,22 @@ def _reduce_tail(s: torch.Tensor) -> torch.Tensor:
     return high
 
 
-def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of kernel 1: the same limbs, computed with
-    int64 outer products summed along anti-diagonals."""
-    t = _wide_product(a.long(), b.long())
+def _mont_reduce(t: torch.Tensor) -> torch.Tensor:
+    """pallas_fp._mont_reduce of the (52, n) int64 columns t -> strict int32
+    limbs: m = low half of t * P', u = m * P, (t + u) / R."""
     m = _wide_product(t[:N], const("PP", t).long())[:N]
     u = _wide_product(m, const("P", t).long())
     return _reduce_tail(t + u).to(torch.int32)
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of kernel 1: the same limbs, computed with
+    int64 outer products summed along anti-diagonals."""
+    return _mont_reduce(_wide_product(a.long(), b.long()))
+
+
+def mont_sqr_plain(a: torch.Tensor) -> torch.Tensor:
+    """The plain version of the triangle square (pallas_fp._mont_sqr_core,
+    csrc/mont.cuh mont_sqr_core): the same limbs as the reference's square,
+    which need not be mont_mul_plain(a, a)'s."""
+    return _mont_reduce(_wide_square(a.long()))

@@ -10,6 +10,12 @@
 // Inputs are quasi limbs (<= 32,896) whose value bounds multiply to <= 2000
 // P^2.  Each 32-bit product is <= 32896^2 < 2^31, and every column sum stays
 // below 2^21, so plain uint32 arithmetic never wraps.
+//
+// The square (mont_sqr_core) is the twin of pallas_fp._mont_sqr_core: the
+// j >= i triangle of the schoolbook with the cross products doubled before
+// the lo/hi split (351 products instead of 676), then the same reduction.
+// A doubled cross product reaches 2^31.02: it fits a uint32 register (never
+// the port's int32 storage, where no product is kept).
 #pragma once
 
 #include <cstdint>
@@ -74,12 +80,39 @@ __device__ __forceinline__ void low_product(const uint32_t (&a)[NL],
   compress1(m);
 }
 
-// out = a * b * R^-1 (mod P) representative, strict limbs.
-__device__ __forceinline__ void mont_core(const uint32_t (&a)[NL],
-                                          const uint32_t (&b)[NL],
-                                          uint32_t (&out)[NL]) {
-  uint32_t t[2 * NL];
-  wide_product(a, b, t);
+// Schoolbook a * a over the j >= i triangle (pallas_fp._wide_square): the
+// cross product a_i * a_j (j > i) is doubled once and then split, the
+// diagonal a_i * a_i split as is; then two carry passes.  i = 25 has no
+// cross terms.  The column sums differ from wide_product(a, a)'s before the
+// carry passes, so the reduction below may land on another representative:
+// this routine is held byte for byte against _mont_sqr_core, never against
+// mont_core(a, a).
+__device__ __forceinline__ void wide_square(const uint32_t (&a)[NL],
+                                            uint32_t (&t)[2 * NL]) {
+#pragma unroll
+  for (int k = 0; k < 2 * NL; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t d = a[i] * a[i];
+    t[2 * i] += d & MASK;
+    t[2 * i + 1] += d >> 15;
+#pragma unroll
+    for (int j = i + 1; j < NL; ++j) {
+      const uint32_t p = a[i] * a[j];
+      const uint32_t p2 = p + p;  // < 2^31.02
+      t[i + j] += p2 & MASK;
+      t[i + j + 1] += p2 >> 15;
+    }
+  }
+  compress1(t);
+  compress1(t);
+}
+
+// Montgomery reduction of a 52-column product (pallas_fp._mont_reduce):
+// m = low 26 columns of t * P', u = m * P, then one 52-step carry over
+// t + u, whose low 26 limbs vanish (t + u is divisible by R).
+__device__ __forceinline__ void mont_reduce(const uint32_t (&t)[2 * NL],
+                                            uint32_t (&out)[NL]) {
   uint32_t tl[NL], pp[NL], pl[NL];
 #pragma unroll
   for (int k = 0; k < NL; ++k) {
@@ -91,7 +124,6 @@ __device__ __forceinline__ void mont_core(const uint32_t (&a)[NL],
   low_product(tl, pp, m);
   uint32_t u[2 * NL];
   wide_product(m, pl, u);
-  // t + u is divisible by R: the low 26 limbs of the carry chain vanish.
   uint32_t carry = 0;
 #pragma unroll
   for (int k = 0; k < 2 * NL; ++k) {
@@ -99,6 +131,23 @@ __device__ __forceinline__ void mont_core(const uint32_t (&a)[NL],
     carry = s >> 15;
     if (k >= NL) out[k - NL] = s & MASK;
   }
+}
+
+// out = a * b * R^-1 (mod P) representative, strict limbs.
+__device__ __forceinline__ void mont_core(const uint32_t (&a)[NL],
+                                          const uint32_t (&b)[NL],
+                                          uint32_t (&out)[NL]) {
+  uint32_t t[2 * NL];
+  wide_product(a, b, t);
+  mont_reduce(t, out);
+}
+
+// out = a * a * R^-1 (mod P) representative by the triangle square.
+__device__ __forceinline__ void mont_sqr_core(const uint32_t (&a)[NL],
+                                              uint32_t (&out)[NL]) {
+  uint32_t t[2 * NL];
+  wide_square(a, t);
+  mont_reduce(t, out);
 }
 
 }  // namespace lh

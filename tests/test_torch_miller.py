@@ -7,18 +7,17 @@
 * The committed CUDA sources are exactly what codegen.py prints.
 * The CUDA sources' arithmetic, compiled for the host with g++ and run lane
   by lane, gives the plain versions' limbs byte for byte.
-* On a card (marked ``cuda``): the kernels against the plain versions.
+
+The kernels themselves run against the plain versions on a card in
+tests/test_torch_cuda.py (jax-free, so it runs where the card is).
 """
 
-import ctypes
 import random
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
+import torch_host_cuda as host_cuda
 
 jax = pytest.importorskip("jax")
 
@@ -143,40 +142,13 @@ def test_kfp_bound_asserts_fire_while_recording():
         ML.KFp(0, F.MAX_BOUND + 1)
 
 
-_SHIM = r"""
-#pragma once
-#include <cstddef>
-#include <cstdint>
-#define __device__
-#define __global__
-#define __constant__
-#define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(x)
-#define __restrict__
-struct Dim { int x; };
-extern thread_local Dim blockIdx, threadIdx, blockDim;
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return ""; }
-"""
-
 _HARNESS = r"""
-thread_local Dim blockIdx, threadIdx, blockDim;
-#define EACH_LANE(call) \
-  blockDim.x = 1; threadIdx.x = 0; \
-  for (int l = 0; l < n; ++l) { blockIdx.x = l; call; }
 extern "C" void host_mont(const uint32_t* a, const uint32_t* b, uint32_t* o, int n) {
   EACH_LANE(mont_mul_kernel(a, b, o, n))
 }
 """
 
 _HARNESS_STEPS = r"""
-thread_local Dim blockIdx, threadIdx, blockDim;
-#define EACH_LANE(call) \
-  blockDim.x = 1; threadIdx.x = 0; \
-  for (int l = 0; l < n; ++l) { blockIdx.x = l; call; }
 extern "C" void host_dbl(const uint32_t* f, const uint32_t* t, const uint32_t* xp,
                          const uint32_t* yp, uint32_t* fo, uint32_t* to, int n) {
   EACH_LANE(miller_step_dbl_kernel(f, t, xp, yp, fo, to, n))
@@ -191,28 +163,14 @@ extern "C" void host_add(const uint32_t* f, const uint32_t* t, const uint32_t* q
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """csrc/*.cu compiled for the host: a shim turns the CUDA qualifiers
-    into plain C++ and a harness runs each kernel body once per lane (the
-    launchers, which use <<<>>>, are cut)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs a host C++ compiler (g++)")
+    """csrc/mont.cu and csrc/miller_step.cu compiled for the host
+    (torch_host_cuda), each kernel body run once per lane."""
     d = tmp_path_factory.mktemp("hostcuda")
-    (d / "cuda_runtime.h").write_text(_SHIM)
-    libs = {}
-    for name, harness in (("mont", _HARNESS), ("miller_step", _HARNESS_STEPS)):
-        src = (_build.CSRC / f"{name}.cu").read_text()
-        src = re.sub(r'extern "C" int lh_.*?\n}\n', "", src, flags=re.S)
-        (d / f"{name}.cpp").write_text(src + harness)
-        subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{d}",
-                        f"-I{_build.CSRC}", "-o", str(d / f"{name}.so"), str(d / f"{name}.cpp")],
-                       check=True, capture_output=True)
-        libs[name] = ctypes.CDLL(str(d / f"{name}.so"))
-    return libs
+    return {name: host_cuda.build(d, name, harness)
+            for name, harness in (("mont", _HARNESS), ("miller_step", _HARNESS_STEPS))}
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+_ptr = host_cuda.ptr
 
 
 def _rand_planes(rng, planes, n, k=2):
@@ -260,21 +218,3 @@ def test_step_wrappers_check_operands():
         ML.miller_step_dbl(z.long(), t.long(), p.long(), p.long())
     with pytest.raises(ValueError):
         ML.miller_step_add(z, t, z[:4].clone(), p, p, torch.zeros(2, dtype=torch.int32))
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
-    rng = random.Random(23)
-    n = 257
-    dev = torch.device("cuda")
-    f, t, q = (_rand_planes(rng, k, n).to(dev) for k in (12, 6, 4))
-    xp, yp = _rand_planes(rng, 1, n)[0].to(dev), _rand_planes(rng, 1, n)[0].to(dev)
-    bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32, device=dev)
-    assert torch.equal(MK.mont_mul(xp, yp), MK.mont_mul_plain(xp, yp))
-    for got, ref in zip(ML.miller_step_dbl(f, t, xp, yp), ML.miller_step_dbl_plain(f, t, xp, yp)):
-        assert torch.equal(got, ref)
-    for got, ref in zip(ML.miller_step_add(f, t, q, xp, yp, bit),
-                        ML.miller_step_add_plain(f, t, q, xp, yp, bit)):
-        assert torch.equal(got, ref)
