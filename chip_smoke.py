@@ -4,43 +4,50 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA.  It drives the path under both arms: the default
-(fused Miller steps; chains and fused scalar muls off, as on the TPU by
-default) and the chain-and-WSM arm (fp.set_chains(True), fp.set_wsm(True)).
-Phases, one JSON line each:
+PyTorch built for CUDA.  It drives the path under three arms: the default
+(fused Miller steps; chains, fused scalar muls and MXU off, as on the TPU by
+default), the chain-and-WSM arm (fp.set_chains(True), fp.set_wsm(True)) and
+the mxu arm (chains + WSM + fp.set_mxu(True): every Montgomery product on
+the 13-bit plane, kernel 7 and the MXU variants of kernels 2-5; the WSM
+steps stay on the 15-bit core).  Phases, one JSON line each:
 
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
-   byte equality required: mont_mul on four corpora; the Miller steps on
-   live pairing steps; the Fp chain at p-2 on strict and lazy bases; the Fp2
-   chain at (p^2+7)/16; one G1 and one G2 WSM step on live points with
-   random bits and infinity flags on either side.
+   byte equality required: mont_mul and mont_mul_mxu on four corpora; the
+   Miller steps and their MXU variants on live pairing steps; the Fp chain
+   and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
+   its MXU variant at (p^2+7)/16; one G1 and one G2 WSM step on live points
+   with random bits and infinity flags on either side.
 4. reference: the device map-to-G2 on a few messages against the host
-   hash_to_g2; the chains' outputs on a few lanes against host pow and the
-   oracle's Fp2.pow.
+   hash_to_g2; the chains' outputs (both planes) on a few lanes against
+   host pow and the oracle's Fp2.pow.
 5. path, for each arm: TorchBackend(device="cuda", device_h2c=True)
    .verify_signature_sets on 4,096 signature sets (a tiled pool of seeded
    signed sets, with multi-key sets); True on the valid batch, False with
    one signature swapped for a valid signature of another message.  The
    valid verify's dispatch runs under torch's sync debug mode set to
    "error", so any host sync in the device program fails the run; launch
-   counts come from each verify (Miller 63/63 in both arms; under the arm
+   counts come from each verify (Miller 63/63 in every arm; under the arm
    12 Fp chains, 4 Fp2 chains and 64 WSM steps per curve, none in the
-   default arm).  The one-bad verify keeps copies of the kernels' operands
+   default arm; under the mxu arm the same counts on the MXU variants, the
+   WSM steps on the 15-bit core, no 15-bit product and as many 13-bit
+   products as the arm's 15-bit ones).  The one-bad verify keeps copies of
+   the kernels' operands
    (mont_mul and the chains: the first call at every width; the Miller
    steps: each step whose addition bit is set, and the last; the WSM
    steps: four bits), and each kernel is held byte for byte against its
    plain version on them (path_kernel_check).
 6. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches (mont_mul at the default path's most-launched
-   width; the chains at the arm's most-launched width; every other kernel
-   on the arm's operands), queued while the card sleeps so that the host's
-   wrapper time stays out.
-7. path_timing: verifies of both arms interleaved (default, arm, arm,
-   default, twice), with marshal, dispatch and resolve times and peak
+   width, mont_mul_mxu at the same width on the mxu arm's operands; the
+   chains at their arm's most-launched width; every other kernel on its
+   arm's operands), queued while the card sleeps so that the host's wrapper
+   time stays out.
+7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
+   mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
 8. profile: one more verify of each arm under torch.profiler, giving every
    kernel the card ran and the share of the wall time the card was busy.
@@ -69,14 +76,20 @@ KERNEL_LAUNCHES = 50  # back-to-back launches per window of a short kernel
 LONG_LAUNCHES = 10  # ... of a kernel of a millisecond or more
 PLAIN_LAUNCHES = 3  # back-to-back plain-version calls per window
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 1980 MHz: covers the host queueing a window
-TIMING_ORDER = ("default", "arm", "arm", "default") * 2  # interleaved path verifies
+ARMS = ("default", "arm", "mxu")
+TIMING_ORDER = ("default", "arm", "mxu", "mxu", "arm", "default")  # interleaved path verifies
 WSM_KEEP = (0, 1, 32, 63)  # WSM step calls whose operands are kept
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
+# FP64 tensor-core multiply-adds per SM per clock: the H100 SXM data sheet's
+# 67 TFLOP/s FP64 Tensor Core = 128 FMA x 2 x 132 SMs x 1,980 MHz
+DMMA_FMA_PER_SM_CLK = 128
 
 STEP_NAMES = ("miller_step_dbl", "miller_step_add")
 WSM_NAMES = ("wsm_step_g1", "wsm_step_g2")
-KERNEL_NAMES = ("mont_mul",) + STEP_NAMES + ("fp_chain", "fp2_chain") + WSM_NAMES
+MXU_NAMES = ("mont_mul_mxu", "miller_step_dbl_mxu", "miller_step_add_mxu", "fp_chain_mxu",
+             "fp2_chain_mxu")
+KERNEL_NAMES = ("mont_mul",) + STEP_NAMES + ("fp_chain", "fp2_chain") + WSM_NAMES + MXU_NAMES
 
 
 def emit(obj) -> None:
@@ -118,52 +131,55 @@ def _clone(args):
     return tuple(x.clone() if hasattr(x, "clone") else x for x in args)
 
 
-def capture_kernel_operands(mods, run):
+def capture_kernel_operands(entry_points, mxu_active, keep_steps, run):
     """Run ``run()`` (one verify) with every kernel wrapper wrapped.  Every
     call goes through to the wrapper unchanged (and is counted there);
     clones of some operands are kept for the kernel-vs-plain check on the
-    path's own shapes: mont_mul and the chains, the first call at each
+    path's own shapes: mont_mul(_mxu) and the chains, the first call at each
     width (with the number of calls per width); the Miller steps, the calls
-    whose addition bit is set, and the last; the WSM steps, the calls in
-    WSM_KEEP.  ``mods`` maps each kernel name to the module holding its
-    wrapper.  Returns (run's result, {name: {key: operands}},
-    {name: {width: calls}})."""
-    ML = mods["miller_step_dbl"]
-    keep = {"miller_step_dbl": {i for i, b in enumerate(ML.X_BITS[1:]) if b}
-            | {len(ML.X_BITS) - 2}}
-    keep["miller_step_add"] = keep["miller_step_dbl"]
-    attrs = {"mont_mul": "mont_mul", "fp_chain": "pow_chain", "fp2_chain": "fp2_pow_chain",
-             **{s: s for s in STEP_NAMES + WSM_NAMES}}
-    orig = {name: getattr(mods[name], attrs[name]) for name in KERNEL_NAMES}
+    in ``keep_steps``; the WSM steps, the calls in WSM_KEEP.
+    ``entry_points`` lists (module, attribute, kernel name, number of
+    operands, takes an mxu flag); a wrapper that takes the flag is named
+    with "_mxu" when it runs its MXU variant (the flag, or ``mxu_active()``
+    where the caller leaves it to the gate).  Returns (run's result, {name:
+    {key: operands}}, {name: {width: calls}})."""
     ops = {name: {} for name in KERNEL_NAMES}
     widths = {name: {} for name in KERNEL_NAMES}
+    seen = {name: 0 for name in KERNEL_NAMES}
+    orig = {}
 
-    def wrap(name):
-        seen = [0]
-
-        def wrapped(*args):
-            n = args[0].shape[-1]
+    def wrap(fn, base, n_ops, flagged):
+        def wrapped(*args, **kw):
+            operands = args[:n_ops]
+            mxu = False
+            if flagged:
+                mxu = args[n_ops] if len(args) > n_ops else kw.get("mxu")
+                if mxu is None:
+                    mxu = mxu_active()
+            name = base + "_mxu" if mxu else base
+            n = operands[0].shape[-1]
             widths[name][n] = widths[name].get(n, 0) + 1
-            if name in keep:
-                if seen[0] in keep[name]:
-                    ops[name][seen[0]] = _clone(args)
-            elif name in WSM_NAMES:
-                if seen[0] in WSM_KEEP:
-                    ops[name][seen[0]] = _clone(args)
+            if base in STEP_NAMES:
+                if seen[name] in keep_steps:
+                    ops[name][seen[name]] = _clone(operands)
+            elif base in WSM_NAMES:
+                if seen[name] in WSM_KEEP:
+                    ops[name][seen[name]] = _clone(operands)
             elif n not in ops[name]:
-                ops[name][n] = _clone(args)
-            seen[0] += 1
-            return orig[name](*args)
+                ops[name][n] = _clone(operands)
+            seen[name] += 1
+            return fn(*args, **kw)
 
         return wrapped
 
-    for name in KERNEL_NAMES:
-        setattr(mods[name], attrs[name], wrap(name))
+    for mod, attr, base, n_ops, flagged in entry_points:
+        orig[(mod, attr)] = getattr(mod, attr)
+        setattr(mod, attr, wrap(orig[(mod, attr)], base, n_ops, flagged))
     try:
         result = run()
     finally:
-        for name in KERNEL_NAMES:
-            setattr(mods[name], attrs[name], orig[name])
+        for (mod, attr), fn in orig.items():
+            setattr(mod, attr, fn)
     return result, ops, widths
 
 
@@ -217,7 +233,7 @@ def main() -> int:
             hash_to_field_fp2, hash_to_g2)
         from lighthouse_tpu_torch.crypto.bls.torch_backend import (
             _build, backend, chain_kernel as CK, fp as F, h2c, miller_kernel as ML,
-            mont_kernel as MK, points as P, tower as T, wsm_kernel as W)
+            mont_kernel as MK, mxu_kernel as X, points as P, tower as T, wsm_kernel as W)
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 2
@@ -231,6 +247,7 @@ def main() -> int:
     emit({"phase": "device", "name": kind, "nvidia_smi": smi, "max_sm_clock_mhz": clock_mhz,
           "sms": sms, "torch": torch.__version__, "cuda": torch.version.cuda})
     imad_per_s = IMAD_PER_SM_CLK * sms * clock_mhz * 1e6
+    dmma_fma_per_s = DMMA_FMA_PER_SM_CLK * sms * clock_mhz * 1e6
 
     # -- build ------------------------------------------------------------
     built = _build.build_all()
@@ -245,9 +262,13 @@ def main() -> int:
     def rand_limbs(n, k=1):
         return torch.as_tensor(F.ints_to_limbs(rand_ints(n, k))).to(dev)
 
-    def bound_ms(bytes_moved, imads):
+    def bound_ms(bytes_moved, imads, dmma_fmas=0):
+        """The larger of the bytes' time at the memory rate and the
+        operations' time: the integer multiply-adds at the IMAD rate and the
+        FP64 tensor-core multiply-adds at the DMMA rate, on their own pipes
+        (so the larger of the two)."""
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = imads / imad_per_s * 1e3
+        t_ops = max(imads / imad_per_s, dmma_fmas / dmma_fma_per_s) * 1e3
         return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
     def max_abs_err(got, ref):
@@ -257,12 +278,23 @@ def main() -> int:
     checked = {name: {"equal": True, "max_abs_err": 0} for name in KERNEL_NAMES}
     # name: (kernel wrapper, plain version)
     funcs = {"mont_mul": (lambda *a: [MK.mont_mul(*a)], lambda *a: [MK.mont_mul_plain(*a)]),
-             "miller_step_dbl": (ML.miller_step_dbl, ML.miller_step_dbl_plain),
-             "miller_step_add": (ML.miller_step_add, ML.miller_step_add_plain),
-             "fp_chain": (lambda *a: [CK.pow_chain(*a)], lambda *a: [CK.pow_chain_plain(*a)]),
-             "fp2_chain": (CK.fp2_pow_chain, CK.fp2_pow_chain_plain),
              "wsm_step_g1": (W.wsm_step_g1, W.wsm_step_g1_plain),
-             "wsm_step_g2": (W.wsm_step_g2, W.wsm_step_g2_plain)}
+             "wsm_step_g2": (W.wsm_step_g2, W.wsm_step_g2_plain),
+             "mont_mul_mxu": (lambda *a: [X.mont_mul_mxu(*a)],
+                              lambda *a: [X.mont_mul_mxu_plain(*a)])}
+    for mxu in (False, True):
+        sfx = "_mxu" if mxu else ""
+        funcs.update({
+            "miller_step_dbl" + sfx: (
+                lambda *a, m=mxu: ML.miller_step_dbl(*a, mxu=m),
+                lambda *a, m=mxu: ML.miller_step_dbl_plain(*a, mxu=m)),
+            "miller_step_add" + sfx: (
+                lambda *a, m=mxu: ML.miller_step_add(*a, mxu=m),
+                lambda *a, m=mxu: ML.miller_step_add_plain(*a, mxu=m)),
+            "fp_chain" + sfx: (lambda *a, m=mxu: [CK.pow_chain(*a, mxu=m)],
+                               lambda *a, m=mxu: [CK.pow_chain_plain(*a, mxu=m)]),
+            "fp2_chain" + sfx: (lambda *a, m=mxu: CK.fp2_pow_chain(*a, mxu=m),
+                                lambda *a, m=mxu: CK.fp2_pow_chain_plain(*a, mxu=m))})
 
     def hold(name, args):
         """Byte equality of a kernel's outputs with its plain version's on
@@ -286,9 +318,11 @@ def main() -> int:
         "lazy_sub_neg": (t.limbs, F.fp_neg(t).limbs),
         "all_qmax": (torch.full((F.N, n), F.QMAX, dtype=F.DTYPE, device=dev),) * 2,
     }
-    for name, (x, y) in corpora.items():
-        eq, _ = hold("mont_mul", (x.contiguous(), y.contiguous()))
-        emit({"phase": "kernel_check", "kernel": "mont_mul", "corpus": name, "n": n, "equal": eq})
+    for kernel in ("mont_mul", "mont_mul_mxu"):
+        for name, (x, y) in corpora.items():
+            eq, _ = hold(kernel, (x.contiguous(), y.contiguous()))
+            emit({"phase": "kernel_check", "kernel": kernel, "corpus": name, "n": n,
+                  "equal": eq})
 
     # Miller-step and WSM-step inputs from live points: n distinct
     # [r]G1 and [s]G2 made on the card, then two dbl+add Miller steps.
@@ -318,24 +352,26 @@ def main() -> int:
         f, tpt = ML.miller_step_dbl(f, tpt, xp, yp)
         f, tpt = ML.miller_step_add(f, tpt, q, xp, yp, ones)
     bit = torch.tensor([rng.getrandbits(1) for _ in range(n)], dtype=F.DTYPE, device=dev)
-    for name, args in (("miller_step_dbl", (f, tpt, xp, yp)),
-                       ("miller_step_add", (f, tpt, q, xp, yp, bit))):
-        eq, _ = hold(name, args)
-        emit({"phase": "kernel_check", "kernel": name, "corpus": "pairing_steps", "n": n,
-              "equal": eq})
+    for sfx in ("", "_mxu"):
+        for name, args in (("miller_step_dbl" + sfx, (f, tpt, xp, yp)),
+                           ("miller_step_add" + sfx, (f, tpt, q, xp, yp, bit))):
+            eq, _ = hold(name, args)
+            emit({"phase": "kernel_check", "kernel": name, "corpus": "pairing_steps", "n": n,
+                  "equal": eq})
 
     # The chains: p-2 on strict and lazy (bound 4, inside the 4.3 P
     # contract) bases; (p^2+7)/16 on reduced Fp2 elements.
     lazy = F.fp_add(F.fp_add(t, a), F.LFp(torch.zeros_like(a.limbs), 0.0))
-    chain_out = {}
-    for name, base in (("strict", a.limbs), ("lazy_bound4", lazy.limbs.contiguous())):
-        eq, got = hold("fp_chain", (base, F.P_INT - 2))
-        chain_out[name] = got[0]
-        emit({"phase": "kernel_check", "kernel": "fp_chain", "corpus": name, "n": n,
-              "exponent": "p-2", "equal": eq})
-    eq, fp2_out = hold("fp2_chain", (a.limbs, b.limbs, h2c.SQRT_EXP_BITS))
-    emit({"phase": "kernel_check", "kernel": "fp2_chain", "corpus": "strict", "n": n,
-          "exponent": "(p^2+7)/16", "equal": eq})
+    chain_out, fp2_out = {}, {}
+    for sfx in ("", "_mxu"):
+        for name, base in (("strict", a.limbs), ("lazy_bound4", lazy.limbs.contiguous())):
+            eq, got = hold("fp_chain" + sfx, (base, F.P_INT - 2))
+            chain_out[name + sfx] = got[0]
+            emit({"phase": "kernel_check", "kernel": "fp_chain" + sfx, "corpus": name, "n": n,
+                  "exponent": "p-2", "equal": eq})
+        eq, fp2_out[sfx] = hold("fp2_chain" + sfx, (a.limbs, b.limbs, h2c.SQRT_EXP_BITS))
+        emit({"phase": "kernel_check", "kernel": "fp2_chain" + sfx, "corpus": "strict", "n": n,
+              "exponent": "(p^2+7)/16", "equal": eq})
 
     # One WSM step per curve on live points: the acc a reduced Jacobian
     # multiple of the generator, the base another lane's affine multiple;
@@ -368,22 +404,26 @@ def main() -> int:
           "equal": ref_ok})
     k = 4
     lazy_ints = F.decode_mont(lazy.limbs[:, :k])
-    fp_ok = (F.decode_mont(chain_out["strict"][:, :k]) == [pow(v, F.P_INT - 2, F.P_INT)
-                                                          for v in a_ints[:k]]
-             and F.decode_mont(chain_out["lazy_bound4"][:, :k])
-             == [pow(v, F.P_INT - 2, F.P_INT) for v in lazy_ints])
-    emit({"phase": "reference", "check": "fp_chain vs host pow(x, p-2, p)", "n": k,
-          "equal": fp_ok})
-    got2 = [(x % F.P_INT, y % F.P_INT) for x, y in zip(F.decode_mont(fp2_out[0][:, :k]),
-                                                      F.decode_mont(fp2_out[1][:, :k]))]
     want2 = [OFp2(x, y).pow(h2c.SQRT_EXP) for x, y in zip(a_ints[:k], b_ints[:k])]
-    fp2_ok = got2 == [(w.c0, w.c1) for w in want2]
-    emit({"phase": "reference", "check": "fp2_chain vs oracle Fp2.pow((p^2+7)/16)", "n": k,
-          "equal": fp2_ok})
-    if not (ref_ok and fp_ok and fp2_ok):
+    chains_ok = True
+    for sfx in ("", "_mxu"):
+        fp_ok = (F.decode_mont(chain_out["strict" + sfx][:, :k])
+                 == [pow(v, F.P_INT - 2, F.P_INT) for v in a_ints[:k]]
+                 and F.decode_mont(chain_out["lazy_bound4" + sfx][:, :k])
+                 == [pow(v, F.P_INT - 2, F.P_INT) for v in lazy_ints])
+        emit({"phase": "reference", "check": f"fp_chain{sfx} vs host pow(x, p-2, p)", "n": k,
+              "equal": fp_ok})
+        out0, out1 = fp2_out[sfx]
+        got2 = [(x % F.P_INT, y % F.P_INT) for x, y in zip(F.decode_mont(out0[:, :k]),
+                                                          F.decode_mont(out1[:, :k]))]
+        fp2_ok = got2 == [(w.c0, w.c1) for w in want2]
+        emit({"phase": "reference", "check": f"fp2_chain{sfx} vs oracle Fp2.pow((p^2+7)/16)",
+              "n": k, "equal": fp2_ok})
+        chains_ok = chains_ok and fp_ok and fp2_ok
+    if not (ref_ok and chains_ok):
         return 1
 
-    # -- path, under both arms --------------------------------------------
+    # -- path, under every arm ---------------------------------------------
     t0 = time.perf_counter()
     pool = []
     for i in range(POOL):
@@ -404,20 +444,32 @@ def main() -> int:
           "signers_per_multi_key_set": 16, "seconds": round(time.perf_counter() - t0, 3)})
 
     def set_arm(arm: str) -> None:
-        F.set_chains(arm == "arm")
-        F.set_wsm(arm == "arm")
+        F.set_chains(arm != "default")
+        F.set_wsm(arm != "default")
+        F.set_mxu(arm == "mxu")
 
-    mods = {"mont_mul": MK, "fp_chain": CK, "fp2_chain": CK,
-            **{s: ML for s in STEP_NAMES}, **{s: W for s in WSM_NAMES}}
+    # (module, wrapper, kernel name, operands, takes an mxu flag)
+    entry_points = [(MK, "mont_mul", "mont_mul", 2, False),
+                    (X, "mont_mul_mxu", "mont_mul_mxu", 2, False),
+                    (ML, "miller_step_dbl", "miller_step_dbl", 4, True),
+                    (ML, "miller_step_add", "miller_step_add", 6, True),
+                    (CK, "pow_chain", "fp_chain", 2, True),
+                    (CK, "fp2_pow_chain", "fp2_chain", 3, True),
+                    (W, "wsm_step_g1", "wsm_step_g1", 5, False),
+                    (W, "wsm_step_g2", "wsm_step_g2", 5, False)]
+    keep_steps = ({i for i, b in enumerate(ML.X_BITS[1:]) if b} | {len(ML.X_BITS) - 2})
+    zero = {name: 0 for name in KERNEL_NAMES}
+    chains = {"fp_chain": 12, "fp2_chain": 4, "wsm_step_g1": 64, "wsm_step_g2": 64}
     want_counts = {
-        "default": {"miller_step_dbl": 63, "miller_step_add": 63, "fp_chain": 0,
-                    "fp2_chain": 0, "wsm_step_g1": 0, "wsm_step_g2": 0},
-        "arm": {"miller_step_dbl": 63, "miller_step_add": 63, "fp_chain": 12,
-                "fp2_chain": 4, "wsm_step_g1": 64, "wsm_step_g2": 64},
+        "default": {**zero, "miller_step_dbl": 63, "miller_step_add": 63},
+        "arm": {**zero, "miller_step_dbl": 63, "miller_step_add": 63, **chains},
+        "mxu": {**zero, "miller_step_dbl_mxu": 63, "miller_step_add_mxu": 63,
+                "fp_chain_mxu": 12, "fp2_chain_mxu": 4, "wsm_step_g1": 64, "wsm_step_g2": 64},
     }
+    products = {"default": "mont_mul", "arm": "mont_mul", "mxu": "mont_mul_mxu"}
     bk = backend.TorchBackend(device="cuda", device_h2c=True)
     counts, path_ops, path_widths = {}, {}, {}
-    for arm in ("default", "arm"):
+    for arm in ARMS:
         set_arm(arm)
         backend.reset_launch_counts()
         mb = bk.marshal_sets(sets)
@@ -430,7 +482,7 @@ def main() -> int:
         counts[arm] = backend.launch_counts()
         backend.reset_launch_counts()
         bad_verdict, path_ops[arm], path_widths[arm] = capture_kernel_operands(
-            mods, lambda: bk.verify_signature_sets(bad))
+            entry_points, F.mxu_active, keep_steps, lambda: bk.verify_signature_sets(bad))
         bad_counts = backend.launch_counts()
         emit({"phase": "path", "arm": arm, "verdict_valid": verdict,
               "verdict_one_bad": bad_verdict, "launches_per_verify": counts[arm],
@@ -439,14 +491,21 @@ def main() -> int:
         if not (verdict is True and bad_verdict is False):
             return 1
         for c in (counts[arm], bad_counts):
-            if c["mont_mul"] <= 0 or any(c[k] != v for k, v in want_counts[arm].items()):
+            prod = products[arm]
+            if c[prod] <= 0 or any(c[k] != v for k, v in want_counts[arm].items() if k != prod):
                 emit({"phase": "path", "arm": arm, "error": "unexpected launch counts",
                       "want": want_counts[arm]})
                 return 1
+    # the mxu arm runs the arm's path with every product on the 13-bit plane
+    if counts["mxu"]["mont_mul_mxu"] != counts["arm"]["mont_mul"]:
+        emit({"phase": "path", "error": "the mxu arm's 13-bit products differ in number from "
+              "the arm's 15-bit products", "mxu": counts["mxu"]["mont_mul_mxu"],
+              "arm": counts["arm"]["mont_mul"]})
+        return 1
 
     # -- the kernels on the path's own operands ----------------------------
     with torch.inference_mode():
-        for arm in ("default", "arm"):
+        for arm in ARMS:
             for name in KERNEL_NAMES:
                 kept = path_ops[arm][name]
                 if not kept:
@@ -460,13 +519,13 @@ def main() -> int:
                   "error": "a kernel disagrees with its plain version on the path's operands"})
             return 1
 
-        # -- kernel times on the arm's operands ----------------------------
+        # -- kernel times on their arm's operands --------------------------
         kernels = {}
-        ops, widths = path_ops["arm"], path_widths["arm"]
 
-        def record(name, args, source, replaces, bytes_moved, imads, long, **extra):
+        def record(name, args, source, replaces, bytes_moved, imads, long, dmma_fmas=0,
+                   **extra):
             kern, plain = funcs[name]
-            bms, by = bound_ms(bytes_moved, imads)
+            bms, by = bound_ms(bytes_moved, imads, dmma_fmas)
             kernels[name] = {
                 "route": "cuda", "source": f"lighthouse_tpu_torch/csrc/{source}",
                 "replaces": f"lighthouse_tpu/crypto/bls/jax_backend/{replaces}",
@@ -479,29 +538,46 @@ def main() -> int:
 
         plane = F.N * 4  # bytes of one (26,) limb column
         # mont_mul at the default path's most-launched width, where most of
-        # its launches and device time are (the arm's is a 2-lane call)
+        # its launches and device time are (the arm's is a 2-lane call);
+        # mont_mul_mxu at the same width on the mxu arm's operands
         mont_widths = path_widths["default"]["mont_mul"]
         n_mont = max(mont_widths, key=mont_widths.get)
         record("mont_mul", path_ops["default"]["mont_mul"][n_mont], "mont.cu",
                "pallas_fp.py:141", 3 * plane * n_mont, MK.IMAD_PER_LANE * n_mont, False)
-        for name, step, planes_in, line in (("miller_step_dbl", "dbl", 20, 423),
-                                            ("miller_step_add", "add", 24, 449)):
-            call = [c for c in sorted(ops[name]) if ML.X_BITS[1 + c]][-1]
-            args = ops[name][call]
-            n_step = args[0].shape[-1]
-            # f, T (, Q), xp, yp planes read and f, T written; the add step's bit
-            record(name, args, "miller_step.cu", f"pallas_miller.py:{line}",
-                   (planes_in + 18) * plane * n_step + (4 * n_step if step == "add" else 0),
-                   ML.program(step).n_mul * MK.IMAD_PER_LANE * n_step, True, step=call)
-        for name, source, line, planes in (("fp_chain", "chain.cu", 181, 2),
-                                           ("fp2_chain", "chain.cu", 278, 4)):
-            n_ch = max(widths[name], key=widths[name].get)
-            args = ops[name][n_ch]
-            bits = bin(args[1])[2:] if name == "fp_chain" else "".join(map(str, args[2]))
-            nd = len(CK.window_digits(bits))
-            record(name, args, source, f"pallas_fp.py:{line}",
-                   planes * plane * n_ch + 4 * nd,
-                   CK.imads_per_lane(name.split("_")[0], nd) * n_ch, True, digits=nd)
+        mxu_ops = path_ops["mxu"]["mont_mul_mxu"]
+        n_mxu = n_mont if n_mont in mxu_ops else max(mxu_ops)
+        record("mont_mul_mxu", mxu_ops[n_mxu], "mxu.cu", "pallas_mxu.py:161",
+               3 * plane * n_mxu, X.IMAD_PER_LANE * n_mxu, False,
+               dmma_fmas=X.DMMA_FMA_PER_LANE * n_mxu)
+        for arm, sfx, source in (("arm", "", "miller_step.cu"),
+                                 ("mxu", "_mxu", "miller_step_mxu.cu")):
+            ops = path_ops[arm]
+            for step, planes_in, line in (("dbl", 20, 423), ("add", 24, 449)):
+                name = f"miller_step_{step}{sfx}"
+                call = [c for c in sorted(ops[name]) if ML.X_BITS[1 + c]][-1]
+                args = ops[name][call]
+                n_step = args[0].shape[-1]
+                n_mul = ML.program(step).n_mul * n_step
+                imad = X.IMAD_PER_LANE if sfx else MK.IMAD_PER_LANE
+                # f, T (, Q), xp, yp planes read and f, T written; the add step's bit
+                record(name, args, source, f"pallas_miller.py:{line}",
+                       (planes_in + 18) * plane * n_step + (4 * n_step if step == "add" else 0),
+                       n_mul * imad, True, dmma_fmas=n_mul * X.DMMA_FMA_PER_LANE if sfx else 0,
+                       step=call)
+            for field, line, planes in (("fp", 181, 2), ("fp2", 278, 4)):
+                name = f"{field}_chain{sfx}"
+                widths = path_widths[arm][name]
+                n_ch = max(widths, key=widths.get)
+                args = ops[name][n_ch]
+                bits = bin(args[1])[2:] if field == "fp" else "".join(map(str, args[2]))
+                nd = len(CK.window_digits(bits))
+                c = CK.products_per_lane(nd)[field]
+                record(name, args, "chain.cu", f"pallas_fp.py:{line}",
+                       planes * plane * n_ch + 4 * nd,
+                       CK.imads_per_lane(field, nd, bool(sfx)) * n_ch, True,
+                       dmma_fmas=(c["mul"] + c["sqr"]) * X.DMMA_FMA_PER_LANE * n_ch if sfx else 0,
+                       digits=nd)
+        ops = path_ops["arm"]
         for name, nc in (("wsm_step_g1", 1), ("wsm_step_g2", 2)):
             call = max(ops[name])
             args = ops[name][call]
@@ -511,11 +587,11 @@ def main() -> int:
                    8 * nc * plane * n_w + 4 * 4 * n_w,
                    (prog.n_mul * MK.IMAD_PER_LANE + prog.n_sqr * MK.SQR_IMAD_PER_LANE) * n_w,
                    False, step=call)
-    del path_ops, ops
+    del path_ops, ops, mxu_ops
 
-    # -- path timing, both arms interleaved ---------------------------------
-    timings = {"default": [], "arm": []}
-    peak = {"default": 0, "arm": 0}
+    # -- path timing, the arms interleaved ---------------------------------
+    timings = {arm: [] for arm in ARMS}
+    peak = {arm: 0 for arm in ARMS}
     for arm in TIMING_ORDER:
         set_arm(arm)
         torch.cuda.synchronize()
@@ -531,7 +607,7 @@ def main() -> int:
             return 1
         timings[arm].append((t1 - t0, t2 - t1, t3 - t2))
         peak[arm] = max(peak[arm], torch.cuda.max_memory_allocated())
-    for arm in ("default", "arm"):
+    for arm in ARMS:
         med = [statistics.median(c) for c in zip(*timings[arm])]
         emit({"phase": "path_timing", "arm": arm, "sets": N_SETS, "order": TIMING_ORDER,
               "reps": len(timings[arm]), "marshal_s": med[0], "dispatch_s": med[1],
@@ -541,16 +617,18 @@ def main() -> int:
               "dispatch_s_each": [r[1] for r in timings[arm]],
               "launches_per_verify": sum(counts[arm].values()),
               "card": smi, "peak_mem_gib": peak[arm] / 2**30})
-    for arm in ("default", "arm"):
+    for arm in ARMS:
         set_arm(arm)
         emit({"phase": "profile", "arm": arm, "sets": N_SETS, "card": smi,
               **profile_verify(torch, bk, sets)})
     set_arm("default")
 
+    # launches: on the arm whose path the kernel is timed on
+    home = {name: "mxu" if name in MXU_NAMES else "arm" for name in KERNEL_NAMES}
     out = []
     for name, rec in kernels.items():
-        out.append({"name": name, **rec, "launches": counts["arm"][name],
-                    "launches_default": counts["default"][name]})
+        out.append({"name": name, **rec, "launches": counts[home[name]][name],
+                    "launches_by_arm": {arm: counts[arm][name] for arm in ARMS}})
     emit({"kernels": out})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

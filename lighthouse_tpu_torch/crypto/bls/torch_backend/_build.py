@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_ROOT = Path(__file__).resolve().parents[3]
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
-LIBRARIES = ("mont", "miller_step", "chain", "wsm_step")  # csrc/<name>.cu -> lib<name>.so
+# csrc/<name>.cu -> lib<name>.so
+LIBRARIES = ("mont", "miller_step", "chain", "wsm_step", "mxu", "miller_step_mxu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,8 +58,8 @@ def build_dir() -> Path:
 def build_all() -> dict:
     """Compile every library that is not built yet, all nvcc processes
     started together.  Returns {"seconds": wall time, "built": [names],
-    "ptxas": {name: [register/spill lines]}}; raises with nvcc's output
-    if any compile fails."""
+    "ptxas": {name: [ptxas's entry-function, register and nonzero
+    stack/spill lines]}}; raises with nvcc's output if any compile fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -82,7 +83,8 @@ def build_all() -> dict:
             continue
         os.replace(tmp, target)
         ptxas[name] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
+                       if "entry function" in ln or "registers" in ln
+                       or ("spill" in ln and not ln.strip().startswith("0 bytes stack"))]
     if failures:
         raise RuntimeError("\n".join(failures))
     return {"seconds": time.perf_counter() - t0, "built": sorted(procs),

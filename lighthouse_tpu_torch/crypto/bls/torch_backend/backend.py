@@ -16,11 +16,14 @@ verify_signature_sets (crypto/bls/src/impls/blst.rs:35-117):
 The device program runs eagerly: every field op is a launch, every
 Montgomery product one launch of kernel 1, every Miller step one launch of
 kernel 2 or 3.  The default arm is the TPU default: fused Miller steps on,
-the opt-in chain and scalar-mul kernels off, MXU absent.  The chain-and-WSM
+the opt-in chain, scalar-mul and MXU kernels off.  The chain-and-WSM
 arm (``fp.set_chains(True)``, ``fp.set_wsm(True)`` or LIGHTHOUSE_TPU_CHAINS=1
 / LIGHTHOUSE_TPU_WSM=1) runs every static-exponent chain as one launch of
 kernel 4 or 5 and each bit of the weight scalar muls as one launch of
-kernel 6 per curve.
+kernel 6 per curve.  The MXU arm (``fp.set_mxu(True)``, LIGHTHOUSE_TPU_MXU=1
+or an installed plan, ``fp.install_mxu_plan``) runs every Montgomery
+product on the 13-bit plane: kernel 7 and the MXU variants of kernels 2-5,
+the WSM steps staying on the 15-bit core as in the reference.
 """
 
 from __future__ import annotations
@@ -38,28 +41,39 @@ from . import chain_kernel as CK
 from . import fp as F
 from . import miller_kernel as ML
 from . import mont_kernel as MK
+from . import mxu_kernel as X
 from . import pairing as PR
 from . import points as P
 from . import tower as T
 from . import wsm_kernel as W
 
 
+# kernel name -> (module, its launch counter)
+_COUNTERS = {
+    "mont_mul": (MK, "launches"),
+    "miller_step_dbl": (ML, "dbl_launches"),
+    "miller_step_add": (ML, "add_launches"),
+    "fp_chain": (CK, "fp_launches"),
+    "fp2_chain": (CK, "fp2_launches"),
+    "wsm_step_g1": (W, "g1_launches"),
+    "wsm_step_g2": (W, "g2_launches"),
+    "mont_mul_mxu": (X, "launches"),
+    "miller_step_dbl_mxu": (ML, "dbl_mxu_launches"),
+    "miller_step_add_mxu": (ML, "add_mxu_launches"),
+    "fp_chain_mxu": (CK, "fp_mxu_launches"),
+    "fp2_chain_mxu": (CK, "fp2_mxu_launches"),
+}
+
+
 def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel."""
-    return {"mont_mul": MK.launches, "miller_step_dbl": ML.dbl_launches,
-            "miller_step_add": ML.add_launches, "fp_chain": CK.fp_launches,
-            "fp2_chain": CK.fp2_launches, "wsm_step_g1": W.g1_launches,
-            "wsm_step_g2": W.g2_launches}
+    """Kernel launches since the last reset, by kernel (the MXU variants
+    under their own names)."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    MK.launches = 0
-    ML.dbl_launches = 0
-    ML.add_launches = 0
-    CK.fp_launches = 0
-    CK.fp2_launches = 0
-    W.g1_launches = 0
-    W.g2_launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def _cat_lfp(x, y):
@@ -290,13 +304,21 @@ class TorchBackend:
     def dispatch(self, mb: MarshalledBatch):
         """Device stage: copy the operands over and enqueue the program on
         the current stream; returns the in-flight verdict tensor without
-        waiting for it (nothing in the program synchronises the host)."""
+        waiting for it (nothing in the program synchronises the host).  The
+        arm is resolved for the padded batch (``fp.mxu_for_batch``: an
+        override, else the installed plan, else the gate) and held around
+        the program, the previous override restored exactly
+        (jax_backend/backend.py:_pin_mxu)."""
         if mb.invalid:
             return False
         args = _to_device(mb.args, self.device)
         fn = _verify_kernel_h2c if mb.device_h2c else _verify_kernel
-        with torch.inference_mode():
-            return fn(*args)
+        prev = F.set_mxu(F.mxu_for_batch(mb.B))
+        try:
+            with torch.inference_mode():
+                return fn(*args)
+        finally:
+            F.set_mxu(prev)
 
     def resolve(self, handle) -> bool:
         """Wait for an in-flight dispatch and return the verdict."""

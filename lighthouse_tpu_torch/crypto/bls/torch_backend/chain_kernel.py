@@ -20,6 +20,11 @@ below 4.3 P.  The Fp2 chain uses its own Karatsuba cores with fixed 16P /
 2P biases and the full product only; its inputs are reduced (bound <= 2).
 Outputs are the reference's limbs byte for byte.
 
+Under the MXU arm (``fp.mxu_active()``) both chains run their products on
+the 13-bit plane (kernel 7's core, mxu_kernel.py): the Fp chain's square is
+then the full product mont(a, a), not the triangle (pallas_fp._core_pair).
+Those variants launch as ``fp_chain_mxu`` and ``fp2_chain_mxu``.
+
 Hopper design (csrc/chain.cu): one launch per chain, one thread per lane,
 the power table in local memory, the digit tape in device memory uploaded
 once per device and exponent.  What bounds it on the card: integer
@@ -37,6 +42,7 @@ import torch
 
 from . import _build
 from . import fp as F
+from . import mxu_kernel as X
 from .mont_kernel import IMAD_PER_LANE, SQR_IMAD_PER_LANE, mont_mul_plain, mont_sqr_plain
 
 N = F.N
@@ -44,6 +50,8 @@ CHAIN_WINDOW = 4  # pallas_fp.CHAIN_WINDOW: 2^w table entries, w squares + 1 mul
 
 fp_launches = 0  # kernel launches (plain-version calls do not count)
 fp2_launches = 0
+fp_mxu_launches = 0  # the MXU variants
+fp2_mxu_launches = 0
 
 
 def window_digits(bitstr: str, w: int = CHAIN_WINDOW) -> list[int]:
@@ -69,10 +77,21 @@ def products_per_lane(n_digits: int) -> dict:
             "fp2": {"mul": 3 * table + steps * (2 * CHAIN_WINDOW + 3), "sqr": 0}}
 
 
-def imads_per_lane(kind: str, n_digits: int) -> int:
-    """32-bit multiplies one lane of the ``kind`` ("fp" or "fp2") chain does."""
+def imads_per_lane(kind: str, n_digits: int, mxu: bool = False) -> int:
+    """32-bit multiplies one lane of the ``kind`` ("fp" or "fp2") chain does
+    on the integer pipes (under MXU, a square is a full product)."""
     c = products_per_lane(n_digits)[kind]
+    if mxu:
+        return (c["mul"] + c["sqr"]) * X.IMAD_PER_LANE
     return c["mul"] * IMAD_PER_LANE + c["sqr"] * SQR_IMAD_PER_LANE
+
+
+def _cores(mxu: bool):
+    """(mul, sqr) plain cores: the 15-bit product and triangle square, or
+    the 13-bit product for both (pallas_fp._core_pair)."""
+    if mxu:
+        return X.mont_mul_mxu_plain, lambda a: X.mont_mul_mxu_plain(a, a)
+    return mont_mul_plain, mont_sqr_plain
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,52 +120,62 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("chain")
     if not lib.lh_fp_chain.argtypes:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lh_fp_chain.argtypes = [vp, ci, vp, vp, ci, vp]
-        lib.lh_fp2_chain.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp]
-        lib.lh_fp_chain.restype = ctypes.c_int
-        lib.lh_fp2_chain.restype = ctypes.c_int
+        for fn in (lib.lh_fp_chain, lib.lh_fp_chain_mxu):
+            fn.argtypes = [vp, ci, vp, vp, ci, vp]
+            fn.restype = ctypes.c_int
+        for fn in (lib.lh_fp2_chain, lib.lh_fp2_chain_mxu):
+            fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp]
+            fn.restype = ctypes.c_int
     return lib
 
 
 # -- kernel 4: Fp ----------------------------------------------------------------
 
 
-def pow_chain_plain(base: torch.Tensor, exponent: int) -> torch.Tensor:
-    """The plain version of kernel 4: base^exponent in the Montgomery domain,
-    the same limbs as pallas_fp.pow_chain_limbs."""
+def pow_chain_plain(base: torch.Tensor, exponent: int, mxu: bool = False) -> torch.Tensor:
+    """The plain version of kernel 4 (of its MXU variant with ``mxu``):
+    base^exponent in the Montgomery domain, the same limbs as
+    pallas_fp.pow_chain_limbs(..., mxu=mxu)."""
+    mul, sqr = _cores(mxu)
     digits = window_digits(bin(exponent)[2:])
     powers = [F.const("ONE", base).expand_as(base), base]
     for _ in range(2, 1 << CHAIN_WINDOW):
-        powers.append(mont_mul_plain(powers[-1], base))
+        powers.append(mul(powers[-1], base))
     acc = powers[digits[0]]
     for d in digits[1:]:
         for _ in range(CHAIN_WINDOW):
-            acc = mont_sqr_plain(acc)
-        acc = mont_mul_plain(acc, powers[d])
+            acc = sqr(acc)
+        acc = mul(acc, powers[d])
     return acc
 
 
-def pow_chain(base: torch.Tensor, exponent: int) -> torch.Tensor:
+def pow_chain(base: torch.Tensor, exponent: int, mxu: bool | None = None) -> torch.Tensor:
     """base^exponent for (26, n) limbs of values below 4.3 P -> (26, n)
-    strict limbs.  CUDA tensors launch kernel 4 on the current stream; CPU
+    strict limbs.  CUDA tensors launch kernel 4 on the current stream (its
+    MXU variant with ``mxu``, which defaults to ``fp.mxu_active()``); CPU
     tensors take the plain version."""
     _check("pow_chain", base)
     if exponent < 1:
         raise ValueError("pow_chain takes a positive exponent")
+    mxu = F.mxu_active() if mxu is None else mxu
     if base.device.type == "cpu":
-        return pow_chain_plain(base, exponent)
+        return pow_chain_plain(base, exponent, mxu)
     digits = tuple(window_digits(bin(exponent)[2:]))
     out = torch.empty_like(base)
     n = base.shape[1]
     if n == 0:
         return out
     lib = _lib()
-    err = lib.lh_fp_chain(_tape(digits, str(base.device)).data_ptr(), len(digits),
-                          base.data_ptr(), out.data_ptr(), n,
-                          torch.cuda.current_stream(base.device).cuda_stream)
-    _build.check(lib, err, "fp_chain kernel")
-    global fp_launches
-    fp_launches += 1
+    launch = lib.lh_fp_chain_mxu if mxu else lib.lh_fp_chain
+    err = launch(_tape(digits, str(base.device)).data_ptr(), len(digits),
+                 base.data_ptr(), out.data_ptr(), n,
+                 torch.cuda.current_stream(base.device).cuda_stream)
+    _build.check(lib, err, "fp_chain_mxu kernel" if mxu else "fp_chain kernel")
+    global fp_launches, fp_mxu_launches
+    if mxu:
+        fp_mxu_launches += 1
+    else:
+        fp_launches += 1
     return out
 
 
@@ -158,58 +187,66 @@ def _sub_biased(a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
     return F.compress1(a + F.const(k, a) - b)
 
 
-def _fp2_mul_core(a0, a1, b0, b1):
+def _fp2_mul_core(a0, a1, b0, b1, mul=mont_mul_plain):
     """Karatsuba (pallas_fp._fp2_mul_core), the three products stacked into
     one call."""
     n = a0.shape[1]
     x = torch.cat([a0, a1, F.compress1(a0 + a1)], dim=1)
     y = torch.cat([b0, b1, F.compress1(b0 + b1)], dim=1)
-    v0, v1, m = mont_mul_plain(x, y).split(n, dim=1)
+    v0, v1, m = mul(x, y).split(n, dim=1)
     return _sub_biased(v0, v1, 2), _sub_biased(_sub_biased(m, v0, 2), v1, 2)
 
 
-def _fp2_sqr_core(a0, a1):
+def _fp2_sqr_core(a0, a1, mul=mont_mul_plain):
     """(a0 + a1)(a0 - a1 + 16P), 2 a0 a1 (pallas_fp._fp2_sqr_core), the two
     products stacked into one call."""
     n = a0.shape[1]
     x = torch.cat([F.compress1(a0 + a1), a0], dim=1)
     y = torch.cat([_sub_biased(a0, a1, 16), a1], dim=1)
-    r0, t = mont_mul_plain(x, y).split(n, dim=1)
+    r0, t = mul(x, y).split(n, dim=1)
     return r0, F.compress1(t + t)
 
 
-def fp2_pow_chain_plain(a0: torch.Tensor, a1: torch.Tensor, bits) -> tuple:
-    """The plain version of kernel 5: (a0 + a1 u)^e for MSB-first ``bits``
-    (leading bit 1), the same limbs as pallas_fp.fp2_pow_chain."""
+def fp2_pow_chain_plain(a0: torch.Tensor, a1: torch.Tensor, bits, mxu: bool = False) -> tuple:
+    """The plain version of kernel 5 (of its MXU variant with ``mxu``):
+    (a0 + a1 u)^e for MSB-first ``bits`` (leading bit 1), the same limbs as
+    pallas_fp.fp2_pow_chain(..., mxu=mxu)."""
+    mul, _ = _cores(mxu)
     digits = window_digits(_fp2_bits(bits))
     powers = [(F.const("ONE", a0).expand_as(a0), torch.zeros_like(a0)), (a0, a1)]
     for _ in range(2, 1 << CHAIN_WINDOW):
-        powers.append(_fp2_mul_core(*powers[-1], a0, a1))
+        powers.append(_fp2_mul_core(*powers[-1], a0, a1, mul=mul))
     c0, c1 = powers[digits[0]]
     for d in digits[1:]:
         for _ in range(CHAIN_WINDOW):
-            c0, c1 = _fp2_sqr_core(c0, c1)
-        c0, c1 = _fp2_mul_core(c0, c1, *powers[d])
+            c0, c1 = _fp2_sqr_core(c0, c1, mul=mul)
+        c0, c1 = _fp2_mul_core(c0, c1, *powers[d], mul=mul)
     return c0, c1
 
 
-def fp2_pow_chain(a0: torch.Tensor, a1: torch.Tensor, bits) -> tuple:
+def fp2_pow_chain(a0: torch.Tensor, a1: torch.Tensor, bits, mxu: bool | None = None) -> tuple:
     """(a0 + a1 u)^e for reduced (26, n) limb planes and MSB-first ``bits``
     -> (r0, r1), each bounded by 6 P.  CUDA tensors launch kernel 5 on the
-    current stream; CPU tensors take the plain version."""
+    current stream (its MXU variant with ``mxu``, which defaults to
+    ``fp.mxu_active()``); CPU tensors take the plain version."""
     _check("fp2_pow_chain", a0, a1)
+    mxu = F.mxu_active() if mxu is None else mxu
     if a0.device.type == "cpu":
-        return fp2_pow_chain_plain(a0, a1, bits)
+        return fp2_pow_chain_plain(a0, a1, bits, mxu)
     digits = tuple(window_digits(_fp2_bits(bits)))
     o0, o1 = torch.empty_like(a0), torch.empty_like(a1)
     n = a0.shape[1]
     if n == 0:
         return o0, o1
     lib = _lib()
-    err = lib.lh_fp2_chain(_tape(digits, str(a0.device)).data_ptr(), len(digits),
-                           a0.data_ptr(), a1.data_ptr(), o0.data_ptr(), o1.data_ptr(), n,
-                           torch.cuda.current_stream(a0.device).cuda_stream)
-    _build.check(lib, err, "fp2_chain kernel")
-    global fp2_launches
-    fp2_launches += 1
+    launch = lib.lh_fp2_chain_mxu if mxu else lib.lh_fp2_chain
+    err = launch(_tape(digits, str(a0.device)).data_ptr(), len(digits),
+                 a0.data_ptr(), a1.data_ptr(), o0.data_ptr(), o1.data_ptr(), n,
+                 torch.cuda.current_stream(a0.device).cuda_stream)
+    _build.check(lib, err, "fp2_chain_mxu kernel" if mxu else "fp2_chain kernel")
+    global fp2_launches, fp2_mxu_launches
+    if mxu:
+        fp2_mxu_launches += 1
+    else:
+        fp2_launches += 1
     return o0, o1

@@ -23,13 +23,15 @@ Op contracts (identical to the JAX package):
 * ``fp_add``: value a+b, bound a.bound + b.bound.
 * ``fp_sub``: value a - b + k*P with k from ``_k_for(b.bound)``.
 * ``mont_mul``: a.bound * b.bound <= 2000; strict limbs out, bound
-  prod/625 + 1.1.  Routed to kernel 1 (mont_kernel.py).
+  prod/625 + 1.1.  Routed to kernel 1 (mont_kernel.py), or to kernel 7
+  (mxu_kernel.py) under the MXU arm.
 * ``fp_reduce(x) = mont_mul(x, R mod P)``, bound pinned to 2.0.
 * ``fp_canon``: canonical limbs (value < P), only at the edges.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 from fractions import Fraction
@@ -190,6 +192,32 @@ def batch_shape(a: LFp):
 
 
 # ---------------------------------------------------------------------------
+# Range probe: the widest intermediate of the plain Montgomery products
+# ---------------------------------------------------------------------------
+
+_widest: list | None = None
+
+
+def seen(x: torch.Tensor) -> torch.Tensor:
+    """Record x's largest value while a range_probe is open; returns x."""
+    if _widest is not None:
+        _widest.append(int(x.max()))
+    return x
+
+
+@contextlib.contextmanager
+def range_probe():
+    """Record the maximum of every intermediate of the plain products
+    (mont_kernel, mxu_kernel) run inside the block; yields the list."""
+    global _widest
+    prev, _widest = _widest, []
+    try:
+        yield _widest
+    finally:
+        _widest = prev
+
+
+# ---------------------------------------------------------------------------
 # Carry handling (raw limb tensors)
 # ---------------------------------------------------------------------------
 
@@ -314,8 +342,8 @@ def relabel(a: LFp, bound: float) -> LFp:
 
 def mont_mul(a: LFp, b: LFp) -> LFp:
     """Montgomery product a*b*R^-1 mod P (strict limbs out), one launch of
-    kernel 1 on the flattened batch."""
-    from . import mont_kernel
+    kernel 1 on the flattened batch, or of kernel 7 under the MXU arm."""
+    from . import mont_kernel, mxu_kernel
 
     prod = a.bound * b.bound
     assert prod <= MAX_MUL_PRODUCT, (
@@ -323,7 +351,8 @@ def mont_mul(a: LFp, b: LFp) -> LFp:
         "insert fp_reduce on an operand"
     )
     batch = a.limbs.shape[1:]
-    flat = mont_kernel.mont_mul(
+    kernel = mxu_kernel.mont_mul_mxu if mxu_active() else mont_kernel.mont_mul
+    flat = kernel(
         a.limbs.reshape(N, -1).contiguous(), b.limbs.reshape(N, -1).contiguous()
     )
     return LFp(flat.reshape((N,) + batch), prod / MONT_DIVISOR + MONT_EPS)
@@ -412,6 +441,74 @@ def set_wsm(enabled: bool) -> None:
 def wsm_fused_active() -> bool:
     """The one gate for the fused scalar-mul step kernels."""
     return wsm_enabled()
+
+
+# The MXU arm (jax_backend/fp.py:501-584): every Montgomery product -- the
+# standalone product, both chains and the Miller steps -- on the 13-bit
+# plane (kernel 7 and the MXU variants of kernels 2-5).  The WSM steps stay
+# on the 15-bit core, as in the reference.
+
+_MXU_MODE: bool | None = None
+_MXU_PLAN: dict | None = None
+
+
+def mxu_enabled() -> bool:
+    """Whether the Montgomery products run on the 13-bit plane.  Precedence:
+    the ``set_mxu`` override > the LIGHTHOUSE_TPU_MXU env flag (read live,
+    never latched, so a plan installed later is not shadowed) > the
+    installed plan's ``"*"`` default > off."""
+    if _MXU_MODE is not None:
+        return _MXU_MODE
+    env = os.environ.get("LIGHTHOUSE_TPU_MXU")
+    if env is not None:
+        return env == "1"
+    if _MXU_PLAN is not None:
+        default = _MXU_PLAN.get("*")
+        if default is not None:
+            return bool(default)
+    return False
+
+
+def set_mxu(enabled: bool | None) -> bool | None:
+    """In-process override; beats the env flag and any plan.  ``None``
+    clears it.  Returns the previous override, to restore it exactly."""
+    global _MXU_MODE
+    prev = _MXU_MODE
+    _MXU_MODE = None if enabled is None else bool(enabled)
+    return prev
+
+
+def install_mxu_plan(shapes: dict | None) -> None:
+    """Install a per-shape arm plan: padded batch size -> MXU on/off, plus an
+    optional ``"*"`` default for other shapes.  ``None`` clears it."""
+    global _MXU_PLAN
+    _MXU_PLAN = dict(shapes) if shapes else None
+
+
+def mxu_planned(batch) -> bool | None:
+    """The plan's arm for padded batch ``batch``; ``None`` when no plan
+    binds it or an override (set_mxu or the env flag) forces one arm for
+    every shape."""
+    if _MXU_MODE is not None or os.environ.get("LIGHTHOUSE_TPU_MXU") is not None:
+        return None
+    if _MXU_PLAN is None:
+        return None
+    routed = _MXU_PLAN.get(batch)
+    if routed is None:
+        routed = _MXU_PLAN.get("*")
+    return None if routed is None else bool(routed)
+
+
+def mxu_for_batch(batch) -> bool:
+    """The arm a verify of padded batch ``batch`` runs under: the planned
+    arm where a plan binds, the process-wide gate otherwise."""
+    planned = mxu_planned(batch)
+    return mxu_enabled() if planned is None else planned
+
+
+def mxu_active() -> bool:
+    """The one gate for routing products to the 13-bit plane."""
+    return mxu_enabled()
 
 
 # The fixpoint bound of a pow carry: 4.3 * 4.3 = 18.5 <= 2000 and

@@ -23,6 +23,11 @@ then has two readings:
 Both apply the same limb ops in dependency order, so their limbs agree byte
 for byte.  Which Montgomery core each product uses and which bias k each
 subtraction uses match pallas_miller.py, since the formulas are its own.
+Under the MXU arm (``fp.mxu_active()``) the same programs run with every
+product on the 13-bit plane: ``csrc/miller_step_mxu.cu`` (kernel 7's core
+in each product, as pallas_miller.py's ``_Ctx(..., mxu)``) and the plain
+versions over ``mxu_kernel.mont_mul_mxu_plain``; they launch as
+``miller_step_dbl_mxu`` and ``miller_step_add_mxu``.
 
 Hopper design: one thread per lane, the step's f (12 planes), T (6), Q (4),
 xp and yp read once and the 18 output planes written once; intermediates
@@ -48,6 +53,7 @@ from . import _build
 from . import fp as F
 from . import tower as T
 from .mont_kernel import mont_mul_plain, mont_sqr_plain
+from .mxu_kernel import mont_mul_mxu_plain
 
 N = F.N
 
@@ -460,24 +466,27 @@ def program(step: str) -> Program:
     return Program(f"miller_step_{step}", ctx.ops, outputs)
 
 
-def run_plain(prog: Program, bufs: dict) -> dict:
+def run_plain(prog: Program, bufs: dict, mxu: bool = False) -> dict:
     """The plain PyTorch reading of a program.  ``bufs`` maps each limb
     input buffer to (planes, 26, n) or (26, n), each flag buffer to (1, n)
     and "bit" to (n,) int32 tensors; returns {output buffer: tensor}, limb
-    outputs as (planes, 26, n) and flag outputs as (1, n)."""
+    outputs as (planes, 26, n) and flag outputs as (1, n).  With ``mxu``
+    every product, a square too, is the 13-bit product."""
     ref = next(b for b in bufs.values() if b.dim() >= 2)
     n = ref.shape[-1]
+    mul = mont_mul_mxu_plain if mxu else mont_mul_plain
+    sqr = (lambda a: mont_mul_mxu_plain(a, a)) if mxu else mont_sqr_plain
     vals = {}
     for kind, item in prog.stages:
         if kind == "mul":
             a = torch.cat([vals[op.ins[0]] for op in item], dim=1)
             b = torch.cat([vals[op.ins[1]] for op in item], dim=1)
-            for op, r in zip(item, mont_mul_plain(a, b).split(n, dim=1)):
+            for op, r in zip(item, mul(a, b).split(n, dim=1)):
                 vals[op.out] = r
             continue
         if kind == "sqr":
             a = torch.cat([vals[op.ins[0]] for op in item], dim=1)
-            for op, r in zip(item, mont_sqr_plain(a).split(n, dim=1)):
+            for op, r in zip(item, sqr(a).split(n, dim=1)):
                 vals[op.out] = r
             continue
         op = item
@@ -526,6 +535,8 @@ def run_plain(prog: Program, bufs: dict) -> dict:
 
 dbl_launches = 0  # kernel launches (plain-version calls do not count)
 add_launches = 0
+dbl_mxu_launches = 0  # the MXU variants
+add_mxu_launches = 0
 
 
 def _check(named: dict) -> None:
@@ -546,61 +557,74 @@ def _check(named: dict) -> None:
         raise ValueError(f"Miller step has no path for device {f.device}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("miller_step")
-    if not lib.lh_miller_step_dbl.argtypes:
-        lib.lh_miller_step_dbl.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-        lib.lh_miller_step_add.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-        lib.lh_miller_step_dbl.restype = ctypes.c_int
-        lib.lh_miller_step_add.restype = ctypes.c_int
+def _lib(mxu: bool) -> ctypes.CDLL:
+    lib = _build.library("miller_step_mxu" if mxu else "miller_step")
+    sfx = "_mxu" if mxu else ""
+    dbl, add = getattr(lib, "lh_miller_step_dbl" + sfx), getattr(lib, "lh_miller_step_add" + sfx)
+    if not dbl.argtypes:
+        dbl.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        add.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
+        dbl.restype = ctypes.c_int
+        add.restype = ctypes.c_int
     return lib
 
 
-def miller_step_dbl_plain(f, t, xp, yp):
-    out = run_plain(program("dbl"), {"f": f, "t": t, "xp": xp, "yp": yp})
+def miller_step_dbl_plain(f, t, xp, yp, mxu: bool = False):
+    out = run_plain(program("dbl"), {"f": f, "t": t, "xp": xp, "yp": yp}, mxu)
     return out["f_out"], out["t_out"]
 
 
-def miller_step_add_plain(f, t, q, xp, yp, bit):
-    out = run_plain(program("add"), {"f": f, "t": t, "q": q, "xp": xp, "yp": yp, "bit": bit})
+def miller_step_add_plain(f, t, q, xp, yp, bit, mxu: bool = False):
+    out = run_plain(program("add"), {"f": f, "t": t, "q": q, "xp": xp, "yp": yp, "bit": bit},
+                    mxu)
     return out["f_out"], out["t_out"]
 
 
-def miller_step_dbl(f, t, xp, yp):
+def miller_step_dbl(f, t, xp, yp, mxu: bool | None = None):
     """One doubling step on f (12, 26, n) and T (6, 26, n) at P = (xp, yp):
-    returns (f', T').  CUDA tensors launch kernel 2 on the current stream;
+    returns (f', T').  CUDA tensors launch kernel 2 on the current stream
+    (its MXU variant with ``mxu``, which defaults to ``fp.mxu_active()``);
     CPU tensors take the plain version."""
     _check({"f": f, "t": t, "xp": xp, "yp": yp})
+    mxu = F.mxu_active() if mxu is None else mxu
     if f.device.type == "cpu":
-        return miller_step_dbl_plain(f, t, xp, yp)
+        return miller_step_dbl_plain(f, t, xp, yp, mxu)
     f_out, t_out = torch.empty_like(f), torch.empty_like(t)
-    lib = _lib()
-    err = lib.lh_miller_step_dbl(
-        f.data_ptr(), t.data_ptr(), xp.data_ptr(), yp.data_ptr(),
-        f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
-        torch.cuda.current_stream(f.device).cuda_stream)
-    _build.check(lib, err, "miller_step_dbl kernel")
-    global dbl_launches
-    dbl_launches += 1
+    lib = _lib(mxu)
+    launch = lib.lh_miller_step_dbl_mxu if mxu else lib.lh_miller_step_dbl
+    err = launch(f.data_ptr(), t.data_ptr(), xp.data_ptr(), yp.data_ptr(),
+                 f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
+                 torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(lib, err, "miller_step_dbl_mxu kernel" if mxu else "miller_step_dbl kernel")
+    global dbl_launches, dbl_mxu_launches
+    if mxu:
+        dbl_mxu_launches += 1
+    else:
+        dbl_launches += 1
     return f_out, t_out
 
 
-def miller_step_add(f, t, q, xp, yp, bit):
+def miller_step_add(f, t, q, xp, yp, bit, mxu: bool | None = None):
     """One addition step with the affine twist point Q (4, 26, n): where
     bit (n,) is set, (f, T) take the added values, elsewhere they pass
-    through.  CUDA tensors launch kernel 3; CPU tensors the plain version."""
+    through.  CUDA tensors launch kernel 3 (its MXU variant with ``mxu``);
+    CPU tensors the plain version."""
     _check({"f": f, "t": t, "q": q, "xp": xp, "yp": yp, "bit": bit})
+    mxu = F.mxu_active() if mxu is None else mxu
     if f.device.type == "cpu":
-        return miller_step_add_plain(f, t, q, xp, yp, bit)
+        return miller_step_add_plain(f, t, q, xp, yp, bit, mxu)
     f_out, t_out = torch.empty_like(f), torch.empty_like(t)
-    lib = _lib()
-    err = lib.lh_miller_step_add(
-        f.data_ptr(), t.data_ptr(), q.data_ptr(), xp.data_ptr(), yp.data_ptr(),
-        bit.data_ptr(), f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
-        torch.cuda.current_stream(f.device).cuda_stream)
-    _build.check(lib, err, "miller_step_add kernel")
-    global add_launches
-    add_launches += 1
+    lib = _lib(mxu)
+    launch = lib.lh_miller_step_add_mxu if mxu else lib.lh_miller_step_add
+    err = launch(f.data_ptr(), t.data_ptr(), q.data_ptr(), xp.data_ptr(), yp.data_ptr(),
+                 bit.data_ptr(), f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
+                 torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(lib, err, "miller_step_add_mxu kernel" if mxu else "miller_step_add kernel")
+    global add_launches, add_mxu_launches
+    if mxu:
+        add_mxu_launches += 1
+    else:
+        add_launches += 1
     return f_out, t_out
 
 
@@ -633,8 +657,9 @@ def miller_loop_fused(p_aff, q_aff):
     t_arr = torch.cat([q_arr, torch.zeros_like(q_arr[:2])])
     t_arr[4] = one
     bit_rows = {b: torch.full((n,), b, dtype=F.DTYPE, device=xp_a.device) for b in (0, 1)}
+    mxu = F.mxu_active()
     for bit in X_BITS[1:]:
-        f_arr, t_arr = miller_step_dbl(f_arr, t_arr, xp_a, yp_a)
-        f_arr, t_arr = miller_step_add(f_arr, t_arr, q_arr, xp_a, yp_a, bit_rows[bit])
+        f_arr, t_arr = miller_step_dbl(f_arr, t_arr, xp_a, yp_a, mxu)
+        f_arr, t_arr = miller_step_add(f_arr, t_arr, q_arr, xp_a, yp_a, bit_rows[bit], mxu)
     vals = [F.LFp(f_arr[i].reshape((N,) + batch), 2.0) for i in range(12)]
     return T.fp12_conj(T.fp12_from_lanes(vals))

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from . import _build
+from . import fp as F
 from .fp import BITS, MASK, N, compress1, compress2, const
 
 launches = 0  # kernel launches (plain-version calls do not count)
@@ -89,11 +90,11 @@ def _columns(p: torch.Tensor) -> torch.Tensor:
     buffer through one strided view (the lo halves) and the same view
     shifted by one column (the hi halves); summing the rows gives the
     column sums."""
-    n = p.shape[-1]
+    n = F.seen(p).shape[-1]
     rows = torch.zeros((N, 2 * N + 1, n), dtype=torch.int64, device=p.device)
     rows.as_strided((N, N, n), ((2 * N + 2) * n, n, 1)).copy_(p & MASK)
     rows.as_strided((N, N, n), ((2 * N + 2) * n, n, 1), n).add_(p >> BITS)
-    return compress2(rows.sum(0)[: 2 * N])
+    return F.seen(compress2(F.seen(rows.sum(0)[: 2 * N])))
 
 
 def _wide_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -124,7 +125,7 @@ def _reduce_tail(s: torch.Tensor) -> torch.Tensor:
     0 or exactly R: the carry into limb 26 is 1 iff any low limb is
     nonzero.  Carry passes then finish the high limbs (each pass moves a
     carry of at most 1 one limb up; a second pass is rarely needed)."""
-    c = compress2(s)
+    c = compress2(F.seen(s))
     high = c[N:].clone()
     high[0] += c[:N].ne(0).any(dim=0).to(c.dtype)
     while bool((high >> BITS).any()):

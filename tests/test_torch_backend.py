@@ -17,6 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+# The plain versions run many small ops: one intra-op thread per process, so
+# test processes side by side (pytest-xdist) do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 jax = pytest.importorskip("jax")
 
 from lighthouse_tpu.crypto.bls import api as japi  # noqa: E402
@@ -147,7 +151,8 @@ def test_non_subgroup_signature_fails_on_the_device_path(cpu_backend):
     assert cpu_backend.verify_signature_sets(good[1:] + [bad]) is False
     counts = TB.launch_counts()
     assert {"mont_mul", "miller_step_dbl", "miller_step_add", "fp_chain", "fp2_chain",
-            "wsm_step_g1", "wsm_step_g2"} == set(counts)
+            "wsm_step_g1", "wsm_step_g2", "mont_mul_mxu", "miller_step_dbl_mxu",
+            "miller_step_add_mxu", "fp_chain_mxu", "fp2_chain_mxu"} == set(counts)
     assert set(counts.values()) == {0}
 
 

@@ -9,6 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+# The plain versions run many small ops: one intra-op thread per process, so
+# test processes side by side (pytest-xdist) do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

@@ -23,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(lighthouse_tpu_torch.__path__,
                                                "lighthouse_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for kernel in ("mont_kernel", "miller_kernel", "chain_kernel", "wsm_kernel"):
+for kernel in ("mont_kernel", "miller_kernel", "chain_kernel", "wsm_kernel", "mxu_kernel"):
     assert f"lighthouse_tpu_torch.crypto.bls.torch_backend.{kernel}" in names, kernel
 import chip_smoke
 assert callable(chip_smoke.main)

@@ -19,6 +19,10 @@ import pytest
 import torch
 import torch_host_cuda as host_cuda
 
+# The plain versions run many small ops: one intra-op thread per process, so
+# test processes side by side (pytest-xdist) do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 jax = pytest.importorskip("jax")
 
 from lighthouse_tpu.crypto.bls import params  # noqa: E402

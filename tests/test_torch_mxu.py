@@ -1,0 +1,471 @@
+"""Kernel 7 and the MXU arm (torch_backend/mxu_kernel.py, the MXU variants of
+kernels 2-5) against the JAX package's pallas_mxu, on the CPU.
+
+Fast tier (byte equality unless stated):
+* ``to13_plain`` / ``to15_plain`` against ``pallas_mxu._to13`` / ``_to15``
+  (plain jnp) on the boundary and random corpora of test_pallas_fp.py, and
+  the 13-bit constants: to13 of the 15-bit P and P' are the strict 13-bit
+  limbs of P and P' (limbs.SPEC13), limb for limb;
+* ``mont_mul_mxu_plain`` against ``pallas_mxu.mont_mul_limbs(...,
+  interpret=True)`` on one lane-concatenated corpus (strict, fp_add / fp_sub
+  lazy operands, all-QMAX, a * a lanes: kernel 9's body), and by canonical
+  value against kernel 1's plain version on the in-contract lanes;
+* the gates' precedence, set_mxu > LIGHTHOUSE_TPU_MXU > plan > off (the
+  twin of test_autotune.py's, without the tuner);
+* routing on CPU tensors under set_mxu(True): fp.mont_mul, fp_pow and
+  h2c.fp2_pow_static (chains on) reach the MXU plain versions; the WSM
+  step does not;
+* csrc/mxu.cuh's per-lane parts, and the MXU kernels of mxu.cu and chain.cu,
+  compiled with g++ and held against the plain versions lane by lane (the
+  two DMMA products come from the host stand-in in torch_host_cuda.py);
+* B=8 verify through TorchBackend(device="cpu") under chains + WSM + MXU
+  equals the oracle, with the MXU variants on every product path (Miller
+  63 + 63, Fp chain 12, Fp2 chain 4) and the 15-bit core for the WSM steps.
+
+Slow tier: the one-invalid verdict under the arm; the MXU Fp chain and
+Miller steps against the Pallas kernels built with mxu=True, in interpret
+mode.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+import torch_host_cuda as host_cuda
+
+# The plain versions run many small ops: one intra-op thread per process, so
+# test processes side by side (pytest-xdist) do not oversubscribe the cores.
+torch.set_num_threads(1)
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from lighthouse_tpu.crypto.bls import api as japi  # noqa: E402
+from lighthouse_tpu.crypto.bls.jax_backend import limbs as LB  # noqa: E402
+from lighthouse_tpu.crypto.bls.jax_backend import pallas_fp as PF  # noqa: E402
+from lighthouse_tpu.crypto.bls.jax_backend import pallas_mxu as PMX  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls import api as tapi  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import chain_kernel as CK  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as F  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import h2c  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import miller_kernel as ML  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import mont_kernel as MK  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import mxu_kernel as X  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import wsm_kernel as W  # noqa: E402
+
+P = F.P_INT
+
+
+def _u32(t: torch.Tensor):
+    return jnp.asarray(t.numpy().astype(np.uint32))
+
+
+def _i64(a) -> np.ndarray:
+    return np.asarray(a).astype(np.int64)
+
+
+# -- the plane converters and constants ------------------------------------------
+
+_BOUNDARY = [0, 1, P - 1, P, LB.R_INT - 1, LB.R1_INT, LB.R2_INT]
+
+
+def _quasi15_corpus() -> np.ndarray:
+    """test_pallas_fp._quasi15_corpus: strict boundary values, random quasi
+    columns and the all-QMAX column, (26, 17) uint32."""
+    nrng = np.random.default_rng(0x13B)
+    cols = [LB.SPEC15.int_to_limbs(v) for v in _BOUNDARY]
+    cols += [nrng.integers(0, F.QMAX + 1, size=26, dtype=np.uint32) for _ in range(9)]
+    cols.append(np.full(26, F.QMAX, dtype=np.uint32))
+    return np.stack(cols, axis=1).astype(np.uint32)
+
+
+def test_to13_and_to15_match_the_reference_converters():
+    a15 = _quasi15_corpus()
+    got13 = X.to13_plain(torch.as_tensor(a15.astype(np.int32)))
+    np.testing.assert_array_equal(got13.numpy(), _i64(PMX._to13(jnp.asarray(a15))))
+    assert int(got13.max()) <= 8193 < X.QMAX13
+    rng = random.Random(0x15)
+    vals = [v % LB.R_INT for v in _BOUNDARY] + [rng.randrange(LB.R_INT) for _ in range(20)]
+    a13 = np.stack([LB.SPEC13.int_to_limbs(v) for v in vals], axis=1).astype(np.uint32)
+    got15 = X.to15_plain(torch.as_tensor(a13.astype(np.int32)))
+    np.testing.assert_array_equal(got15.numpy(), _i64(PMX._to15(jnp.asarray(a13))))
+    np.testing.assert_array_equal(got15.numpy(), np.stack(
+        [LB.SPEC15.int_to_limbs(v) for v in vals], axis=1).astype(np.int64))
+
+
+def test_13_bit_constants_are_the_reference_relimbing():
+    """The kernel re-limbs P and P' with to13 of the 15-bit constants, as the
+    reference does in-kernel; for these two integers that equals their strict
+    13-bit limbs, and P13's spill limb is zero (so m * P has 30 x 30 terms)."""
+    c = X.constants13()
+    ref = {"P13": PMX._to13(jnp.asarray(PF._P_COLS)), "PP13": PMX._to13(jnp.asarray(PF._PP_COLS))}
+    for name, spec_limbs in (("P13", LB.SPEC13.p_limbs), ("PP13", LB.SPEC13.pprime_limbs)):
+        np.testing.assert_array_equal(c[name], _i64(ref[name])[:, 0])
+        np.testing.assert_array_equal(c[name], _i64(spec_limbs))
+    assert c["P13"][30] == 0 and c["PP13"][30] == 0
+
+
+# -- kernel 7's plain version against the reference ----------------------------------
+
+
+def _corpus():
+    """(x, y, in_contract) on 228 lanes: random strict values, the
+    test_pallas_fp.py lazy operands (s = a + a, t = b - a, their negation),
+    all-QMAX limbs (out of the value contract) and a * a lanes."""
+    rng = random.Random(0xA11A)
+    n = 32
+    a = F.lfp_encode([rng.randrange(P) for _ in range(n)], "cpu")
+    b = F.lfp_encode([rng.randrange(P) for _ in range(n)], "cpu")
+    s, t = F.fp_add(a, a), F.fp_sub(b, a)
+    d = F.fp_neg(t)
+    q = torch.full((F.N, 4), F.QMAX, dtype=torch.int32)
+    pairs = [(a.limbs, b.limbs, True), (s.limbs, t.limbs, True), (t.limbs, s.limbs, True),
+             (t.limbs, d.limbs, True), (q, q, False), (a.limbs, a.limbs, True),
+             (s.limbs, s.limbs, True), (t.limbs, t.limbs, True)]
+    x = torch.cat([p[0] for p in pairs], dim=1).contiguous()
+    y = torch.cat([p[1] for p in pairs], dim=1).contiguous()
+    ok = torch.cat([torch.full((p[0].shape[1],), p[2]) for p in pairs])
+    return x, y, ok
+
+
+def test_plain_mxu_product_matches_pallas_interpret(record_property):
+    x, y, in_contract = _corpus()
+    got = X.mont_mul_mxu_plain(x, y)
+    assert got.dtype == torch.int32
+    want = _i64(PMX.mont_mul_limbs(_u32(x), _u32(y), interpret=True))
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    assert int(got.max()) <= F.MASK  # strict out
+    # by value, against kernel 1's plain version on the in-contract lanes
+    vpu = MK.mont_mul_plain(x, y)
+    lanes = in_contract.nonzero().flatten()
+    assert [v % P for v in F.limbs_to_ints(got[:, lanes])] == [
+        v % P for v in F.limbs_to_ints(vpu[:, lanes])]
+    # reported, not asserted: lanes whose bytes differ from kernel 1's
+    differ = int((got != vpu).any(dim=0).sum())
+    record_property("lanes_differing_from_15_bit_core", differ)
+    print(f"mont_mul_mxu_plain vs mont_mul_plain: {differ} of {x.shape[1]} lanes differ in bytes")
+
+
+# -- the gates ---------------------------------------------------------------------
+
+
+@pytest.fixture
+def clean_gates(monkeypatch):
+    monkeypatch.delenv("LIGHTHOUSE_TPU_MXU", raising=False)
+    monkeypatch.setattr(F, "_MXU_MODE", None)
+    monkeypatch.setattr(F, "_MXU_PLAN", None)
+    yield monkeypatch
+    F.set_mxu(None)
+    F.install_mxu_plan(None)
+
+
+def test_gate_precedence_override_env_plan(clean_gates):
+    monkeypatch = clean_gates
+    assert F.mxu_enabled() is False and F.mxu_for_batch(8) is False
+    F.install_mxu_plan({8: True, 4096: False, "*": True})
+    assert F.mxu_for_batch(8) is True and F.mxu_for_batch(4096) is False
+    assert F.mxu_for_batch(16) is True  # the plan's "*" default
+    assert F.mxu_enabled() is True  # the gate reads the "*" default too
+    monkeypatch.setenv("LIGHTHOUSE_TPU_MXU", "0")
+    assert F.mxu_for_batch(8) is False and F.mxu_planned(8) is None  # env beats plan
+    monkeypatch.setenv("LIGHTHOUSE_TPU_MXU", "1")
+    assert F.mxu_for_batch(4096) is True
+    monkeypatch.delenv("LIGHTHOUSE_TPU_MXU")
+    assert F.mxu_for_batch(8) is True and F.mxu_for_batch(4096) is False  # plan resumes
+    monkeypatch.setenv("LIGHTHOUSE_TPU_MXU", "1")
+    prev = F.set_mxu(False)
+    assert prev is None
+    assert F.mxu_for_batch(8) is False and F.mxu_active() is False  # override beats both
+    assert F.set_mxu(prev) is False
+    assert F.mxu_for_batch(8) is True
+    F.install_mxu_plan(None)
+    monkeypatch.delenv("LIGHTHOUSE_TPU_MXU")
+    assert F.mxu_enabled() is False and F.mxu_planned(8) is None
+
+
+# -- routing on CPU tensors ----------------------------------------------------------
+
+
+def _spy(monkeypatch, module, attr, log, key=None):
+    orig = getattr(module, attr)
+
+    def wrapped(*args, **kw):
+        name = key(args, kw) if key else attr
+        log[name] = log.get(name, 0) + 1
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(module, attr, wrapped)
+
+
+def _arg(i, name):
+    """The mxu flag of a plain version called positionally or by keyword."""
+    def key(args, kw):
+        return f"{name}_mxu" if (args[i] if len(args) > i else kw.get("mxu", False)) else name
+    return key
+
+
+def _spy_paths(monkeypatch):
+    log = {}
+    _spy(monkeypatch, X, "mont_mul_mxu", log)
+    _spy(monkeypatch, MK, "mont_mul", log)
+    _spy(monkeypatch, CK, "pow_chain_plain", log, _arg(2, "fp_chain"))
+    _spy(monkeypatch, CK, "fp2_pow_chain_plain", log, _arg(3, "fp2_chain"))
+    _spy(monkeypatch, ML, "miller_step_dbl_plain", log, _arg(4, "dbl"))
+    _spy(monkeypatch, ML, "miller_step_add_plain", log, _arg(6, "add"))
+    _spy(monkeypatch, W, "run_plain", log, _arg(2, "wsm"))
+    return log
+
+
+@pytest.fixture
+def mxu_on(clean_gates):
+    F.set_chains(True)
+    F.set_wsm(True)
+    F.set_mxu(True)
+    yield clean_gates
+    F.set_chains(False)
+    F.set_wsm(False)
+
+
+def test_mxu_routes_products_and_chains_but_not_wsm(mxu_on):
+    log = _spy_paths(mxu_on)
+    rng = random.Random(31)
+    a = F.fp_add(F.lfp_encode([rng.randrange(1, P) for _ in range(2)], "cpu"),
+                 F.lfp_encode([rng.randrange(P) for _ in range(2)], "cpu"))
+    vals = F.decode_mont(a)
+    assert F.decode_mont(F.mont_mul(a, a)) == [v * v % P for v in vals]
+    assert F.decode_mont(F.fp_pow(a, 0x305)) == [pow(v, 0x305, P) for v in vals]
+    x = (F.lfp_encode([rng.randrange(P) for _ in range(2)], "cpu"),
+         F.lfp_encode([rng.randrange(P) for _ in range(2)], "cpu"))
+    arm = h2c.fp2_pow_static(x, [1, 0, 1, 1, 0, 1])
+    W.wsm_step_g1(*_wsm_operands(rng))  # stays on the 15-bit core
+    assert log.pop("mont_mul_mxu") > 0
+    assert log == {"fp_chain_mxu": 1, "fp2_chain_mxu": 1, "wsm": 1}
+    F.set_mxu(False)
+    default = h2c.fp2_pow_static(x, [1, 0, 1, 1, 0, 1])
+    assert [F.limbs_to_ints(F.fp_canon(c)) for c in arm] == [
+        F.limbs_to_ints(F.fp_canon(c)) for c in default]
+
+
+def _wsm_operands(rng):
+    n = 3
+
+    def planes(k):
+        return torch.stack([torch.as_tensor(F.ints_to_limbs(
+            [rng.randrange(2 * P) for _ in range(n)])) for _ in range(k)])
+
+    def flags():
+        return torch.tensor([[rng.randrange(2) for _ in range(n)]], dtype=torch.int32)
+
+    return planes(3), flags(), planes(2), flags(), flags()
+
+
+# -- host builds of the MXU sources --------------------------------------------------
+
+_HARNESS_MXU = r"""
+#define LANES_OF(rows, src) for (int i = 0; i < rows; ++i) src[i] = in[i * n + l]
+extern "C" void host_to13(const uint32_t* in, uint32_t* out, int n) {
+  for (int l = 0; l < n; ++l) {
+    uint32_t a[lh::NL], o[lh::NL13];
+    LANES_OF(lh::NL, a);
+    lh::to13(a, o);
+    for (int i = 0; i < lh::NL13; ++i) out[i * n + l] = o[i];
+  }
+}
+extern "C" void host_to15(const uint32_t* in, uint32_t* out, int n) {
+  for (int l = 0; l < n; ++l) {
+    uint32_t a[lh::NL13], o[lh::NL];
+    LANES_OF(lh::NL13, a);
+    lh::to15(a, o);
+    for (int i = 0; i < lh::NL; ++i) out[i * n + l] = o[i];
+  }
+}
+extern "C" void host_cols13(const uint32_t* in, const uint32_t* in2, uint32_t* out, int n) {
+  for (int l = 0; l < n; ++l) {
+    uint32_t a[lh::NL13], b[lh::NL13], t[lh::NC13];
+    LANES_OF(lh::NL13, a);
+    for (int i = 0; i < lh::NL13; ++i) b[i] = in2[i * n + l];
+    lh::cols13(a, b, t);
+    for (int i = 0; i < lh::NC13; ++i) out[i * n + l] = t[i];
+  }
+}
+extern "C" void host_compress13(const uint32_t* in, uint32_t* out, int n) {
+  for (int l = 0; l < n; ++l) {
+    uint32_t c[lh::NC13];
+    LANES_OF(lh::NC13, c);
+    lh::compress13(c);
+    for (int i = 0; i < lh::NC13; ++i) out[i * n + l] = c[i];
+  }
+}
+extern "C" void host_finish(const uint32_t* in, const uint32_t* in2, uint32_t* out, int n) {
+  for (int l = 0; l < n; ++l) {
+    uint32_t t[lh::NC13], u[lh::NC13], o[lh::NL];
+    LANES_OF(lh::NC13, t);
+    for (int i = 0; i < lh::NC13; ++i) u[i] = in2[i * n + l];
+    lh::mxu_finish(t, u, o);
+    for (int i = 0; i < lh::NL; ++i) out[i * n + l] = o[i];
+  }
+}
+extern "C" void host_mont_mxu(const uint32_t* a, const uint32_t* b, uint32_t* o, int n) {
+  EACH_LANE(mont_mul_mxu_kernel(a, b, o, n))
+}
+"""
+
+_HARNESS_CHAIN = r"""
+extern "C" void host_fp_chain_mxu(const int32_t* tape, int nd, const uint32_t* b, uint32_t* o,
+                                  int n) {
+  EACH_LANE(fp_chain_mxu_kernel(tape, nd, b, o, n))
+}
+extern "C" void host_fp2_chain_mxu(const int32_t* tape, int nd, const uint32_t* a0,
+                                   const uint32_t* a1, uint32_t* o0, uint32_t* o1, int n) {
+  EACH_LANE(fp2_chain_mxu_kernel(tape, nd, a0, a1, o0, o1, n))
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_mxu(tmp_path_factory):
+    d = tmp_path_factory.mktemp("hostmxu")
+    return {"mxu": host_cuda.build(d, "mxu", _HARNESS_MXU),
+            "chain": host_cuda.build(d, "chain", _HARNESS_CHAIN)}
+
+
+def test_host_compiled_mxu_helpers_match_plain(host_mxu):
+    """to13, the a * b columns, a 13-bit carry pass, the 61-step carry with
+    to15, and to15 alone, lane by lane; then the whole core (its two DMMA
+    products from the host stand-in) against mont_mul_mxu_plain."""
+    lib, ptr = host_mxu["mxu"], host_cuda.ptr
+    x, y, _ = _corpus()
+    n = x.shape[1]
+
+    def run(fn, out_rows, *ins):
+        out = torch.empty((out_rows, n), dtype=torch.int32)
+        fn(*[ptr(t.contiguous()) for t in ins], ptr(out), n)
+        return out
+
+    a13 = X.to13_plain(x).int()
+    b13 = X.to13_plain(y).int()
+    assert torch.equal(run(lib.host_to13, 31, x), a13)
+    t = X.dot_cols_plain(a13.long(), b13.long()).int()
+    assert torch.equal(run(lib.host_cols13, 61, a13, b13), t)
+    rng = np.random.default_rng(0x61)
+    raw = torch.as_tensor(rng.integers(0, 1 << 31, size=(61, n)).astype(np.int32))
+    assert torch.equal(run(lib.host_compress13, 61, raw), X.compress13(raw.long()).int())
+    u = torch.as_tensor(rng.integers(0, 8193, size=(61, n)).astype(np.int32))
+    u[50:] = 0  # (t + u) / R below 2^390
+    want = X.to15_plain(X._strict13(t.long() + u.long())[X.NLOW:]).int()
+    assert torch.equal(run(lib.host_finish, 26, t, u), want)
+    strict13 = X._strict13(u.long())[:31].int()
+    assert torch.equal(run(lib.host_to15, 26, strict13), X.to15_plain(strict13).int())
+    assert torch.equal(run(lib.host_mont_mxu, 26, x, y), X.mont_mul_mxu_plain(x, y))
+
+
+def test_host_compiled_mxu_chains_match_plain(host_mxu):
+    lib, ptr = host_mxu["chain"], host_cuda.ptr
+    rng = random.Random(41)
+    a = F.lfp_encode([rng.randrange(P) for _ in range(3)], "cpu").limbs
+    b = F.lfp_encode([rng.randrange(P) for _ in range(3)], "cpu").limbs
+    e = 0x305
+    tape = torch.tensor(CK.window_digits(bin(e)[2:]), dtype=torch.int32)
+    out = torch.empty_like(a)
+    lib.host_fp_chain_mxu(ptr(tape), len(tape), ptr(a), ptr(out), 3)
+    assert torch.equal(out, CK.pow_chain_plain(a, e, mxu=True))
+    bits = [1, 0, 0, 0, 0, 0, 0, 1, 0, 1]
+    tape = torch.tensor(CK.window_digits("".join(map(str, bits))), dtype=torch.int32)
+    o0, o1 = torch.empty_like(a), torch.empty_like(b)
+    lib.host_fp2_chain_mxu(ptr(tape), len(tape), ptr(a), ptr(b), ptr(o0), ptr(o1), 3)
+    r0, r1 = CK.fp2_pow_chain_plain(a, b, bits, mxu=True)
+    assert torch.equal(o0, r0) and torch.equal(o1, r1)
+
+
+def test_mxu_wrapper_checks_its_operands():
+    z = torch.zeros((F.N, 3), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        X.mont_mul_mxu(z.long(), z.long())
+    with pytest.raises(ValueError):
+        X.mont_mul_mxu(z, z[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        X.mont_mul_mxu(z.t().contiguous().t(), z)
+    assert X.launches == 0  # CPU calls take the plain version and count nothing
+    X.mont_mul_mxu(z, z)
+    assert X.launches == 0
+
+
+# -- the arm end to end --------------------------------------------------------------
+
+
+def _sets(api, corpus: str):
+    """Five signed sets (one of three signers on one message) from a seeded
+    spec; in "one_invalid" the third is signed under another key."""
+    rng = random.Random(f"mxu-{corpus}")
+    spec = []
+    for _ in range(4):
+        sk = rng.randrange(2, 10**12)
+        spec.append(([sk], rng.randbytes(32), sk))
+    multi = [rng.randrange(2, 10**12) for _ in range(3)]
+    spec.append((multi, b"\x33" * 32, sum(multi)))
+    if corpus == "one_invalid":
+        sks, msg, signer = spec[2]
+        spec[2] = (sks, msg, signer + 1)
+    return [api.SignatureSet(api.SecretKey(signer).sign(msg),
+                             [api.SecretKey(k).public_key() for k in sks], msg)
+            for sks, msg, signer in spec]
+
+
+@pytest.mark.parametrize("corpus", [
+    "valid", pytest.param("one_invalid", marks=pytest.mark.slow)])
+def test_mxu_arm_verdicts_match_oracle(mxu_on, corpus):
+    want = japi.cpu_backend().verify_signature_sets(_sets(japi, corpus))
+    assert want is (corpus == "valid")
+    log = _spy_paths(mxu_on)
+    backend = TB.TorchBackend(device="cpu", min_batch=8)
+    assert backend.verify_signature_sets(_sets(tapi, corpus)) is want
+    assert log.pop("mont_mul_mxu") > 0
+    assert log == {"dbl_mxu": 63, "add_mxu": 63, "fp_chain_mxu": 12, "fp2_chain_mxu": 4,
+                   "wsm": 128}
+    assert F.set_mxu(True) is True  # dispatch restored the override it found
+
+
+# -- slow: the MXU chain and Miller steps against the Pallas kernels ------------------
+
+
+@pytest.mark.slow
+def test_mxu_fp_chain_plain_matches_pallas_interpret():
+    """pallas_fp.pow_chain_limbs(..., mxu=True) in interpret mode (digits 3,
+    0, 5: the table, a 0 digit, squares as full products) on 128 lanes."""
+    rng = random.Random(17)
+    a = F.lfp_encode([rng.randrange(P) for _ in range(128)], "cpu").limbs
+    want = PF.pow_chain_limbs(_u32(a), 0x305, interpret=True, mxu=True)
+    np.testing.assert_array_equal(
+        CK.pow_chain_plain(a, 0x305, mxu=True).numpy().astype(np.int64), _i64(want))
+
+
+@pytest.mark.slow
+def test_mxu_miller_steps_match_pallas_interpret():
+    """pallas_miller._dbl_call / _add_call built with mxu=True, in interpret
+    mode, on 128 lanes of reduced random planes."""
+    from lighthouse_tpu.crypto.bls.jax_backend import pallas_miller as PM
+
+    rng = random.Random(19)
+    n = 128
+
+    def planes(k):
+        return torch.stack([torch.as_tensor(F.ints_to_limbs(
+            [rng.randrange(2 * P) for _ in range(n)])) for _ in range(k)])
+
+    f, t, q = planes(12), planes(6), planes(4)
+    xp, yp = planes(1)[0], planes(1)[0]
+    bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32)
+    consts = PM._const_arrays(n)
+    outs = PM._dbl_call(n, n, True, True)(*[_u32(p) for p in f], *[_u32(p) for p in t],
+                                          _u32(xp), _u32(yp), *consts)
+    rf, rt = ML.miller_step_dbl_plain(f, t, xp, yp, mxu=True)
+    np.testing.assert_array_equal(torch.cat([rf, rt]).numpy().astype(np.int64),
+                                  np.stack([_i64(o) for o in outs]))
+    outs = PM._add_call(n, n, True, True)(
+        *[_u32(p) for p in f], *[_u32(p) for p in t], *[_u32(p) for p in q], _u32(xp),
+        _u32(yp), jnp.asarray(bit.numpy().astype(np.uint32)).reshape(1, n), *consts)
+    rf, rt = ML.miller_step_add_plain(f, t, q, xp, yp, bit, mxu=True)
+    np.testing.assert_array_equal(torch.cat([rf, rt]).numpy().astype(np.int64),
+                                  np.stack([_i64(o) for o in outs]))

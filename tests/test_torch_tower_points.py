@@ -7,6 +7,10 @@ import random
 import pytest
 import torch
 
+# The plain versions run many small ops: one intra-op thread per process, so
+# test processes side by side (pytest-xdist) do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 from lighthouse_tpu.crypto.bls import curve as OC
 from lighthouse_tpu.crypto.bls import fields as O
 from lighthouse_tpu.crypto.bls import params
