@@ -12,12 +12,17 @@ the 13-bit plane, kernel 7 and the MXU variants of kernels 2-5; the WSM
 steps stay on the 15-bit core).  Phases, one JSON line each:
 
 1. device: the card's name, power limit and max SM clock.
-2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/.
+2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
+   ptxas's registers, stack, spills and shared memory of the group forms of
+   kernels 1 and 2 (and the device functions kernel 2 calls).
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
-   byte equality required: mont_mul and mont_mul_mxu on four corpora; the
-   Miller steps and their MXU variants on live pairing steps; the Fp chain
+   byte equality required: mont_mul and mont_mul_mxu on four corpora, and
+   every form of mont_mul (mont_kernel.FORMS) also at 1, 2, G - 1, G + 1,
+   L - 1, L + 1, 31 and 33 lanes (G threads per lane, L lanes per block);
+   the Miller steps and their MXU variants on live pairing steps, and kernel
+   2 also at 1 and G + 1 lanes (G threads per lane); the Fp chain
    and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
    its MXU variant at (p^2+7)/16; one G1 and one G2 WSM step on live points
    with random bits and infinity flags on either side.
@@ -41,11 +46,14 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    steps: four bits), and each kernel is held byte for byte against its
    plain version on them (path_kernel_check).
 6. kernel times, on the captured operands: CUDA events around runs of
-   back-to-back launches (mont_mul at the default path's most-launched
-   width, mont_mul_mxu at the same width on the mxu arm's operands; the
-   chains at their arm's most-launched width; every other kernel on its
-   arm's operands), queued while the card sleeps so that the host's wrapper
-   time stays out.
+   back-to-back launches, queued while the card sleeps so that the host's
+   wrapper time stays out.  mont_mul at every width of the default path
+   (mont_widths: calls x ms, its device time there), every form of it at
+   the three widths with the most device time and at wider calls
+   (mont_groups), and in the kernels line at the most-launched width with
+   the three heaviest beside; mont_mul_mxu at the same width on the mxu
+   arm's operands; the chains at their arm's most-launched width; every
+   other kernel on its arm's operands.
 7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
    mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
@@ -79,6 +87,11 @@ SLEEP_CYCLES = 50_000_000  # ~25 ms at 1980 MHz: covers the host queueing a wind
 ARMS = ("default", "arm", "mxu")
 TIMING_ORDER = ("default", "arm", "mxu", "mxu", "arm", "default")  # interleaved path verifies
 WSM_KEEP = (0, 1, 32, 63)  # WSM step calls whose operands are kept
+MONT_HEAVY = 3  # mont_mul widths of the default path timed: the most device time
+# mont_mul widths beyond the path's, as multiples of the check width, where
+# every form of kernel 1 is timed (where the one-thread form takes over)
+MONT_WIDE = (4, 16, 64)
+SWEEP_WINDOWS = 3  # timing windows per width in the mont_mul width sweep
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 # FP64 tensor-core multiply-adds per SM per clock: the H100 SXM data sheet's
@@ -125,6 +138,35 @@ def time_ms(torch, fn, calls: int, queue_first: bool = False,
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def ptxas_report(log: str, names) -> dict:
+    """{kernel or device function: {registers, stack, spill stores and loads,
+    shared bytes}} from nvcc's -Xptxas -v output, for the functions whose
+    (mangled) name contains one of ``names``."""
+    import re
+
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            current = next((nm for nm in names if nm in m.group(1)), None)
+            if current:
+                out.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[current].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[current].update(registers=int(m.group(1)),
+                                smem=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def _clone(args):
@@ -254,6 +296,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(built["seconds"], 3), "built": built["built"],
           "dir": str(_build.build_dir().relative_to(_build.PKG_ROOT.parent)),
           "ptxas": built["ptxas"]})
+    # the group forms of kernels 1 and 2 and the device functions kernel 2 calls
+    group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
+                               for g, lanes in MK.FORMS if g > 1) + ("mont_mul_kernel",),
+                 "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel", "g_mul", "g_add",
+                                 "g_sub")}
+    emit({"phase": "ptxas", **{lib: ptxas_report((_build.build_dir() / f"{lib}.log").read_text(),
+                                                 names) for lib, names in group_fns.items()}})
 
     # -- kernel checks ----------------------------------------------------
     def rand_ints(n, k=1):
@@ -296,11 +345,12 @@ def main() -> int:
             "fp2_chain" + sfx: (lambda *a, m=mxu: CK.fp2_pow_chain(*a, mxu=m),
                                 lambda *a, m=mxu: CK.fp2_pow_chain_plain(*a, mxu=m))})
 
-    def hold(name, args):
-        """Byte equality of a kernel's outputs with its plain version's on
-        the same operands; returns (equal, the kernel's outputs)."""
-        kern, plain = funcs[name]
-        got, ref = kern(*args), plain(*args)
+    def hold(name, args, kern=None):
+        """Byte equality of a kernel's outputs (through ``kern`` when given,
+        else its wrapper) with its plain version's on the same operands;
+        returns (equal, the kernel's outputs)."""
+        wrapper, plain = funcs[name]
+        got, ref = (kern or wrapper)(*args), plain(*args)
         torch.cuda.synchronize()
         eq = all(bool(torch.equal(g, r)) for g, r in zip(got, ref))
         checked[name]["equal"] &= eq
@@ -323,6 +373,17 @@ def main() -> int:
             eq, _ = hold(kernel, (x.contiguous(), y.contiguous()))
             emit({"phase": "kernel_check", "kernel": kernel, "corpus": name, "n": n,
                   "equal": eq})
+
+    # every form of kernel 1 at widths around its group size and its block
+    # (ragged tails) and the check width
+    for form in MK.FORMS:
+        g, lanes = form
+        widths = sorted({1, 2, max(g - 1, 1), g + 1, lanes - 1, lanes + 1, 31, 33, n})
+        eqs = [hold("mont_mul", (x[:, :w].contiguous(), y[:, :w].contiguous()),
+                    lambda x, y, form=form: [MK.mont_mul(x, y, form=form)])[0]
+               for w in widths for x, y in corpora.values()]
+        emit({"phase": "kernel_check", "kernel": "mont_mul", "form": form,
+              "corpora": len(corpora), "widths": widths, "equal": all(eqs)})
 
     # Miller-step and WSM-step inputs from live points: n distinct
     # [r]G1 and [s]G2 made on the card, then two dbl+add Miller steps.
@@ -358,6 +419,14 @@ def main() -> int:
             eq, _ = hold(name, args)
             emit({"phase": "kernel_check", "kernel": name, "corpus": "pairing_steps", "n": n,
                   "equal": eq})
+
+    # kernel 2's group form at 1 and G + 1 lanes (a ragged block of 32)
+    widths = [1, ML.DBL_GROUP + 1]
+    eqs = [hold("miller_step_dbl", (f[..., :w].contiguous(), tpt[..., :w].contiguous(),
+                                    xp[:, :w].contiguous(), yp[:, :w].contiguous()))[0]
+           for w in widths]
+    emit({"phase": "kernel_check", "kernel": "miller_step_dbl", "group": ML.DBL_GROUP,
+          "corpus": "pairing_steps", "widths": widths, "equal": all(eqs)})
 
     # The chains: p-2 on strict and lazy (bound 4, inside the 4.3 P
     # contract) bases; (p^2+7)/16 on reduced Fp2 elements.
@@ -537,13 +606,42 @@ def main() -> int:
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
 
         plane = F.N * 4  # bytes of one (26,) limb column
-        # mont_mul at the default path's most-launched width, where most of
-        # its launches and device time are (the arm's is a 2-lane call);
-        # mont_mul_mxu at the same width on the mxu arm's operands
+        # mont_mul on the default path, width by width: calls x ms is its
+        # device time there; the widths with the most are timed in every
+        # form of kernel 1, and so are wider calls, where the one-thread
+        # form takes over (MK.form_for)
         mont_widths = path_widths["default"]["mont_mul"]
+        mont_ops = path_ops["default"]["mont_mul"]
+        sweep = {w: time_ms(torch, lambda a=mont_ops[w]: MK.mont_mul(*a), KERNEL_LAUNCHES,
+                            queue_first=True, windows=SWEEP_WINDOWS) for w in mont_widths}
+        by_time = sorted(mont_widths, key=lambda w: -mont_widths[w] * sweep[w])
+        emit({"phase": "mont_widths", "arm": "default", "card": smi,
+              "calls": sum(mont_widths.values()), "widths": len(mont_widths),
+              "device_s": sum(c * sweep[w] for w, c in mont_widths.items()) / 1e3,
+              "top": [{"n": w, "calls": mont_widths[w], "ms": sweep[w],
+                       "device_s": mont_widths[w] * sweep[w] / 1e3, "form": MK.form_for(w)}
+                      for w in by_time[:20]]})
+        heavy = by_time[:MONT_HEAVY]
+        forms = {w: mont_ops[w] for w in heavy}
+        sx, sy = corpora["strict"]
+        for k in MONT_WIDE:
+            forms[k * n] = (sx.repeat(1, k).contiguous(), sy.repeat(1, k).contiguous())
+        emit({"phase": "mont_groups", "card": smi, "ms": {
+            w: {"x".join(map(str, f)): time_ms(torch, lambda f=f, a=args: MK.mont_mul(*a, form=f),
+                                               KERNEL_LAUNCHES, queue_first=True,
+                                               windows=SWEEP_WINDOWS) for f in MK.FORMS}
+            for w, args in forms.items()}, "form_for": {w: MK.form_for(w) for w in forms}})
+        del forms
+        # mont_mul at the default path's most-launched width (the arm's is a
+        # 2-lane call), with its heaviest widths beside; mont_mul_mxu at the
+        # same width on the mxu arm's operands
         n_mont = max(mont_widths, key=mont_widths.get)
-        record("mont_mul", path_ops["default"]["mont_mul"][n_mont], "mont.cu",
-               "pallas_fp.py:141", 3 * plane * n_mont, MK.IMAD_PER_LANE * n_mont, False)
+        record("mont_mul", mont_ops[n_mont], "mont.cu",
+               "pallas_fp.py:141", 3 * plane * n_mont, MK.IMAD_PER_LANE * n_mont, False,
+               form=MK.form_for(n_mont),
+               heaviest_widths=[{"n": w, "calls": mont_widths[w], "ms": sweep[w],
+                                 "bound_ms": bound_ms(3 * plane * w, MK.IMAD_PER_LANE * w)[0],
+                                 "form": MK.form_for(w)} for w in heavy])
         mxu_ops = path_ops["mxu"]["mont_mul_mxu"]
         n_mxu = n_mont if n_mont in mxu_ops else max(mxu_ops)
         record("mont_mul_mxu", mxu_ops[n_mxu], "mxu.cu", "pallas_mxu.py:161",
@@ -564,6 +662,8 @@ def main() -> int:
                        (planes_in + 18) * plane * n_step + (4 * n_step if step == "add" else 0),
                        n_mul * imad, True, dmma_fmas=n_mul * X.DMMA_FMA_PER_LANE if sfx else 0,
                        step=call)
+                if name == "miller_step_dbl":
+                    kernels[name]["group"] = ML.DBL_GROUP
             for field, line, planes in (("fp", 181, 2), ("fp2", 278, 4)):
                 name = f"{field}_chain{sfx}"
                 widths = path_widths[arm][name]

@@ -3,8 +3,11 @@
 * ``csrc/limb_constants.cuh``: P, P', R mod P and the eight subtraction
   biases, from fp.py's re-derived tables.
 * ``csrc/miller_step.cu``: kernels 2 and 3, printed from the recorded step
-  programs of miller_kernel.py (one C statement per limb op, values kept in
-  a per-thread slot array reused by liveness).
+  programs of miller_kernel.py, one C statement per limb op.  Kernel 3 runs
+  one thread per lane, its values in a per-thread slot array reused by
+  liveness.  Kernel 2 is printed in the group form (``_kernel(...,
+  group=G)``): G threads per lane run the program's products side by side,
+  in rounds scheduled by ``group_schedule``, their values in shared memory.
 * ``csrc/miller_step_mxu.cu``: their MXU variants, the same programs with
   every product on the 13-bit plane (kernel 7's core).
 * ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed the
@@ -17,6 +20,9 @@ requires the text to be identical.  Regenerate after changing the formulas:
 """
 
 from __future__ import annotations
+
+import collections
+import dataclasses
 
 from . import _build
 from . import fp as F
@@ -172,6 +178,37 @@ __device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int la
 
 _HELPERS = _HEAD + _K_MUL + _GLUE
 
+_MILLER_HEAD = """// Kernel 2 (the doubling step) runs in the group form: G = 16 threads per
+// lane (csrc/group.cuh).  One thread per lane ran its 169 products one after
+// another, each a 1,703-multiply chain of one thread, with one warp per SM
+// at the Miller loop's 4,097 lanes: the card waited on that thread's issue
+// rate and latency.  The products of one dependency level are independent,
+// so the group runs them side by side: rounds of at most G products (one
+// per thread, the unchanged lh::mont_core, so the bytes are the same by
+// construction) and the linear ops between them dealt to the ranks, a
+// barrier after each phase.  The serial chain falls from 169 products to 11
+// rounds, and the card gets G times the warps.  The lane's values live in
+// shared memory, 16 bits a limb, in slots reassigned by the phase schedule
+// (codegen.group_schedule).
+//
+// Kernel 3 (the addition step) keeps the first design: one thread per lane,
+// its values in the slot array s (registers spilling to local memory),
+// every Montgomery product one call of the non-inlined k_mul.
+//
+// Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
+// neighbouring words and every load and store coalesces; both forms read
+// each input plane once and write each output plane once.
+#include "group.cuh"
+#include "mont.cuh"
+
+namespace {
+
+using lh::NL;
+
+constexpr int kBlock = 32;  // kernel 3: 4,097 lanes -> 129 blocks, one per SM
+
+"""
+
 _HEAD_MXU = """// One thread per lane, one warp per block.  Planes are (planes, 26, n)
 // limb-major, so limb i of neighbouring lanes are neighbouring words and every
 // load and store coalesces.  Intermediates live in the slot array s
@@ -216,6 +253,110 @@ __device__ __noinline__ void k_sqr(uint32_t* o, const uint32_t* a) {
 __device__ __forceinline__ void k_zero(uint32_t* o) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) o[i] = 0;
+}
+"""
+
+_GROUP_HELPERS = """
+// The group form (csrc/group.cuh): G threads per lane, the lane's values in
+// shared memory, slot k limb i of the lane at s[(k * NL + i) * kGroupLanes].
+// A slot holds 16 bits: every value is quasi limbs (inputs, <= QMAX), strict
+// limbs (products) or limbs after one carry pass (add, sub, neg: below
+// 2^15 + 8), all below 2^16.
+using lh::kGroupLanes;
+
+__device__ __forceinline__ uint16_t* g_at(uint16_t* s, int k) { return s + k * NL * kGroupLanes; }
+
+__device__ __forceinline__ void g_put(uint16_t* s, int k, const uint32_t (&c)[NL]) {
+  uint16_t* o = g_at(s, k);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) o[i * kGroupLanes] = static_cast<uint16_t>(c[i]);
+}
+
+__device__ __forceinline__ void g_get(uint16_t* s, int k, uint32_t (&c)[NL]) {
+  const uint16_t* a = g_at(s, k);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) c[i] = a[i * kGroupLanes];
+}
+
+__device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
+  uint32_t x[NL], y[NL], r[NL];
+  g_get(s, a, x);
+  g_get(s, b, y);
+  lh::mont_core(x, y, r);
+  g_put(s, o, r);
+}
+
+__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
+  uint32_t x[NL], r[NL];
+  g_get(s, a, x);
+  lh::mont_sqr_core(x, r);
+  g_put(s, o, r);
+}
+
+// a + b, one carry pass
+__device__ __noinline__ void g_add(uint16_t* s, int o, int a, int b) {
+  uint32_t x[NL], y[NL];
+  g_get(s, a, x);
+  g_get(s, b, y);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) x[i] += y[i];
+  lh::compress1(x);
+  g_put(s, o, x);
+}
+
+// a + kP - b, one carry pass (the bias dominates b limb by limb)
+__device__ __noinline__ void g_sub(uint16_t* s, int o, int a, int b, int kidx) {
+  uint32_t x[NL], y[NL];
+  g_get(s, a, x);
+  g_get(s, b, y);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) x[i] = x[i] + lh::kBias[kidx][i] - y[i];
+  lh::compress1(x);
+  g_put(s, o, x);
+}
+
+// kP - a, one carry pass
+__device__ __noinline__ void g_neg(uint16_t* s, int o, int a, int kidx) {
+  uint32_t x[NL];
+  g_get(s, a, x);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) x[i] = lh::kBias[kidx][i] - x[i];
+  lh::compress1(x);
+  g_put(s, o, x);
+}
+
+__device__ __forceinline__ void g_sel(uint16_t* s, int o, bool take, int a, int b) {
+  uint16_t* d = g_at(s, o);
+  const uint16_t* x = g_at(s, take ? a : b);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d[i * kGroupLanes] = x[i * kGroupLanes];
+}
+
+__device__ __forceinline__ void g_one(uint16_t* s, int o) {
+  uint16_t* d = g_at(s, o);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d[i * kGroupLanes] = static_cast<uint16_t>(lh::kOne[i]);
+}
+
+__device__ __forceinline__ void g_zero(uint16_t* s, int o) {
+  uint16_t* d = g_at(s, o);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) d[i * kGroupLanes] = 0;
+}
+
+__device__ __forceinline__ void g_load(uint16_t* s, int o, const uint32_t* base, int plane,
+                                       int n, int lane) {
+  uint16_t* d = g_at(s, o);
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+    d[i * kGroupLanes] = static_cast<uint16_t>(base[(static_cast<size_t>(plane) * NL + i) * n + lane]);
+}
+
+__device__ __forceinline__ void g_store(uint32_t* base, int plane, int n, int lane, uint16_t* s,
+                                        int k) {
+  const uint16_t* v = g_at(s, k);
+#pragma unroll
+  for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i * kGroupLanes];
 }
 """
 
@@ -313,23 +454,152 @@ def _body(prog: MK.Program, mxu: bool = False) -> tuple[list, int]:
     return lines, n_slots
 
 
-def _kernel(prog: MK.Program, mxu: bool = False) -> str:
-    lines, n_slots = _body(prog, mxu)
+@dataclasses.dataclass(frozen=True)
+class GroupSchedule:
+    """A step program laid out for G threads per lane.
+
+    ``phases[p][r]`` lists the value ids rank r computes in phase p, in
+    order; every phase ends at a barrier of the group.  A phase holds
+    either one round of products (at most one per rank) or linear ops whose
+    inputs all come from earlier phases.  ``slot`` gives every limb value
+    its shared-memory slot; flag values are computed by every thread before
+    the first phase and hold no slot."""
+
+    group: int
+    phases: tuple
+    slot: dict
+    n_slots: int
+    n_rounds: int
+
+
+def group_schedule(prog: MK.Program, group: int) -> GroupSchedule:
+    """Rounds of at most ``group`` products, each taking the ready products
+    (every operand computed, or a linear op away from computed values) with
+    the longest chain of products still after them, so the rounds follow
+    the program's dependency levels and the longest path sets their count.
+    The linear ops a round needs run just before it, in phases by their
+    depth among themselves; the ops left after the last round (the outputs'
+    linear tails) run last.  Ops of a phase are dealt to the ranks round
+    robin.
+
+    Slots are assigned by liveness over phases: a value holds its slot from
+    the phase that writes it through the last phase that reads it, and a
+    slot is handed on only at a phase boundary, so no slot is written in a
+    phase that reads it."""
+    ops = prog.ops
+    kind = {op.out: op.kind for op in ops}
+    ins = {op.out: op.ins for op in ops}
+    consumers = collections.defaultdict(list)
+    for op in ops:
+        for i in op.ins:
+            consumers[i].append(op.out)
+    height = {}  # products on the longest chain after the value
+    for op in reversed(ops):
+        height[op.out] = max((height[c] + (kind[c] in MK.PRODUCTS) for c in consumers[op.out]),
+                             default=0)
+    done = {op.out for op in ops if op.kind in MK.FLAGS}
+    phases = []
+
+    def closure(vids):
+        """The linear ops not yet computed that ``vids`` need, themselves included."""
+        acc, stack = set(), list(vids)
+        while stack:
+            v = stack.pop()
+            if v in done or v in acc:
+                continue
+            assert kind[v] not in MK.PRODUCTS
+            acc.add(v)
+            stack.extend(ins[v])
+        return acc
+
+    def deal(vids):
+        ranks = [[] for _ in range(group)]
+        for k, v in enumerate(vids):
+            ranks[k % group].append(v)
+        phases.append(tuple(tuple(r) for r in ranks))
+
+    def linear(vids):
+        depth = {}
+        for v in sorted(vids):  # program order: inputs before their consumers
+            depth[v] = 1 + max((depth[i] for i in ins[v] if i in vids), default=0)
+        for d in range(1, max(depth.values(), default=0) + 1):
+            deal(sorted(v for v in vids if depth[v] == d))
+        done.update(vids)
+
+    def available(v, memo):
+        if v not in memo:
+            memo[v] = v in done or (kind[v] not in MK.PRODUCTS
+                                    and all(available(i, memo) for i in ins[v]))
+        return memo[v]
+
+    remaining = [op.out for op in ops if op.kind in MK.PRODUCTS]
+    n_rounds = 0
+    while remaining:
+        memo = {}
+        ready = [v for v in remaining if all(available(i, memo) for i in ins[v])]
+        pick = sorted(ready, key=lambda v: (-height[v], v))[:group]
+        linear(closure([i for v in pick for i in ins[v]]))
+        deal(sorted(pick))
+        done.update(pick)
+        remaining = [v for v in remaining if v not in done]
+        n_rounds += 1
+    linear(closure([op.out for op in ops if op.out not in done]))
+
+    phase_of = {v: p for p, ranks in enumerate(phases) for r in ranks for v in r}
+    last = {v: phase_of[v] for v in phase_of}
+    for v in phase_of:
+        for i in ins[v]:
+            if i in last:
+                last[i] = max(last[i], phase_of[v])
+    slot, free, n_slots = {}, [], 0
+    by_last = collections.defaultdict(list)
+    for v, p in last.items():
+        by_last[p].append(v)
+    for p, ranks in enumerate(phases):
+        for v in sorted(v for r in ranks for v in r):
+            if free:
+                slot[v] = free.pop()
+            else:
+                slot[v] = n_slots
+                n_slots += 1
+        free.extend(sorted((slot[v] for v in by_last[p]), reverse=True))
+    return GroupSchedule(group, tuple(phases), slot, n_slots, n_rounds)
+
+
+def _signature(prog: MK.Program) -> dict:
+    """The C pieces of a step kernel's signature and launch: its parameters,
+    the launcher's arguments and the casts between them, and the count of
+    products for its header line."""
     inputs, outputs = _SIGNATURES[prog.name]
-    name = prog.name + "_mxu" if mxu else prog.name
     # the Miller addition bit is an (n,) int32 row; limb and flag planes are uint32
     has_bit = any(op.kind == "bit" for op in prog.ops)
     ctypes = {nm: "int32_t" if nm == "bit" and has_bit else "uint32_t" for nm in inputs}
     params = [f"const {ctypes[nm]}* __restrict__ {nm}" for nm in inputs]
-    params += [f"uint32_t* __restrict__ {name}" for name in outputs] + ["int n"]
-    body = "\n".join("  " + ln for ln in lines)
-    c_args = ", ".join(f"const void* {nm}" for nm in inputs)
-    c_outs = ", ".join(f"void* {nm}" for nm in outputs)
-    casts = ", ".join(f"static_cast<const {ctypes[nm]}*>({nm})" for nm in inputs)
-    out_casts = ", ".join(f"static_cast<uint32_t*>({nm})" for nm in outputs)
+    params += [f"uint32_t* __restrict__ {nm}" for nm in outputs] + ["int n"]
     counts = f"{prog.n_mul} Montgomery products"
     if prog.n_sqr:
         counts += f", {prog.n_sqr} squares"
+    return {"params": ", ".join(params),
+            "c_args": ", ".join(f"const void* {nm}" for nm in inputs),
+            "c_outs": ", ".join(f"void* {nm}" for nm in outputs),
+            "casts": ", ".join(f"static_cast<const {ctypes[nm]}*>({nm})" for nm in inputs),
+            "out_casts": ", ".join(f"static_cast<uint32_t*>({nm})" for nm in outputs),
+            "counts": counts}
+
+
+def _kernel(prog: MK.Program, mxu: bool = False, group: int | None = None) -> str:
+    """A step program's kernel and its C launcher lh_<name>: one thread per
+    lane, or with ``group`` the group form (G threads per lane, launched as
+    lh_<name>_g<G>; not for the MXU variants)."""
+    if group is not None:
+        if mxu:
+            raise NotImplementedError("the group form runs the 15-bit products only")
+        return _group_kernel(prog, group)
+    lines, n_slots = _body(prog, mxu)
+    name = prog.name + "_mxu" if mxu else prog.name
+    sig = _signature(prog)
+    body = "\n".join("  " + ln for ln in lines)
+    counts = sig["counts"]
     if mxu:
         counts += " on the 13-bit plane"
         prologue = """  __shared__ lh::MxuShared<1> mxu_sm;
@@ -343,19 +613,135 @@ def _kernel(prog: MK.Program, mxu: bool = False) -> str:
     return f"""
 // {name}: {len(prog.ops)} limb ops, {counts}, {n_slots} slots.
 static __global__ void __launch_bounds__(kBlock)
-{name}_kernel({", ".join(params)}) {{
+{name}_kernel({sig["params"]}) {{
 {prologue}
   uint32_t s[{n_slots}][NL];
 {body}
 }}
 
-extern "C" int lh_{name}({c_args}, {c_outs}, int n,
+extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
                               void* stream) {{
   if (n > 0) {{
     {name}_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        {casts},
-        {out_casts}, n);
+        {sig["casts"]},
+        {sig["out_casts"]}, n);
+  }}
+  return static_cast<int>(cudaGetLastError());
+}}
+"""
+
+
+def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict) -> list:
+    op = prog.ops[vid]
+    o = sched.slot[vid]
+    ins = [sched.slot.get(i) for i in op.ins]
+    if op.kind == "in":
+        buf, plane = op.arg
+        line = f"g_load(s, {o}, {buf}, {plane}, n, lane);"
+    elif op.kind in ("one", "zero"):
+        line = f"g_{op.kind}(s, {o});"
+    elif op.kind in ("mul", "add"):
+        line = f"g_{op.kind}(s, {o}, {ins[0]}, {ins[1]});"
+    elif op.kind == "sqr":
+        line = f"g_sqr(s, {o}, {ins[0]});"
+    elif op.kind == "sub":
+        line = f"g_sub(s, {o}, {ins[0]}, {ins[1]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}"
+    elif op.kind == "neg":
+        line = f"g_neg(s, {o}, {ins[0]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}"
+    elif op.kind == "sel":
+        mask = op.ins[0]
+        cond = "take" if prog.ops[mask].kind == "bit" else f"f{mask} != 0"
+        line = f"g_sel(s, {o}, {cond}, {ins[1]}, {ins[2]});"
+    else:
+        raise AssertionError(op.kind)
+    lines = [line]
+    if vid in stores:
+        buf, plane = stores[vid]
+        lines.append(f"if (live) g_store({buf}, {plane}, n, lane, s, {o});")
+    return lines
+
+
+def _group_body(prog: MK.Program, sched: GroupSchedule) -> list:
+    """C statements of the group form: the flag values, computed by every
+    thread (they depend on flags only, and rank 0 stores the outputs among
+    them), then one LH_RANKS block per phase, a case per rank."""
+    stores = {vid: (buf, plane) for buf, plane, vid in prog.outputs}
+    lines = []
+    for op in prog.ops:
+        if op.kind not in MK.FLAGS:
+            continue
+        v = f"f{op.out}"
+        if op.kind == "bit":
+            lines.append("const bool take = bit[lane] != 0;")
+        elif op.kind == "flag":
+            lines.append(f"const uint32_t {v} = {op.arg}[lane];")
+        elif op.kind == "and":
+            lines.append(f"const uint32_t {v} = f{op.ins[0]} & f{op.ins[1]};")
+        else:  # fsel
+            m = op.ins[0]
+            cond = "take" if prog.ops[m].kind == "bit" else f"f{m} != 0"
+            lines.append(f"const uint32_t {v} = {cond} ? f{op.ins[1]} : f{op.ins[2]};")
+        if op.out in stores:
+            lines.append(f"if (live && lh::group_rank() == 0) {stores[op.out][0]}[lane] = {v};")
+    products = 0
+    for p, ranks in enumerate(sched.phases):
+        first = next(v for r in ranks for v in r)
+        if prog.ops[first].kind in MK.PRODUCTS:
+            products += 1
+            what = f"round {products} of products"
+        else:
+            what = "linear ops"
+        lines.append(f"// phase {p + 1}: {what}")
+        lines.append(f"LH_RANKS({sched.group}, switch (r) {{")
+        for r, vids in enumerate(ranks):
+            if not vids:
+                continue
+            lines.append(f"  case {r}:")
+            for vid in vids:
+                lines.extend("    " + ln for ln in _group_op(prog, sched, vid, stores))
+            lines.append("    break;")
+        lines.append("  default:")
+        lines.append("    break;")
+        lines.append("})")
+    return lines
+
+
+def _group_kernel(prog: MK.Program, group: int) -> str:
+    """The group form of a step kernel: ``group`` threads per lane in
+    rank-major blocks of 32 lanes (csrc/group.cuh), the program run in the
+    phases of group_schedule, its values in 16-bit shared-memory slots."""
+    sched = group_schedule(prog, group)
+    name = f"{prog.name}_g{group}"
+    sig = _signature(prog)
+    body = "\n".join("  " + ln for ln in _group_body(prog, sched))
+    words = sched.n_slots * F.N
+    shared = words * 2 * 32
+    return f"""
+// {name}: {len(prog.ops)} limb ops, {sig["counts"]}; {group} threads per lane,
+// {sched.n_rounds} rounds of products in {len(sched.phases)} phases, {sched.n_slots} slots
+// ({shared:,} bytes of shared memory per block of 32 lanes).
+static __global__ void __launch_bounds__({group} * lh::kGroupLanes)
+{name}_kernel({sig["params"]}) {{
+  LH_GROUP_SHARED(uint16_t, slots, {words});
+  const int gl = lh::group_lane();
+  const bool live = gl < n;
+  const int lane = live ? gl : n - 1;
+  uint16_t* const s = slots + lh::group_slot();
+{body}
+}}
+
+extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
+                              void* stream) {{
+  constexpr int kShared = {words} * 2 * lh::kGroupLanes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      {name}_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (n > 0) {{
+    {name}_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, {group} * lh::kGroupLanes,
+                          kShared, static_cast<cudaStream_t>(stream)>>>(
+        {sig["casts"]},
+        {sig["out_casts"]}, n);
   }}
   return static_cast<int>(cudaGetLastError());
 }}
@@ -363,8 +749,10 @@ extern "C" int lh_{name}({c_args}, {c_outs}, int n,
 
 
 def miller_step_source() -> str:
-    kernels = "".join(_kernel(MK.program(step)) for step in ("dbl", "add"))
-    return HEADER + _MILLER_DOC + _HELPERS + _END_HELPERS + kernels
+    kernels = _kernel(MK.program("dbl"), group=MK.DBL_GROUP)
+    kernels += _kernel(MK.program("add"))
+    return (HEADER + _MILLER_DOC + _MILLER_HEAD + _K_MUL + _GLUE + _GROUP_HELPERS + _END_HELPERS
+            + kernels)
 
 
 def miller_step_mxu_source() -> str:

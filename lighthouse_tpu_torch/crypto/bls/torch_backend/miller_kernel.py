@@ -29,15 +29,23 @@ in each product, as pallas_miller.py's ``_Ctx(..., mxu)``) and the plain
 versions over ``mxu_kernel.mont_mul_mxu_plain``; they launch as
 ``miller_step_dbl_mxu`` and ``miller_step_add_mxu``.
 
-Hopper design: one thread per lane, the step's f (12 planes), T (6), Q (4),
-xp and yp read once and the 18 output planes written once; intermediates
-live in a per-thread slot array (registers spilling to local memory), each
-product is one call of a non-inlined Montgomery routine (about 160 per
-step) so the build stays seconds long.  What bounds it on the card: about
-160 x 1,703 32-bit multiply-adds per lane against 9.9 KB of traffic per
-lane, so it is bound by integer throughput; with one thread per lane and
-4,097 lanes only a fraction of the SMs has work, which this simple design
-accepts (a lane-cooperative design is later work).
+Hopper design.  What bounds both steps on the card: about 1,703 32-bit
+multiply-adds per product (169 products in dbl, 111 in add) against 9.9 KB
+of traffic per lane, so integer throughput at full occupancy; with one
+thread per lane the step's products ran one after another in one thread,
+one warp per SM at the Miller loop's 4,097 lanes, and the card waited on
+that thread.  Kernel 2 (dbl) now runs in the group form (csrc/group.cuh,
+codegen.group_schedule): G = DBL_GROUP = 16 threads per lane (8 ran
+slower at the loop's width), the program's products in rounds of at most G
+independent products, one per thread with the unchanged Montgomery core,
+the linear ops between rounds dealt to the threads, a barrier after each
+phase; the lane's values sit in 16-bit shared-memory slots reassigned by
+the schedule.  The serial chain falls from 169 products to 11 rounds.
+Kernel 3 (add) and the MXU variants keep the first
+design: one thread per lane, values in a per-thread slot array (registers
+spilling to local memory), each product a call of a non-inlined
+Montgomery routine.  Both read the step's f (12 planes), T (6), Q (4), xp
+and yp once and write the 18 output planes once, coalesced by lane.
 """
 
 from __future__ import annotations
@@ -533,6 +541,8 @@ def run_plain(prog: Program, bufs: dict, mxu: bool = False) -> dict:
 
 # -- wrappers -----------------------------------------------------------------
 
+DBL_GROUP = 16  # threads per lane of kernel 2's group form
+
 dbl_launches = 0  # kernel launches (plain-version calls do not count)
 add_launches = 0
 dbl_mxu_launches = 0  # the MXU variants
@@ -560,11 +570,12 @@ def _check(named: dict) -> None:
 def _lib(mxu: bool) -> ctypes.CDLL:
     lib = _build.library("miller_step_mxu" if mxu else "miller_step")
     sfx = "_mxu" if mxu else ""
-    dbl, add = getattr(lib, "lh_miller_step_dbl" + sfx), getattr(lib, "lh_miller_step_add" + sfx)
-    if not dbl.argtypes:
+    dbl = lib.lh_miller_step_dbl_mxu if mxu else getattr(lib, f"lh_miller_step_dbl_g{DBL_GROUP}")
+    add = getattr(lib, "lh_miller_step_add" + sfx)
+    if not add.argtypes:
         dbl.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-        add.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
         dbl.restype = ctypes.c_int
+        add.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
         add.restype = ctypes.c_int
     return lib
 
@@ -591,7 +602,8 @@ def miller_step_dbl(f, t, xp, yp, mxu: bool | None = None):
         return miller_step_dbl_plain(f, t, xp, yp, mxu)
     f_out, t_out = torch.empty_like(f), torch.empty_like(t)
     lib = _lib(mxu)
-    launch = lib.lh_miller_step_dbl_mxu if mxu else lib.lh_miller_step_dbl
+    launch = (lib.lh_miller_step_dbl_mxu if mxu
+              else getattr(lib, f"lh_miller_step_dbl_g{DBL_GROUP}"))
     err = launch(f.data_ptr(), t.data_ptr(), xp.data_ptr(), yp.data_ptr(),
                  f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
                  torch.cuda.current_stream(f.device).cuda_stream)

@@ -12,15 +12,26 @@ reference's exact column sums and carry passes: two one-step carry passes
 over the 52-column schoolbook, m from the low 26 columns of t * P' after
 its two passes, u = m * P, then one 52-step carry.
 
-Hopper design (csrc/mont.cuh, csrc/mont.cu): one thread per lane, blocks of
-128, the ragged edge masked (no lane padding).  The limb-major layout puts
-limb i of neighbouring lanes in neighbouring words, so every load and store
-coalesces.  Operands and the 52-column accumulator live in registers as
-uint32 (column sums stay below 2^21).  What bounds it on the card: 1,703
-32-bit multiply-adds per lane (676 for a*b, 351 for the low half of t*P',
-676 for m*P) against 312 bytes of traffic, so at full occupancy it is
-bound by integer multiply throughput; at the path's batch widths it is
-bound by launch latency.
+Hopper design (csrc/mont.cu, mont_coop.cuh, group.cuh): G threads per
+lane (16 or 4) in blocks of a few lanes whose ranks run the same code.  Each
+of the three schoolbooks is cut into G tiles of one shape; a rank forms the
+split lo/hi halves of its tile's products in registers and adds its
+partial columns into the lane's column sums in shared memory (exact
+integer sums, so the order of the ranks' adds changes nothing); the carry
+passes run where their results are read, from windows two columns wide
+below; the 52-step carry is resolved by carry maps composed across the
+ranks.  Six phases, each ending at a block barrier.  What bounds it on the
+card: 1,703 32-bit multiplies per lane, each with a mask, a shift and an
+add, at 64 integer operations a clock per SM, against 312 bytes of
+traffic.  With one thread per lane the whole chain was one thread's
+straight-line stream, about one warp per SM sub-partition at the path's
+widths, so the time per launch hardly depended on the width; the group
+cuts each thread's chain to about 1/G of the products and gives the card
+G times the warps.  At widths that fill the card the one-thread form
+(blocks of 128, kept in mont.cu) issues fewer instructions in all (no tile
+padding, no barriers), so ``form_for`` picks the form from the width.  The
+limb-major layout puts limb i of neighbouring lanes in neighbouring words,
+so every load and store coalesces; the ragged edge is masked, not padded.
 """
 
 from __future__ import annotations
@@ -35,6 +46,14 @@ from . import fp as F
 from .fp import BITS, MASK, N, compress1, compress2, const
 
 launches = 0  # kernel launches (plain-version calls do not count)
+
+# The compiled forms: (threads per lane, lanes per block); (1, 128) is the
+# one-thread form.
+FORMS = ((16, 8), (16, 16), (4, 32), (1, 128))
+# The widest n each group form is used for, in FORMS' order; wider calls
+# take the one-thread form (chip_smoke.py's mont_groups phase times every
+# form at the path's heaviest widths and at wider ones).
+FORM_MAX_WIDTH = (1024, 6144, 16384)
 
 IMAD_PER_LANE = 26 * 26 + 26 * 27 // 2 + 26 * 26  # multiplies per lane in the kernel
 SQR_IMAD_PER_LANE = 26 * 27 // 2 + 26 * 27 // 2 + 26 * 26  # the triangle square's
@@ -52,18 +71,29 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("mont_mul takes contiguous tensors")
 
 
+def form_for(n: int) -> tuple:
+    """The form of kernel 1 for an n-lane product."""
+    for form, widest in zip(FORMS, FORM_MAX_WIDTH):
+        if n <= widest:
+            return form
+    return FORMS[-1]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("mont")
     if not lib.lh_mont_mul.argtypes:
-        lib.lh_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        lib.lh_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.lh_mont_mul.restype = ctypes.c_int
     return lib
 
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mont_mul(a: torch.Tensor, b: torch.Tensor, form: tuple | None = None) -> torch.Tensor:
     """Batched Montgomery product.  CUDA tensors launch the kernel on the
-    current stream; CPU tensors take the plain version."""
+    current stream, in ``form`` (one of FORMS; by default ``form_for(n)``);
+    CPU tensors take the plain version."""
     _check(a, b)
+    if form is not None and tuple(form) not in FORMS:
+        raise ValueError(f"mont_mul has no form {form}")
     if a.device.type == "cpu":
         return mont_mul_plain(a, b)
     if a.device.type != "cuda":
@@ -73,7 +103,8 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = _lib()
-    err = lib.lh_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+    group, lanes = form_for(n) if form is None else form
+    err = lib.lh_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, group, lanes,
                           torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, err, "mont_mul kernel")
     global launches

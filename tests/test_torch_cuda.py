@@ -6,7 +6,8 @@ so on a machine without jax run it as
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-It covers all twelve entry points: mont_mul, miller_step_dbl,
+It covers all twelve entry points (mont_mul and miller_step_dbl in every
+form: mont_kernel.FORMS, and kernel 2's group form): mont_mul, miller_step_dbl,
 miller_step_add, fp_chain, fp2_chain, wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
@@ -101,4 +102,31 @@ def test_cuda_mxu_kernels_match_plain_versions():
                                CK.pow_chain_plain(base, F.P_INT - 2, mxu=True))
         assert same(CK.fp2_pow_chain(xp, yp, h2c.SQRT_EXP_BITS, mxu=True),
                     CK.fp2_pow_chain_plain(xp, yp, h2c.SQRT_EXP_BITS, mxu=True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_group_forms_match_plain_versions():
+    """Every form of kernel 1 (mont_kernel.FORMS) and kernel 2's group
+    form, at widths that leave ragged tails in their blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    rng = random.Random(31)
+    dev = torch.device("cuda")
+    n = 257
+    f, t = _rand_planes(rng, 12, n).to(dev), _rand_planes(rng, 6, n).to(dev)
+    xp, yp = _rand_planes(rng, 1, n)[0].to(dev), _rand_planes(rng, 1, n)[0].to(dev)
+    q = torch.full((F.N, n), F.QMAX, dtype=torch.int32, device=dev)
+    for form in MK.FORMS:
+        g, lanes = form
+        for w in sorted({1, 2, max(g - 1, 1), g + 1, lanes - 1, lanes + 1, 31, 33, n}):
+            for a, b in ((xp, yp), (q, q)):
+                a, b = a[:, :w].contiguous(), b[:, :w].contiguous()
+                assert torch.equal(MK.mont_mul(a, b, form=form), MK.mont_mul_plain(a, b)), (form, w)
+    for w in (1, ML.DBL_GROUP + 1, n):
+        args = (f[..., :w].contiguous(), t[..., :w].contiguous(), xp[:, :w].contiguous(),
+                yp[:, :w].contiguous())
+        got = ML.miller_step_dbl(*args, mxu=False)
+        ref = ML.miller_step_dbl_plain(*args)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref)), w
     torch.cuda.synchronize()

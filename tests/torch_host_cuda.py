@@ -83,15 +83,16 @@ thread_local Dim blockIdx, threadIdx, blockDim;
 """
 
 
-def build(tmp_dir, name: str, harness: str) -> ctypes.CDLL:
-    """csrc/<name>.cu plus ``harness`` (after LANES), built with g++ into
-    ``tmp_dir`` and loaded.  Skips the test without a host compiler."""
+def build(tmp_dir, name: str, harness: str, source: str | None = None) -> ctypes.CDLL:
+    """csrc/<name>.cu (or the CUDA text ``source``) plus ``harness`` (after
+    LANES), built with g++ into ``tmp_dir`` and loaded.  Skips the test
+    without a host compiler."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     (tmp_dir / "cuda_runtime.h").write_text(SHIM)
     (tmp_dir / "mxu_host.h").write_text(MXU_HOST)
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    src = (_build.CSRC / f"{name}.cu").read_text() if source is None else source
     src = re.sub(r'extern "C" int lh_.*?\n}\n', "", src, flags=re.S)
     (tmp_dir / f"{name}.cpp").write_text(src + LANES + harness)
     subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{tmp_dir}",
