@@ -14,15 +14,18 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
    ptxas's registers, stack, spills and shared memory of the group forms of
-   kernels 1 and 2 (and the device functions kernel 2 calls).
+   kernels 1, 2, 3 (every G of ML.ADD_GROUPS) and 2m, the one-thread kernel
+   3m, and the device functions the Miller steps call.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
    byte equality required: mont_mul and mont_mul_mxu on four corpora, and
    every form of mont_mul (mont_kernel.FORMS) also at 1, 2, G - 1, G + 1,
    L - 1, L + 1, 31 and 33 lanes (G threads per lane, L lanes per block);
-   the Miller steps and their MXU variants on live pairing steps, and kernel
-   2 also at 1 and G + 1 lanes (G threads per lane); the Fp chain
+   the Miller steps and their MXU variants on live pairing steps (random
+   addition bits), and the group forms of kernels 2, 3 and 2m also at 1 and
+   G + 1 lanes (G threads per lane), kernel 3 in every G of
+   ML.ADD_GROUPS at every width; the Fp chain
    and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
    its MXU variant at (p^2+7)/16; one G1 and one G2 WSM step on live points
    with random bits and infinity flags on either side.
@@ -39,9 +42,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    12 Fp chains, 4 Fp2 chains and 64 WSM steps per curve, none in the
    default arm; under the mxu arm the same counts on the MXU variants, the
    WSM steps on the 15-bit core, no 15-bit product and as many 13-bit
-   products as the arm's 15-bit ones).  The one-bad verify keeps copies of
-   the kernels' operands
-   (mont_mul and the chains: the first call at every width; the Miller
+   products as the arm's 15-bit ones; WRAPPER_LAUNCHES in all).  The
+   one-bad verify keeps copies of the kernels' operands (mont_mul and the
+   chains: the first call at every width; the Miller
    steps: each step whose addition bit is set, and the last; the WSM
    steps: four bits), and each kernel is held byte for byte against its
    plain version on them (path_kernel_check).
@@ -53,12 +56,17 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    (mont_groups), and in the kernels line at the most-launched width with
    the three heaviest beside; mont_mul_mxu at the same width on the mxu
    arm's operands; the chains at their arm's most-launched width; every
-   other kernel on its arm's operands.
+   other kernel on its arm's operands, the Miller steps in every group form
+   printed (group_ms).
 7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
    mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
-8. profile: one more verify of each arm under torch.profiler, giving every
-   kernel the card ran and the share of the wall time the card was busy.
+8. profile: one more verify of each arm under torch.profiler, giving the
+   kernel launches (DEVICE_KERNELS, counted from the runtime's launch
+   records), every kernel the card ran and the share of the wall time the
+   card was busy (a verify whose kernel records fall short of its launches,
+   as when the profiler loses records, is profiled again, up to
+   PROFILE_TRIES).
 
 Then the kernels line, the nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -92,6 +100,11 @@ MONT_HEAVY = 3  # mont_mul widths of the default path timed: the most device tim
 # every form of kernel 1 is timed (where the one-thread form takes over)
 MONT_WIDE = (4, 16, 64)
 SWEEP_WINDOWS = 3  # timing windows per width in the mont_mul width sweep
+# launches per verify of 4,096 sets, by arm: the wrappers' counts in all, and
+# the device kernels of the profiled verify
+WRAPPER_LAUNCHES = {"default": 25_925, "arm": 7_465, "mxu": 7_465}
+DEVICE_KERNELS = {"default": 303_366, "arm": 165_602, "mxu": 165_602}
+PROFILE_TRIES = 3  # profiled verifies per arm at most, until one loses no kernel record
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 # FP64 tensor-core multiply-adds per SM per clock: the H100 SXM data sheet's
@@ -227,8 +240,10 @@ def capture_kernel_operands(entry_points, mxu_active, keep_steps, run):
 
 def profile_verify(torch, bk, sets) -> dict:
     """One dispatch + resolve under torch.profiler (device activity only):
-    the kernels the card ran, their summed time, and the share of the
-    verify's wall time in which the card was busy."""
+    the kernel launches the CUDA runtime recorded (device_kernels), the
+    kernels the card ran (kernel_records: fewer when the profiler loses
+    records of the card's side, which it can), their summed time, and the
+    share of the verify's wall time in which the card was busy."""
     import os
     import tempfile
 
@@ -248,6 +263,7 @@ def profile_verify(torch, bk, sets) -> dict:
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = sum(e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"] for e in events)
     busy_us = sum(e["dur"] for e in kernels)
     by_name = {}
     for e in kernels:
@@ -256,7 +272,8 @@ def profile_verify(torch, bk, sets) -> dict:
         count, us = by_name.get(name, (0, 0.0))
         by_name[name] = (count + 1, us + e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    return {"wall_s": wall_s, "device_kernels": len(kernels), "device_busy_s": busy_us / 1e6,
+    return {"wall_s": wall_s, "device_kernels": launches, "kernel_records": len(kernels),
+            "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall_s if kernels else None,
             "top_kernels": [{"name": k, "launches": c, "s": us / 1e6} for k, (c, us) in top]}
 
@@ -296,11 +313,16 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(built["seconds"], 3), "built": built["built"],
           "dir": str(_build.build_dir().relative_to(_build.PKG_ROOT.parent)),
           "ptxas": built["ptxas"]})
-    # the group forms of kernels 1 and 2 and the device functions kernel 2 calls
+    # the group forms of kernels 1, 2, 3 and 2m, kernel 3m, and the device
+    # functions the Miller steps call
     group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
                                for g, lanes in MK.FORMS if g > 1) + ("mont_mul_kernel",),
-                 "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel", "g_mul", "g_add",
-                                 "g_sub")}
+                 "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel",
+                                 *(f"miller_step_add_g{g}_kernel" for g in ML.ADD_GROUPS),
+                                 "g_mul", "g_add", "g_sub"),
+                 "miller_step_mxu": (f"miller_step_dbl_mxu_g{ML.DBL_MXU_GROUP}_kernel",
+                                     "miller_step_add_mxu_kernel", "g_mul_mxu", "k_mul",
+                                     "g_add", "g_sub")}
     emit({"phase": "ptxas", **{lib: ptxas_report((_build.build_dir() / f"{lib}.log").read_text(),
                                                  names) for lib, names in group_fns.items()}})
 
@@ -420,13 +442,20 @@ def main() -> int:
             emit({"phase": "kernel_check", "kernel": name, "corpus": "pairing_steps", "n": n,
                   "equal": eq})
 
-    # kernel 2's group form at 1 and G + 1 lanes (a ragged block of 32)
-    widths = [1, ML.DBL_GROUP + 1]
-    eqs = [hold("miller_step_dbl", (f[..., :w].contiguous(), tpt[..., :w].contiguous(),
-                                    xp[:, :w].contiguous(), yp[:, :w].contiguous()))[0]
-           for w in widths]
-    emit({"phase": "kernel_check", "kernel": "miller_step_dbl", "group": ML.DBL_GROUP,
-          "corpus": "pairing_steps", "widths": widths, "equal": all(eqs)})
+    # the Miller steps' group forms at 1 and G + 1 lanes (a ragged block of
+    # 32), every printed form of kernel 3 also at the check width
+    def cut(w, *planes):
+        return tuple(x[..., :w].contiguous() for x in planes)
+
+    group_forms = [("miller_step_dbl", ML.DBL_GROUP, None, (f, tpt, xp, yp)),
+                   ("miller_step_dbl_mxu", ML.DBL_MXU_GROUP, None, (f, tpt, xp, yp))]
+    group_forms += [("miller_step_add", g, lambda *a, g=g: ML.launch_form("add", False, g, a),
+                     (f, tpt, q, xp, yp, bit)) for g in ML.ADD_GROUPS]
+    for name, g, kern, planes in group_forms:
+        widths = sorted({1, g + 1} | ({n} if kern else set()))
+        eqs = [hold(name, cut(w, *planes), kern)[0] for w in widths]
+        emit({"phase": "kernel_check", "kernel": name, "group": g, "corpus": "pairing_steps",
+              "widths": widths, "equal": all(eqs)})
 
     # The chains: p-2 on strict and lazy (bound 4, inside the 4.3 P
     # contract) bases; (p^2+7)/16 on reduced Fp2 elements.
@@ -559,6 +588,10 @@ def main() -> int:
               "launches_per_verify_total": sum(counts[arm].values())})
         if not (verdict is True and bad_verdict is False):
             return 1
+        if sum(counts[arm].values()) != WRAPPER_LAUNCHES[arm]:
+            emit({"phase": "path", "arm": arm, "error": "unexpected wrapper launches per verify",
+                  "want": WRAPPER_LAUNCHES[arm]})
+            return 1
         for c in (counts[arm], bad_counts):
             prod = products[arm]
             if c[prod] <= 0 or any(c[k] != v for k, v in want_counts[arm].items() if k != prod):
@@ -662,8 +695,13 @@ def main() -> int:
                        (planes_in + 18) * plane * n_step + (4 * n_step if step == "add" else 0),
                        n_mul * imad, True, dmma_fmas=n_mul * X.DMMA_FMA_PER_LANE if sfx else 0,
                        step=call)
-                if name == "miller_step_dbl":
-                    kernels[name]["group"] = ML.DBL_GROUP
+                group = ML.group_of(step, bool(sfx))
+                if group:
+                    # every printed group form of the step on the same operands
+                    forms = ML.ADD_GROUPS if name == "miller_step_add" else (group,)
+                    kernels[name].update(group=group, group_ms={
+                        g: time_ms(torch, lambda g=g: ML.launch_form(step, bool(sfx), g, args),
+                                   LONG_LAUNCHES, queue_first=True) for g in forms})
             for field, line, planes in (("fp", 181, 2), ("fp2", 278, 4)):
                 name = f"{field}_chain{sfx}"
                 widths = path_widths[arm][name]
@@ -719,8 +757,21 @@ def main() -> int:
               "card": smi, "peak_mem_gib": peak[arm] / 2**30})
     for arm in ARMS:
         set_arm(arm)
-        emit({"phase": "profile", "arm": arm, "sets": N_SETS, "card": smi,
-              **profile_verify(torch, bk, sets)})
+        # the profiler can lose records of the card's side (kernel_records
+        # short of the launches, the busy time with it), so such a verify is
+        # profiled again, up to PROFILE_TRIES
+        records_each = []
+        for _ in range(PROFILE_TRIES):
+            prof = profile_verify(torch, bk, sets)
+            records_each.append(prof["kernel_records"])
+            if prof["kernel_records"] == prof["device_kernels"]:
+                break
+        emit({"phase": "profile", "arm": arm, "sets": N_SETS, "card": smi, **prof,
+              "kernel_records_each": records_each})
+        if prof["device_kernels"] != DEVICE_KERNELS[arm]:
+            emit({"phase": "profile", "arm": arm, "error": "unexpected device kernels per verify",
+                  "want": DEVICE_KERNELS[arm]})
+            return 1
     set_arm("default")
 
     # launches: on the arm whose path the kernel is timed on

@@ -3,15 +3,18 @@
 * ``csrc/limb_constants.cuh``: P, P', R mod P and the eight subtraction
   biases, from fp.py's re-derived tables.
 * ``csrc/miller_step.cu``: kernels 2 and 3, printed from the recorded step
-  programs of miller_kernel.py, one C statement per limb op.  Kernel 3 runs
-  one thread per lane, its values in a per-thread slot array reused by
-  liveness.  Kernel 2 is printed in the group form (``_kernel(...,
-  group=G)``): G threads per lane run the program's products side by side,
-  in rounds scheduled by ``group_schedule``, their values in shared memory.
+  programs of miller_kernel.py, one C statement per limb op, in the group
+  form (``_kernel(..., group=G)``): G threads per lane run the program's
+  products side by side, in rounds scheduled by ``group_schedule``, their
+  values in shared memory.  Kernel 3 is printed for every G of
+  ``miller_kernel.ADD_GROUPS``.
 * ``csrc/miller_step_mxu.cu``: their MXU variants, the same programs with
-  every product on the 13-bit plane (kernel 7's core).
-* ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed the
-  same way from the step programs of wsm_kernel.py.
+  every product on the 13-bit plane (kernel 7's core): the doubling step in
+  the group form (``_kernel(..., mxu=True, group=G)``, one rank per warp),
+  the addition step one thread per lane, its values in a per-thread slot
+  array reused by liveness.
+* ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed one
+  thread per lane from the step programs of wsm_kernel.py.
 
 The files are committed; ``tests/test_torch_miller.py`` regenerates them and
 requires the text to be identical.  Regenerate after changing the formulas:
@@ -178,26 +181,26 @@ __device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int la
 
 _HELPERS = _HEAD + _K_MUL + _GLUE
 
-_MILLER_HEAD = """// Kernel 2 (the doubling step) runs in the group form: G = 16 threads per
-// lane (csrc/group.cuh).  One thread per lane ran its 169 products one after
-// another, each a 1,703-multiply chain of one thread, with one warp per SM
-// at the Miller loop's 4,097 lanes: the card waited on that thread's issue
-// rate and latency.  The products of one dependency level are independent,
-// so the group runs them side by side: rounds of at most G products (one
-// per thread, the unchanged lh::mont_core, so the bytes are the same by
+_MILLER_HEAD = """// Both steps run in the group form: G = 16 threads per lane
+// (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP), and kernel 3 is
+// also printed at G = 8 (ADD_GROUPS) for comparison.  One thread per lane
+// ran a step's 169 (dbl) or 111 (add) products one after another, each a
+// 1,703-multiply chain of one thread, with one warp per SM at the Miller
+// loop's 4,097 lanes: the card waited on that thread's issue rate and
+// latency.  The products of one dependency level are independent, so the
+// group runs them side by side: rounds of at most G products (one per
+// thread, the unchanged lh::mont_core, so the bytes are the same by
 // construction) and the linear ops between them dealt to the ranks, a
 // barrier after each phase.  The serial chain falls from 169 products to 11
-// rounds, and the card gets G times the warps.  The lane's values live in
-// shared memory, 16 bits a limb, in slots reassigned by the phase schedule
-// (codegen.group_schedule).
-//
-// Kernel 3 (the addition step) keeps the first design: one thread per lane,
-// its values in the slot array s (registers spilling to local memory),
-// every Montgomery product one call of the non-inlined k_mul.
+// rounds (dbl) and from 111 to 10 (add; 15 at G = 8), and the card gets G
+// times the warps.  The lane's values live in shared memory, 16 bits a
+// limb, in slots reassigned by the phase schedule (codegen.group_schedule).
+// The addition step's bit is read by every thread; its selects are linear
+// ops like the others.
 //
 // Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
-// neighbouring words and every load and store coalesces; both forms read
-// each input plane once and write each output plane once.
+// neighbouring words and every load and store coalesces; each input plane
+// is read once and each output plane written once.
 #include "group.cuh"
 #include "mont.cuh"
 
@@ -205,24 +208,40 @@ namespace {
 
 using lh::NL;
 
-constexpr int kBlock = 32;  // kernel 3: 4,097 lanes -> 129 blocks, one per SM
-
 """
 
-_HEAD_MXU = """// One thread per lane, one warp per block.  Planes are (planes, 26, n)
-// limb-major, so limb i of neighbouring lanes are neighbouring words and every
-// load and store coalesces.  Intermediates live in the slot array s
-// (registers spilling to local memory); every Montgomery product is one call
-// of the non-inlined k_mul on the 13-bit plane (csrc/mxu.cuh), which the
-// whole warp makes together: the programs are straight-line, and the tail
-// threads run lane n - 1's operands again and store nothing.
+_HEAD_MXU = """// Kernel 2m (the doubling step) runs in the group form of miller_step.cu
+// (csrc/group.cuh) with G = 8 threads per lane in blocks of 32 lanes, so
+// each warp is the 32 lanes of one rank: a phase's switch on the rank is
+// warp-uniform and every product's mma.sync (csrc/mxu.cuh) is made by a
+// whole warp, its N dimension the warp's 32 lanes as in the one-thread
+// form; the tail threads run lane n - 1 again and store nothing.  Each
+// warp stages its DMMA products in shared memory beside the block's slots:
+// the 64 rows of m * P in two passes of 32 (kMxuRows), so that 8 warps'
+// staging and the slots fit in one block (the kernel's header gives the
+// bytes).
+//
+// Kernel 3m (the addition step) runs one thread per lane, one warp per
+// block.  Its intermediates live in the slot array s (registers spilling to
+// local memory); every Montgomery product is one call of the non-inlined
+// k_mul on the 13-bit plane, which the whole warp makes together: the
+// program is straight-line, and the tail threads run lane n - 1's operands
+// again and store nothing.
+//
+// Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
+// neighbouring words and every load and store coalesces.
+#include "group.cuh"
 #include "mxu.cuh"
 
 namespace {
 
 using lh::NL;
 
-constexpr int kBlock = 32;  // 4,097 lanes -> 129 blocks, one per SM
+constexpr int kBlock = 32;  // kernel 3m: 4,097 lanes -> 129 blocks, one per SM
+"""
+
+MXU_GROUP_ROWS = 32  # rows of C a group form's warp stages per pass (MxuShared)
+_HEAD_MXU += f"""constexpr int kMxuRows = {MXU_GROUP_ROWS};  // kernel 2m: rows of C staged per pass
 
 """
 
@@ -276,21 +295,6 @@ __device__ __forceinline__ void g_get(uint16_t* s, int k, uint32_t (&c)[NL]) {
   const uint16_t* a = g_at(s, k);
 #pragma unroll
   for (int i = 0; i < NL; ++i) c[i] = a[i * kGroupLanes];
-}
-
-__device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
-  uint32_t x[NL], y[NL], r[NL];
-  g_get(s, a, x);
-  g_get(s, b, y);
-  lh::mont_core(x, y, r);
-  g_put(s, o, r);
-}
-
-__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
-  uint32_t x[NL], r[NL];
-  g_get(s, a, x);
-  lh::mont_sqr_core(x, r);
-  g_put(s, o, r);
 }
 
 // a + b, one carry pass
@@ -357,6 +361,35 @@ __device__ __forceinline__ void g_store(uint32_t* base, int plane, int n, int la
   const uint16_t* v = g_at(s, k);
 #pragma unroll
   for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i * kGroupLanes];
+}
+"""
+
+_GROUP_MUL = """
+__device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
+  uint32_t x[NL], y[NL], r[NL];
+  g_get(s, a, x);
+  g_get(s, b, y);
+  lh::mont_core(x, y, r);
+  g_put(s, o, r);
+}
+
+__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
+  uint32_t x[NL], r[NL];
+  g_get(s, a, x);
+  lh::mont_sqr_core(x, r);
+  g_put(s, o, r);
+}
+"""
+
+# the group form's product on the 13-bit plane: warp-cooperative, so a
+# phase's products are made by whole warps (one rank each)
+_GROUP_MUL_MXU = """
+__device__ __noinline__ void g_mul_mxu(uint16_t* s, int o, int a, int b, const lh::MxuCtx& mx) {
+  uint32_t x[NL], y[NL], r[NL];
+  g_get(s, a, x);
+  g_get(s, b, y);
+  lh::mont_core_mxu<kMxuRows>(x, y, r, mx);
+  g_put(s, o, r);
 }
 """
 
@@ -590,11 +623,9 @@ def _signature(prog: MK.Program) -> dict:
 def _kernel(prog: MK.Program, mxu: bool = False, group: int | None = None) -> str:
     """A step program's kernel and its C launcher lh_<name>: one thread per
     lane, or with ``group`` the group form (G threads per lane, launched as
-    lh_<name>_g<G>; not for the MXU variants)."""
+    lh_<name>_g<G>, or lh_<name>_mxu_g<G> with ``mxu``)."""
     if group is not None:
-        if mxu:
-            raise NotImplementedError("the group form runs the 15-bit products only")
-        return _group_kernel(prog, group)
+        return _group_kernel(prog, group, mxu)
     lines, n_slots = _body(prog, mxu)
     name = prog.name + "_mxu" if mxu else prog.name
     sig = _signature(prog)
@@ -632,7 +663,8 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
 """
 
 
-def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict) -> list:
+def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict,
+              mxu: bool) -> list:
     op = prog.ops[vid]
     o = sched.slot[vid]
     ins = [sched.slot.get(i) for i in op.ins]
@@ -641,6 +673,8 @@ def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict) ->
         line = f"g_load(s, {o}, {buf}, {plane}, n, lane);"
     elif op.kind in ("one", "zero"):
         line = f"g_{op.kind}(s, {o});"
+    elif op.kind in MK.PRODUCTS and mxu:  # a square too is the 13-bit product
+        line = f"g_mul_mxu(s, {o}, {ins[0]}, {ins[-1]}, mx);"
     elif op.kind in ("mul", "add"):
         line = f"g_{op.kind}(s, {o}, {ins[0]}, {ins[1]});"
     elif op.kind == "sqr":
@@ -662,7 +696,7 @@ def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict) ->
     return lines
 
 
-def _group_body(prog: MK.Program, sched: GroupSchedule) -> list:
+def _group_body(prog: MK.Program, sched: GroupSchedule, mxu: bool) -> list:
     """C statements of the group form: the flag values, computed by every
     thread (they depend on flags only, and rank 0 stores the outputs among
     them), then one LH_RANKS block per phase, a case per rank."""
@@ -699,7 +733,7 @@ def _group_body(prog: MK.Program, sched: GroupSchedule) -> list:
                 continue
             lines.append(f"  case {r}:")
             for vid in vids:
-                lines.extend("    " + ln for ln in _group_op(prog, sched, vid, stores))
+                lines.extend("    " + ln for ln in _group_op(prog, sched, vid, stores, mxu))
             lines.append("    break;")
         lines.append("  default:")
         lines.append("    break;")
@@ -707,23 +741,45 @@ def _group_body(prog: MK.Program, sched: GroupSchedule) -> list:
     return lines
 
 
-def _group_kernel(prog: MK.Program, group: int) -> str:
+def mxu_staging_bytes(warps: int, rows: int) -> int:
+    """sizeof(lh::MxuShared<warps, rows>) (csrc/mxu.cuh): the two diagonal
+    tables, and each warp's 32-row B and ``rows``-row C staging of 40
+    words a row."""
+    return 2 * 64 * 8 + warps * (32 + rows) * 40 * 4
+
+
+def _group_kernel(prog: MK.Program, group: int, mxu: bool = False) -> str:
     """The group form of a step kernel: ``group`` threads per lane in
     rank-major blocks of 32 lanes (csrc/group.cuh), the program run in the
-    phases of group_schedule, its values in 16-bit shared-memory slots."""
+    phases of group_schedule, its values in 16-bit shared-memory slots.
+    With ``mxu`` every product is the 13-bit one (g_mul_mxu), each warp (one
+    rank) making its DMMA products together, staged beside the slots."""
     sched = group_schedule(prog, group)
-    name = f"{prog.name}_g{group}"
+    name = f"{prog.name}_mxu_g{group}" if mxu else f"{prog.name}_g{group}"
     sig = _signature(prog)
-    body = "\n".join("  " + ln for ln in _group_body(prog, sched))
+    body = "\n".join("  " + ln for ln in _group_body(prog, sched, mxu))
     words = sched.n_slots * F.N
     shared = words * 2 * 32
+    counts = sig["counts"] + (" on the 13-bit plane" if mxu else "")
+    size = f"({shared:,} bytes of shared memory per block of 32 lanes)"
+    if mxu:
+        staging = mxu_staging_bytes(group, MXU_GROUP_ROWS)
+        size = (f"({shared:,} bytes of shared memory per block of 32 lanes, and\n"
+                f"// {staging:,} of DMMA staging for its {group} warps: "
+                f"{shared + staging:,} in all)")
+        prologue = f"""  LH_MXU_GROUP_SHARED({group}, kMxuRows, mxu_sm, uint16_t, slots, {words});
+  const lh::MxuCtx mx = lh::mxu_setup(mxu_sm);"""
+        extra = f"static_cast<int>(sizeof(lh::MxuShared<{group}, kMxuRows>)) + "
+    else:
+        prologue = f"  LH_GROUP_SHARED(uint16_t, slots, {words});"
+        extra = ""
     return f"""
-// {name}: {len(prog.ops)} limb ops, {sig["counts"]}; {group} threads per lane,
-// {sched.n_rounds} rounds of products in {len(sched.phases)} phases, {sched.n_slots} slots
-// ({shared:,} bytes of shared memory per block of 32 lanes).
+// {name}: {len(prog.ops)} limb ops, {counts};
+// {group} threads per lane, {sched.n_rounds} rounds of products in {len(sched.phases)} phases, {sched.n_slots} slots
+// {size}.
 static __global__ void __launch_bounds__({group} * lh::kGroupLanes)
 {name}_kernel({sig["params"]}) {{
-  LH_GROUP_SHARED(uint16_t, slots, {words});
+{prologue}
   const int gl = lh::group_lane();
   const bool live = gl < n;
   const int lane = live ? gl : n - 1;
@@ -733,7 +789,7 @@ static __global__ void __launch_bounds__({group} * lh::kGroupLanes)
 
 extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
                               void* stream) {{
-  constexpr int kShared = {words} * 2 * lh::kGroupLanes;
+  constexpr int kShared = {extra}{words} * 2 * lh::kGroupLanes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       {name}_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -750,14 +806,16 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
 
 def miller_step_source() -> str:
     kernels = _kernel(MK.program("dbl"), group=MK.DBL_GROUP)
-    kernels += _kernel(MK.program("add"))
-    return (HEADER + _MILLER_DOC + _MILLER_HEAD + _K_MUL + _GLUE + _GROUP_HELPERS + _END_HELPERS
+    kernels += "".join(_kernel(MK.program("add"), group=g) for g in MK.ADD_GROUPS)
+    return (HEADER + _MILLER_DOC + _MILLER_HEAD + _GROUP_HELPERS + _GROUP_MUL + _END_HELPERS
             + kernels)
 
 
 def miller_step_mxu_source() -> str:
-    kernels = "".join(_kernel(MK.program(step), mxu=True) for step in ("dbl", "add"))
-    return HEADER + _MILLER_MXU_DOC + _HEAD_MXU + _K_MUL_MXU + _GLUE + _END_HELPERS + kernels
+    kernels = _kernel(MK.program("dbl"), mxu=True, group=MK.DBL_MXU_GROUP)
+    kernels += _kernel(MK.program("add"), mxu=True)
+    return (HEADER + _MILLER_MXU_DOC + _HEAD_MXU + _K_MUL_MXU + _GLUE + _GROUP_HELPERS
+            + _GROUP_MUL_MXU + _END_HELPERS + kernels)
 
 
 def wsm_step_source() -> str:

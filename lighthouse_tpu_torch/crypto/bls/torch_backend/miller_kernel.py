@@ -32,20 +32,23 @@ versions over ``mxu_kernel.mont_mul_mxu_plain``; they launch as
 Hopper design.  What bounds both steps on the card: about 1,703 32-bit
 multiply-adds per product (169 products in dbl, 111 in add) against 9.9 KB
 of traffic per lane, so integer throughput at full occupancy; with one
-thread per lane the step's products ran one after another in one thread,
+thread per lane a step's products ran one after another in one thread,
 one warp per SM at the Miller loop's 4,097 lanes, and the card waited on
-that thread.  Kernel 2 (dbl) now runs in the group form (csrc/group.cuh,
-codegen.group_schedule): G = DBL_GROUP = 16 threads per lane (8 ran
-slower at the loop's width), the program's products in rounds of at most G
-independent products, one per thread with the unchanged Montgomery core,
-the linear ops between rounds dealt to the threads, a barrier after each
-phase; the lane's values sit in 16-bit shared-memory slots reassigned by
-the schedule.  The serial chain falls from 169 products to 11 rounds.
-Kernel 3 (add) and the MXU variants keep the first
-design: one thread per lane, values in a per-thread slot array (registers
-spilling to local memory), each product a call of a non-inlined
-Montgomery routine.  Both read the step's f (12 planes), T (6), Q (4), xp
-and yp once and write the 18 output planes once, coalesced by lane.
+that thread.  Both steps now run in the group form (csrc/group.cuh,
+codegen.group_schedule): G threads per lane (DBL_GROUP, ADD_GROUP), the
+program's products in rounds of at most G independent products, one per
+thread with the unchanged Montgomery core, the linear ops between rounds
+dealt to the threads, a barrier after each phase; the lane's values sit in
+16-bit shared-memory slots reassigned by the schedule.  The serial chain
+falls from 169 products to 11 rounds (dbl) and from 111 to 10 (add).
+The MXU doubling step runs in the same form at G = DBL_MXU_GROUP = 8, one
+rank per warp so that every product's mma.sync is made by a whole warp;
+8 warps' DMMA staging and the slots fill one block's shared memory.  The
+MXU addition step keeps the first design: one thread per lane, values in a
+per-thread slot array (registers spilling to local memory), each product a
+call of a non-inlined Montgomery routine.  Every form reads the step's f
+(12 planes), T (6), Q (4), xp and yp once and writes the 18 output planes
+once, coalesced by lane.
 """
 
 from __future__ import annotations
@@ -542,6 +545,9 @@ def run_plain(prog: Program, bufs: dict, mxu: bool = False) -> dict:
 # -- wrappers -----------------------------------------------------------------
 
 DBL_GROUP = 16  # threads per lane of kernel 2's group form
+ADD_GROUPS = (8, 16)  # kernel 3's group forms in csrc/miller_step.cu (chip_smoke times each)
+ADD_GROUP = 16  # the one miller_step_add launches
+DBL_MXU_GROUP = 8  # kernel 2m's: the most warps whose staging fits beside the slots
 
 dbl_launches = 0  # kernel launches (plain-version calls do not count)
 add_launches = 0
@@ -567,17 +573,33 @@ def _check(named: dict) -> None:
         raise ValueError(f"Miller step has no path for device {f.device}")
 
 
-def _lib(mxu: bool) -> ctypes.CDLL:
+def group_of(step: str, mxu: bool) -> int | None:
+    """Threads per lane of the form the wrapper launches (None: one thread)."""
+    if step == "dbl":
+        return DBL_MXU_GROUP if mxu else DBL_GROUP
+    return None if mxu else ADD_GROUP
+
+
+def launch_form(step: str, mxu: bool, group: int | None, args: tuple):
+    """Launch one printed form of the ``"dbl"`` or ``"add"`` step's kernel
+    (lh_miller_step_<step>[_mxu][_g<group>]) on the wrapper's checked CUDA
+    operands ``args``, on the current stream; returns (f', T').  Counts
+    nothing: the wrappers count their launches, and chip_smoke.py holds
+    and times every printed form (ADD_GROUPS) through this."""
+    name = f"lh_miller_step_{step}" + ("_mxu" if mxu else "") + (f"_g{group}" if group else "")
+    if args[0].device.type != "cuda":
+        raise ValueError(f"{name} launches on CUDA tensors only")
     lib = _build.library("miller_step_mxu" if mxu else "miller_step")
-    sfx = "_mxu" if mxu else ""
-    dbl = lib.lh_miller_step_dbl_mxu if mxu else getattr(lib, f"lh_miller_step_dbl_g{DBL_GROUP}")
-    add = getattr(lib, "lh_miller_step_add" + sfx)
-    if not add.argtypes:
-        dbl.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-        dbl.restype = ctypes.c_int
-        add.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
-        add.restype = ctypes.c_int
-    return lib
+    launch = getattr(lib, name)
+    if not launch.argtypes:
+        launch.argtypes = [ctypes.c_void_p] * (len(args) + 2) + [ctypes.c_int, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+    f, t = args[0], args[1]
+    f_out, t_out = torch.empty_like(f), torch.empty_like(t)
+    err = launch(*(x.data_ptr() for x in args), f_out.data_ptr(), t_out.data_ptr(),
+                 f.shape[-1], torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(lib, err, f"{name} kernel")
+    return f_out, t_out
 
 
 def miller_step_dbl_plain(f, t, xp, yp, mxu: bool = False):
@@ -600,20 +622,13 @@ def miller_step_dbl(f, t, xp, yp, mxu: bool | None = None):
     mxu = F.mxu_active() if mxu is None else mxu
     if f.device.type == "cpu":
         return miller_step_dbl_plain(f, t, xp, yp, mxu)
-    f_out, t_out = torch.empty_like(f), torch.empty_like(t)
-    lib = _lib(mxu)
-    launch = (lib.lh_miller_step_dbl_mxu if mxu
-              else getattr(lib, f"lh_miller_step_dbl_g{DBL_GROUP}"))
-    err = launch(f.data_ptr(), t.data_ptr(), xp.data_ptr(), yp.data_ptr(),
-                 f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
-                 torch.cuda.current_stream(f.device).cuda_stream)
-    _build.check(lib, err, "miller_step_dbl_mxu kernel" if mxu else "miller_step_dbl kernel")
+    out = launch_form("dbl", mxu, group_of("dbl", mxu), (f, t, xp, yp))
     global dbl_launches, dbl_mxu_launches
     if mxu:
         dbl_mxu_launches += 1
     else:
         dbl_launches += 1
-    return f_out, t_out
+    return out
 
 
 def miller_step_add(f, t, q, xp, yp, bit, mxu: bool | None = None):
@@ -625,19 +640,13 @@ def miller_step_add(f, t, q, xp, yp, bit, mxu: bool | None = None):
     mxu = F.mxu_active() if mxu is None else mxu
     if f.device.type == "cpu":
         return miller_step_add_plain(f, t, q, xp, yp, bit, mxu)
-    f_out, t_out = torch.empty_like(f), torch.empty_like(t)
-    lib = _lib(mxu)
-    launch = lib.lh_miller_step_add_mxu if mxu else lib.lh_miller_step_add
-    err = launch(f.data_ptr(), t.data_ptr(), q.data_ptr(), xp.data_ptr(), yp.data_ptr(),
-                 bit.data_ptr(), f_out.data_ptr(), t_out.data_ptr(), f.shape[-1],
-                 torch.cuda.current_stream(f.device).cuda_stream)
-    _build.check(lib, err, "miller_step_add_mxu kernel" if mxu else "miller_step_add kernel")
+    out = launch_form("add", mxu, group_of("add", mxu), (f, t, q, xp, yp, bit))
     global add_launches, add_mxu_launches
     if mxu:
         add_mxu_launches += 1
     else:
         add_launches += 1
-    return f_out, t_out
+    return out
 
 
 # -- the fused Miller loop -----------------------------------------------------

@@ -1,11 +1,12 @@
-// Groups of threads that work on one lane together (kernels 1 and 2).
+// Groups of threads that work on one lane together (kernels 1, 2, 3 and 2m).
 //
 // Layout on the card: a block holds L lanes and G ranks, thread
-// t = r * L + l (rank-major).  With L = 32 (kGroupLanes, kernel 2) each warp
-// is 32 lanes of ONE rank, so a rank's own code (a switch on r) runs without
-// diverging; with L = 8 or 16 (kernel 1's small blocks) a warp holds 32 / L
-// ranks, whose code must then be the same instructions at rank-dependent
-// offsets.  Limb i of the block's lanes are neighbouring words of global
+// t = r * L + l (rank-major).  With L = 32 (kGroupLanes, the Miller steps)
+// each warp is 32 lanes of ONE rank, so a rank's own code (a switch on r)
+// runs without diverging, and may hold warp-cooperative instructions (the
+// mma.sync of kernel 2m's products, csrc/mxu.cuh); with L = 8 or 16
+// (kernel 1's small blocks) a warp holds 32 / L ranks, whose code must then
+// be the same instructions at rank-dependent offsets.  Limb i of the block's lanes are neighbouring words of global
 // memory, so loads and stores coalesce; per-lane state shared by the ranks
 // sits in shared memory as [word][L lanes].
 //

@@ -5,26 +5,26 @@
 // torch_backend/miller_kernel.py records from the formulas of
 // pallas_miller.py; the plain PyTorch version runs the same programs.
 //
-// Kernel 2 (the doubling step) runs in the group form: G = 16 threads per
-// lane (csrc/group.cuh).  One thread per lane ran its 169 products one after
-// another, each a 1,703-multiply chain of one thread, with one warp per SM
-// at the Miller loop's 4,097 lanes: the card waited on that thread's issue
-// rate and latency.  The products of one dependency level are independent,
-// so the group runs them side by side: rounds of at most G products (one
-// per thread, the unchanged lh::mont_core, so the bytes are the same by
+// Both steps run in the group form: G = 16 threads per lane
+// (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP), and kernel 3 is
+// also printed at G = 8 (ADD_GROUPS) for comparison.  One thread per lane
+// ran a step's 169 (dbl) or 111 (add) products one after another, each a
+// 1,703-multiply chain of one thread, with one warp per SM at the Miller
+// loop's 4,097 lanes: the card waited on that thread's issue rate and
+// latency.  The products of one dependency level are independent, so the
+// group runs them side by side: rounds of at most G products (one per
+// thread, the unchanged lh::mont_core, so the bytes are the same by
 // construction) and the linear ops between them dealt to the ranks, a
 // barrier after each phase.  The serial chain falls from 169 products to 11
-// rounds, and the card gets G times the warps.  The lane's values live in
-// shared memory, 16 bits a limb, in slots reassigned by the phase schedule
-// (codegen.group_schedule).
-//
-// Kernel 3 (the addition step) keeps the first design: one thread per lane,
-// its values in the slot array s (registers spilling to local memory),
-// every Montgomery product one call of the non-inlined k_mul.
+// rounds (dbl) and from 111 to 10 (add; 15 at G = 8), and the card gets G
+// times the warps.  The lane's values live in shared memory, 16 bits a
+// limb, in slots reassigned by the phase schedule (codegen.group_schedule).
+// The addition step's bit is read by every thread; its selects are linear
+// ops like the others.
 //
 // Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
-// neighbouring words and every load and store coalesces; both forms read
-// each input plane once and write each output plane once.
+// neighbouring words and every load and store coalesces; each input plane
+// is read once and each output plane written once.
 #include "group.cuh"
 #include "mont.cuh"
 
@@ -32,72 +32,6 @@ namespace {
 
 using lh::NL;
 
-constexpr int kBlock = 32;  // kernel 3: 4,097 lanes -> 129 blocks, one per SM
-
-__device__ __noinline__ void k_mul(uint32_t* o, const uint32_t* a, const uint32_t* b) {
-  uint32_t x[NL], y[NL], r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    x[i] = a[i];
-    y[i] = b[i];
-  }
-  lh::mont_core(x, y, r);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = r[i];
-}
-
-__device__ __forceinline__ void carry_store(uint32_t* o, uint32_t (&c)[NL]) {
-  lh::compress1(c);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = c[i];
-}
-
-// a + b, one carry pass
-__device__ __noinline__ void k_add(uint32_t* o, const uint32_t* a, const uint32_t* b) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + b[i];
-  carry_store(o, c);
-}
-
-// a + kP - b, one carry pass (the bias dominates b limb by limb)
-__device__ __noinline__ void k_sub(uint32_t* o, const uint32_t* a, const uint32_t* b, int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + lh::kBias[kidx][i] - b[i];
-  carry_store(o, c);
-}
-
-// kP - a, one carry pass
-__device__ __noinline__ void k_neg(uint32_t* o, const uint32_t* a, int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = lh::kBias[kidx][i] - a[i];
-  carry_store(o, c);
-}
-
-__device__ __forceinline__ void k_sel(uint32_t* o, bool take, const uint32_t* a,
-                                      const uint32_t* b) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = take ? a[i] : b[i];
-}
-
-__device__ __forceinline__ void k_one(uint32_t* o) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = lh::kOne[i];
-}
-
-__device__ __forceinline__ void k_load(uint32_t* o, const uint32_t* base, int plane, int n,
-                                       int lane) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = base[(static_cast<size_t>(plane) * NL + i) * n + lane];
-}
-
-__device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int lane,
-                                        const uint32_t* v) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i];
-}
 
 // The group form (csrc/group.cuh): G threads per lane, the lane's values in
 // shared memory, slot k limb i of the lane at s[(k * NL + i) * kGroupLanes].
@@ -118,21 +52,6 @@ __device__ __forceinline__ void g_get(uint16_t* s, int k, uint32_t (&c)[NL]) {
   const uint16_t* a = g_at(s, k);
 #pragma unroll
   for (int i = 0; i < NL; ++i) c[i] = a[i * kGroupLanes];
-}
-
-__device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
-  uint32_t x[NL], y[NL], r[NL];
-  g_get(s, a, x);
-  g_get(s, b, y);
-  lh::mont_core(x, y, r);
-  g_put(s, o, r);
-}
-
-__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
-  uint32_t x[NL], r[NL];
-  g_get(s, a, x);
-  lh::mont_sqr_core(x, r);
-  g_put(s, o, r);
 }
 
 // a + b, one carry pass
@@ -201,10 +120,25 @@ __device__ __forceinline__ void g_store(uint32_t* base, int plane, int n, int la
   for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i * kGroupLanes];
 }
 
+__device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
+  uint32_t x[NL], y[NL], r[NL];
+  g_get(s, a, x);
+  g_get(s, b, y);
+  lh::mont_core(x, y, r);
+  g_put(s, o, r);
+}
+
+__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
+  uint32_t x[NL], r[NL];
+  g_get(s, a, x);
+  lh::mont_sqr_core(x, r);
+  g_put(s, o, r);
+}
+
 }  // namespace
 
-// miller_step_dbl_g16: 565 limb ops, 169 Montgomery products; 16 threads per lane,
-// 11 rounds of products in 51 phases, 92 slots
+// miller_step_dbl_g16: 565 limb ops, 169 Montgomery products;
+// 16 threads per lane, 11 rounds of products in 51 phases, 92 slots
 // (153,088 bytes of shared memory per block of 32 lanes).
 static __global__ void __launch_bounds__(16 * lh::kGroupLanes)
 miller_step_dbl_g16_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
@@ -2120,390 +2054,2606 @@ extern "C" int lh_miller_step_dbl_g16(const void* f, const void* t, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// miller_step_add: 353 limb ops, 111 Montgomery products, 62 slots.
-static __global__ void __launch_bounds__(kBlock)
-miller_step_add_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ q, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, const int32_t* __restrict__ bit, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  uint32_t s[62][NL];
-  k_one(s[0]);
-  k_load(s[1], f, 0, n, lane);
-  k_load(s[2], f, 1, n, lane);
-  k_load(s[3], f, 2, n, lane);
-  k_load(s[4], f, 3, n, lane);
-  k_load(s[5], f, 4, n, lane);
-  k_load(s[6], f, 5, n, lane);
-  k_load(s[7], f, 6, n, lane);
-  k_load(s[8], f, 7, n, lane);
-  k_load(s[9], f, 8, n, lane);
-  k_load(s[10], f, 9, n, lane);
-  k_load(s[11], f, 10, n, lane);
-  k_load(s[12], f, 11, n, lane);
-  k_load(s[13], t, 0, n, lane);
-  k_load(s[14], t, 1, n, lane);
-  k_load(s[15], t, 2, n, lane);
-  k_load(s[16], t, 3, n, lane);
-  k_load(s[17], t, 4, n, lane);
-  k_load(s[18], t, 5, n, lane);
-  k_load(s[19], q, 0, n, lane);
-  k_load(s[20], q, 1, n, lane);
-  k_load(s[21], q, 2, n, lane);
-  k_load(s[22], q, 3, n, lane);
-  k_load(s[23], xp, 0, n, lane);
-  k_load(s[24], yp, 0, n, lane);
+// miller_step_add_g8: 353 limb ops, 111 Montgomery products;
+// 8 threads per lane, 15 rounds of products in 59 phases, 92 slots
+// (153,088 bytes of shared memory per block of 32 lanes).
+static __global__ void __launch_bounds__(8 * lh::kGroupLanes)
+miller_step_add_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ q, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, const int32_t* __restrict__ bit, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
+  LH_GROUP_SHARED(uint16_t, slots, 2392);
+  const int gl = lh::group_lane();
+  const bool live = gl < n;
+  const int lane = live ? gl : n - 1;
+  uint16_t* const s = slots + lh::group_slot();
   const bool take = bit[lane] != 0;
-  k_sub(s[25], s[17], s[18], 1);  // k=4
-  k_add(s[26], s[17], s[18]);
-  k_mul(s[27], s[25], s[26]);
-  k_mul(s[26], s[17], s[18]);
-  k_add(s[25], s[26], s[26]);
-  k_add(s[26], s[27], s[25]);
-  k_add(s[28], s[17], s[18]);
-  k_mul(s[29], s[27], s[17]);
-  k_mul(s[30], s[25], s[18]);
-  k_mul(s[31], s[26], s[28]);
-  k_sub(s[28], s[29], s[30], 0);  // k=2
-  k_add(s[26], s[29], s[30]);
-  k_sub(s[30], s[31], s[26], 1);  // k=4
-  k_add(s[31], s[19], s[20]);
-  k_add(s[26], s[27], s[25]);
-  k_mul(s[29], s[19], s[27]);
-  k_mul(s[27], s[20], s[25]);
-  k_mul(s[25], s[31], s[26]);
-  k_sub(s[31], s[29], s[27], 0);  // k=2
-  k_add(s[26], s[29], s[27]);
-  k_sub(s[29], s[25], s[26], 1);  // k=4
-  k_sub(s[26], s[31], s[13], 1);  // k=4
-  k_sub(s[31], s[29], s[14], 1);  // k=4
-  k_add(s[29], s[21], s[22]);
-  k_add(s[25], s[28], s[30]);
-  k_mul(s[27], s[21], s[28]);
-  k_mul(s[28], s[22], s[30]);
-  k_mul(s[30], s[29], s[25]);
-  k_sub(s[29], s[27], s[28], 0);  // k=2
-  k_add(s[25], s[27], s[28]);
-  k_sub(s[28], s[30], s[25], 1);  // k=4
-  k_add(s[30], s[17], s[18]);
-  k_add(s[25], s[26], s[31]);
-  k_mul(s[27], s[17], s[26]);
-  k_mul(s[32], s[18], s[31]);
-  k_mul(s[33], s[30], s[25]);
-  k_sub(s[30], s[27], s[32], 0);  // k=2
-  k_add(s[25], s[27], s[32]);
-  k_sub(s[32], s[33], s[25], 1);  // k=4
-  k_sub(s[33], s[26], s[31], 3);  // k=16
-  k_add(s[25], s[26], s[31]);
-  k_mul(s[27], s[33], s[25]);
-  k_mul(s[33], s[26], s[31]);
-  k_add(s[25], s[33], s[33]);
-  k_sub(s[33], s[29], s[15], 1);  // k=4
-  k_sub(s[29], s[28], s[16], 1);  // k=4
-  k_add(s[28], s[33], s[29]);
-  k_add(s[34], s[19], s[20]);
-  k_mul(s[35], s[33], s[19]);
-  k_mul(s[19], s[29], s[20]);
-  k_mul(s[20], s[28], s[34]);
-  k_sub(s[34], s[35], s[19], 0);  // k=2
-  k_add(s[28], s[35], s[19]);
-  k_sub(s[35], s[20], s[28], 1);  // k=4
-  k_add(s[28], s[21], s[22]);
-  k_add(s[20], s[30], s[32]);
-  k_mul(s[19], s[21], s[30]);
-  k_mul(s[21], s[22], s[32]);
-  k_mul(s[22], s[28], s[20]);
-  k_sub(s[28], s[19], s[21], 0);  // k=2
-  k_add(s[20], s[19], s[21]);
-  k_sub(s[21], s[22], s[20], 1);  // k=4
-  k_sub(s[22], s[33], s[29], 3);  // k=16
-  k_add(s[20], s[33], s[29]);
-  k_mul(s[19], s[22], s[20]);
-  k_mul(s[22], s[33], s[29]);
-  k_add(s[20], s[22], s[22]);
-  k_add(s[22], s[26], s[31]);
-  k_add(s[36], s[27], s[25]);
-  k_mul(s[37], s[26], s[27]);
-  k_mul(s[26], s[31], s[25]);
-  k_mul(s[31], s[22], s[36]);
-  k_sub(s[36], s[37], s[26], 0);  // k=2
-  k_add(s[22], s[37], s[26]);
-  k_sub(s[37], s[31], s[22], 1);  // k=4
-  k_add(s[31], s[13], s[14]);
-  k_add(s[22], s[27], s[25]);
-  k_mul(s[26], s[13], s[27]);
-  k_mul(s[27], s[14], s[25]);
-  k_mul(s[25], s[31], s[22]);
-  k_sub(s[31], s[26], s[27], 0);  // k=2
-  k_add(s[22], s[26], s[27]);
-  k_sub(s[27], s[25], s[22], 1);  // k=4
-  k_sub(s[25], s[34], s[28], 1);  // k=4
-  k_sub(s[34], s[35], s[21], 2);  // k=8
-  k_sub(s[35], s[19], s[36], 1);  // k=4
-  k_sub(s[19], s[20], s[37], 2);  // k=8
-  k_add(s[20], s[31], s[31]);
-  k_add(s[21], s[27], s[27]);
-  k_sub(s[28], s[35], s[20], 2);  // k=8
-  k_sub(s[35], s[19], s[21], 3);  // k=16
-  k_sub(s[21], s[31], s[28], 3);  // k=16
-  k_sub(s[31], s[27], s[35], 4);  // k=32
-  k_mul(s[27], s[21], s[0]);
-  k_mul(s[21], s[31], s[0]);
-  k_add(s[31], s[33], s[29]);
-  k_add(s[19], s[27], s[21]);
-  k_mul(s[20], s[33], s[27]);
-  k_mul(s[27], s[29], s[21]);
-  k_mul(s[21], s[31], s[19]);
-  k_sub(s[31], s[20], s[27], 0);  // k=2
-  k_add(s[19], s[20], s[27]);
-  k_sub(s[27], s[21], s[19], 1);  // k=4
-  k_add(s[21], s[15], s[16]);
-  k_add(s[19], s[36], s[37]);
-  k_mul(s[20], s[15], s[36]);
-  k_mul(s[36], s[16], s[37]);
-  k_mul(s[37], s[21], s[19]);
-  k_sub(s[21], s[20], s[36], 0);  // k=2
-  k_add(s[19], s[20], s[36]);
-  k_sub(s[36], s[37], s[19], 1);  // k=4
-  k_sub(s[37], s[31], s[21], 1);  // k=4
-  k_sub(s[31], s[27], s[36], 2);  // k=8
-  k_neg(s[36], s[33], 2);  // k=8
-  k_neg(s[33], s[29], 3);  // k=16
-  k_mul(s[29], s[36], s[23]);
-  k_mul(s[36], s[33], s[23]);
-  k_mul(s[33], s[30], s[24]);
-  k_mul(s[23], s[32], s[24]);
-  k_mul(s[24], s[25], s[0]);
-  k_mul(s[25], s[34], s[0]);
-  k_mul(s[34], s[29], s[0]);
-  k_mul(s[29], s[36], s[0]);
-  k_mul(s[36], s[33], s[0]);
-  k_mul(s[33], s[23], s[0]);
-  k_mul(s[23], s[28], s[0]);
-  k_mul(s[28], s[35], s[0]);
-  k_mul(s[35], s[37], s[0]);
-  k_mul(s[37], s[31], s[0]);
-  k_mul(s[31], s[30], s[0]);
-  k_mul(s[30], s[32], s[0]);
-  k_add(s[32], s[1], s[7]);
-  k_add(s[27], s[2], s[8]);
-  k_add(s[21], s[3], s[9]);
-  k_add(s[19], s[4], s[10]);
-  k_add(s[20], s[5], s[11]);
-  k_add(s[22], s[6], s[12]);
-  k_add(s[26], s[34], s[36]);
-  k_add(s[38], s[29], s[33]);
-  k_add(s[39], s[1], s[2]);
-  k_add(s[40], s[24], s[25]);
-  k_mul(s[41], s[1], s[24]);
-  k_mul(s[42], s[2], s[25]);
-  k_mul(s[43], s[39], s[40]);
-  k_sub(s[40], s[41], s[42], 0);  // k=2
-  k_add(s[39], s[41], s[42]);
-  k_sub(s[42], s[43], s[39], 1);  // k=4
-  k_add(s[43], s[5], s[6]);
-  k_add(s[39], s[34], s[29]);
-  k_mul(s[41], s[5], s[34]);
-  k_mul(s[44], s[6], s[29]);
-  k_mul(s[45], s[43], s[39]);
-  k_sub(s[43], s[41], s[44], 0);  // k=2
-  k_add(s[39], s[41], s[44]);
-  k_sub(s[44], s[45], s[39], 1);  // k=4
-  k_add(s[45], s[1], s[2]);
-  k_add(s[39], s[34], s[29]);
-  k_mul(s[41], s[1], s[34]);
-  k_mul(s[46], s[2], s[29]);
-  k_mul(s[47], s[45], s[39]);
-  k_sub(s[45], s[41], s[46], 0);  // k=2
-  k_add(s[39], s[41], s[46]);
-  k_sub(s[46], s[47], s[39], 1);  // k=4
-  k_add(s[47], s[3], s[4]);
-  k_add(s[39], s[24], s[25]);
-  k_mul(s[41], s[3], s[24]);
-  k_mul(s[48], s[4], s[25]);
-  k_mul(s[49], s[47], s[39]);
-  k_sub(s[47], s[41], s[48], 0);  // k=2
-  k_add(s[39], s[41], s[48]);
-  k_sub(s[48], s[49], s[39], 1);  // k=4
-  k_add(s[49], s[3], s[4]);
-  k_add(s[39], s[34], s[29]);
-  k_mul(s[41], s[3], s[34]);
-  k_mul(s[34], s[4], s[29]);
-  k_mul(s[29], s[49], s[39]);
-  k_sub(s[49], s[41], s[34], 0);  // k=2
-  k_add(s[39], s[41], s[34]);
-  k_sub(s[41], s[29], s[39], 1);  // k=4
-  k_add(s[39], s[5], s[6]);
-  k_add(s[29], s[24], s[25]);
-  k_mul(s[34], s[5], s[24]);
-  k_mul(s[50], s[6], s[25]);
-  k_mul(s[51], s[39], s[29]);
-  k_sub(s[39], s[34], s[50], 0);  // k=2
-  k_add(s[29], s[34], s[50]);
-  k_sub(s[50], s[51], s[29], 1);  // k=4
-  k_add(s[51], s[11], s[12]);
-  k_add(s[29], s[36], s[33]);
-  k_mul(s[34], s[11], s[36]);
-  k_mul(s[52], s[12], s[33]);
-  k_mul(s[53], s[51], s[29]);
-  k_sub(s[51], s[34], s[52], 0);  // k=2
-  k_add(s[29], s[34], s[52]);
-  k_sub(s[52], s[53], s[29], 1);  // k=4
-  k_add(s[53], s[7], s[8]);
-  k_add(s[29], s[36], s[33]);
-  k_mul(s[34], s[7], s[36]);
-  k_mul(s[54], s[8], s[33]);
-  k_mul(s[55], s[53], s[29]);
-  k_sub(s[53], s[34], s[54], 0);  // k=2
-  k_add(s[29], s[34], s[54]);
-  k_sub(s[54], s[55], s[29], 1);  // k=4
-  k_add(s[55], s[9], s[10]);
-  k_add(s[29], s[36], s[33]);
-  k_mul(s[34], s[9], s[36]);
-  k_mul(s[36], s[10], s[33]);
-  k_mul(s[33], s[55], s[29]);
-  k_sub(s[55], s[34], s[36], 0);  // k=2
-  k_add(s[29], s[34], s[36]);
-  k_sub(s[36], s[33], s[29], 1);  // k=4
-  k_add(s[33], s[32], s[27]);
-  k_add(s[29], s[24], s[25]);
-  k_mul(s[34], s[32], s[24]);
-  k_mul(s[56], s[27], s[25]);
-  k_mul(s[57], s[33], s[29]);
-  k_sub(s[33], s[34], s[56], 0);  // k=2
-  k_add(s[29], s[34], s[56]);
-  k_sub(s[56], s[57], s[29], 1);  // k=4
-  k_add(s[57], s[20], s[22]);
-  k_add(s[29], s[26], s[38]);
-  k_mul(s[34], s[20], s[26]);
-  k_mul(s[58], s[22], s[38]);
-  k_mul(s[59], s[57], s[29]);
-  k_sub(s[57], s[34], s[58], 0);  // k=2
-  k_add(s[29], s[34], s[58]);
-  k_sub(s[58], s[59], s[29], 1);  // k=4
-  k_add(s[59], s[32], s[27]);
-  k_add(s[29], s[26], s[38]);
-  k_mul(s[34], s[32], s[26]);
-  k_mul(s[32], s[27], s[38]);
-  k_mul(s[27], s[59], s[29]);
-  k_sub(s[59], s[34], s[32], 0);  // k=2
-  k_add(s[29], s[34], s[32]);
-  k_sub(s[34], s[27], s[29], 1);  // k=4
-  k_add(s[29], s[21], s[19]);
-  k_add(s[27], s[24], s[25]);
-  k_mul(s[32], s[21], s[24]);
-  k_mul(s[60], s[19], s[25]);
-  k_mul(s[61], s[29], s[27]);
-  k_sub(s[29], s[32], s[60], 0);  // k=2
-  k_add(s[27], s[32], s[60]);
-  k_sub(s[60], s[61], s[27], 1);  // k=4
-  k_add(s[61], s[21], s[19]);
-  k_add(s[27], s[26], s[38]);
-  k_mul(s[32], s[21], s[26]);
-  k_mul(s[26], s[19], s[38]);
-  k_mul(s[38], s[61], s[27]);
-  k_sub(s[61], s[32], s[26], 0);  // k=2
-  k_add(s[27], s[32], s[26]);
-  k_sub(s[32], s[38], s[27], 1);  // k=4
-  k_add(s[38], s[20], s[22]);
-  k_add(s[27], s[24], s[25]);
-  k_mul(s[26], s[20], s[24]);
-  k_mul(s[24], s[22], s[25]);
-  k_mul(s[25], s[38], s[27]);
-  k_sub(s[38], s[26], s[24], 0);  // k=2
-  k_add(s[27], s[26], s[24]);
-  k_sub(s[26], s[25], s[27], 1);  // k=4
-  k_sub(s[27], s[43], s[44], 2);  // k=8
-  k_add(s[25], s[43], s[44]);
-  k_add(s[44], s[40], s[27]);
-  k_add(s[40], s[42], s[25]);
-  k_add(s[42], s[45], s[47]);
-  k_add(s[47], s[46], s[48]);
-  k_add(s[48], s[49], s[39]);
-  k_add(s[49], s[41], s[50]);
-  k_sub(s[50], s[51], s[52], 2);  // k=8
-  k_add(s[41], s[51], s[52]);
-  k_sub(s[52], s[57], s[58], 2);  // k=8
-  k_add(s[51], s[57], s[58]);
-  k_add(s[58], s[33], s[52]);
-  k_add(s[52], s[56], s[51]);
-  k_add(s[56], s[59], s[29]);
-  k_add(s[59], s[34], s[60]);
-  k_add(s[60], s[61], s[38]);
-  k_add(s[61], s[32], s[26]);
-  k_sub(s[32], s[55], s[36], 2);  // k=8
-  k_add(s[26], s[55], s[36]);
-  k_add(s[38], s[44], s[32]);
-  k_add(s[32], s[40], s[26]);
-  k_add(s[26], s[42], s[50]);
-  k_add(s[34], s[47], s[41]);
-  k_add(s[29], s[48], s[53]);
-  k_add(s[51], s[49], s[54]);
-  k_sub(s[33], s[58], s[44], 3);  // k=16
-  k_sub(s[58], s[52], s[40], 3);  // k=16
-  k_sub(s[52], s[56], s[42], 2);  // k=8
-  k_sub(s[56], s[59], s[47], 3);  // k=16
-  k_sub(s[59], s[60], s[48], 2);  // k=8
-  k_sub(s[60], s[61], s[49], 3);  // k=16
-  k_sub(s[61], s[33], s[50], 3);  // k=16
-  k_sub(s[50], s[58], s[41], 3);  // k=16
-  k_sub(s[58], s[52], s[53], 1);  // k=4
-  k_sub(s[53], s[56], s[54], 2);  // k=8
-  k_sub(s[56], s[59], s[55], 1);  // k=4
-  k_sub(s[59], s[60], s[36], 2);  // k=8
-  k_mul(s[60], s[38], s[0]);
-  k_mul(s[38], s[32], s[0]);
-  k_mul(s[32], s[26], s[0]);
-  k_mul(s[26], s[34], s[0]);
-  k_mul(s[34], s[29], s[0]);
-  k_mul(s[29], s[51], s[0]);
-  k_mul(s[51], s[61], s[0]);
-  k_mul(s[61], s[50], s[0]);
-  k_mul(s[50], s[58], s[0]);
-  k_mul(s[58], s[53], s[0]);
-  k_mul(s[53], s[56], s[0]);
-  k_mul(s[56], s[59], s[0]);
-  k_sel(s[59], take, s[60], s[1]);
-  k_store(f_out, 0, n, lane, s[59]);
-  k_sel(s[60], take, s[38], s[2]);
-  k_store(f_out, 1, n, lane, s[60]);
-  k_sel(s[60], take, s[32], s[3]);
-  k_store(f_out, 2, n, lane, s[60]);
-  k_sel(s[60], take, s[26], s[4]);
-  k_store(f_out, 3, n, lane, s[60]);
-  k_sel(s[60], take, s[34], s[5]);
-  k_store(f_out, 4, n, lane, s[60]);
-  k_sel(s[60], take, s[29], s[6]);
-  k_store(f_out, 5, n, lane, s[60]);
-  k_sel(s[60], take, s[51], s[7]);
-  k_store(f_out, 6, n, lane, s[60]);
-  k_sel(s[60], take, s[61], s[8]);
-  k_store(f_out, 7, n, lane, s[60]);
-  k_sel(s[61], take, s[50], s[9]);
-  k_store(f_out, 8, n, lane, s[61]);
-  k_sel(s[61], take, s[58], s[10]);
-  k_store(f_out, 9, n, lane, s[61]);
-  k_sel(s[61], take, s[53], s[11]);
-  k_store(f_out, 10, n, lane, s[61]);
-  k_sel(s[61], take, s[56], s[12]);
-  k_store(f_out, 11, n, lane, s[61]);
-  k_sel(s[61], take, s[23], s[13]);
-  k_store(t_out, 0, n, lane, s[61]);
-  k_sel(s[61], take, s[28], s[14]);
-  k_store(t_out, 1, n, lane, s[61]);
-  k_sel(s[61], take, s[35], s[15]);
-  k_store(t_out, 2, n, lane, s[61]);
-  k_sel(s[61], take, s[37], s[16]);
-  k_store(t_out, 3, n, lane, s[61]);
-  k_sel(s[61], take, s[31], s[17]);
-  k_store(t_out, 4, n, lane, s[61]);
-  k_sel(s[61], take, s[30], s[18]);
-  k_store(t_out, 5, n, lane, s[61]);
+  // phase 1: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 0, t, 4, n, lane);
+      break;
+    case 1:
+      g_load(s, 1, t, 5, n, lane);
+      break;
+    default:
+      break;
+  })
+  // phase 2: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 2, 0, 1, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 3, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 3: round 1 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 4, 2, 3);
+      break;
+    case 1:
+      g_mul(s, 5, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 4: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 2, q, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 3, q, 1, n, lane);
+      break;
+    case 2:
+      g_add(s, 6, 5, 5);
+      break;
+    case 3:
+      g_add(s, 7, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 5: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 5, 4, 6);
+      break;
+    case 1:
+      g_add(s, 8, 2, 3);
+      break;
+    case 2:
+      g_add(s, 9, 4, 6);
+      break;
+    default:
+      break;
+  })
+  // phase 6: round 2 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 10, 4, 0);
+      break;
+    case 1:
+      g_mul(s, 11, 6, 1);
+      break;
+    case 2:
+      g_mul(s, 12, 5, 7);
+      break;
+    case 3:
+      g_mul(s, 13, 2, 4);
+      break;
+    case 4:
+      g_mul(s, 14, 3, 6);
+      break;
+    case 5:
+      g_mul(s, 15, 8, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 7: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 4, t, 0, n, lane);
+      g_add(s, 18, 0, 1);
+      break;
+    case 1:
+      g_load(s, 5, t, 1, n, lane);
+      break;
+    case 2:
+      g_load(s, 6, q, 2, n, lane);
+      break;
+    case 3:
+      g_load(s, 7, q, 3, n, lane);
+      break;
+    case 4:
+      g_sub(s, 8, 10, 11, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 9, 10, 11);
+      break;
+    case 6:
+      g_sub(s, 16, 13, 14, 0);  // k=2
+      break;
+    case 7:
+      g_add(s, 17, 13, 14);
+      break;
+    default:
+      break;
+  })
+  // phase 8: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 10, 12, 9, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 11, 15, 17, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 13, 16, 4, 1);  // k=4
+      break;
+    case 3:
+      g_add(s, 14, 6, 7);
+      break;
+    default:
+      break;
+  })
+  // phase 9: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 9, 11, 5, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 12, 8, 10);
+      break;
+    default:
+      break;
+  })
+  // phase 10: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 11, 13, 9);
+      break;
+    case 1:
+      g_sub(s, 15, 13, 9, 3);  // k=16
+      break;
+    case 2:
+      g_add(s, 16, 13, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 11: round 3 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 17, 6, 8);
+      break;
+    case 1:
+      g_mul(s, 19, 7, 10);
+      break;
+    case 2:
+      g_mul(s, 20, 14, 12);
+      break;
+    case 3:
+      g_mul(s, 21, 0, 13);
+      break;
+    case 4:
+      g_mul(s, 22, 1, 9);
+      break;
+    case 5:
+      g_mul(s, 23, 18, 11);
+      break;
+    case 6:
+      g_mul(s, 24, 15, 16);
+      break;
+    case 7:
+      g_mul(s, 25, 13, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 12: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 8, t, 2, n, lane);
+      break;
+    case 1:
+      g_load(s, 10, t, 3, n, lane);
+      break;
+    case 2:
+      g_sub(s, 11, 17, 19, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 12, 17, 19);
+      break;
+    case 4:
+      g_sub(s, 14, 21, 22, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 15, 21, 22);
+      break;
+    case 6:
+      g_add(s, 16, 2, 3);
+      break;
+    case 7:
+      g_add(s, 18, 6, 7);
+      break;
+    default:
+      break;
+  })
+  // phase 13: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 17, 20, 12, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 19, 23, 15, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 21, 11, 8, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 14: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 11, 17, 10, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 12, 14, 19);
+      break;
+    default:
+      break;
+  })
+  // phase 15: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 17, 21, 11);
+      break;
+    case 1:
+      g_sub(s, 15, 21, 11, 3);  // k=16
+      break;
+    case 2:
+      g_add(s, 20, 21, 11);
+      break;
+    default:
+      break;
+  })
+  // phase 16: round 4 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 23, 21, 2);
+      break;
+    case 1:
+      g_mul(s, 22, 11, 3);
+      break;
+    case 2:
+      g_mul(s, 26, 17, 16);
+      break;
+    case 3:
+      g_mul(s, 27, 6, 14);
+      break;
+    case 4:
+      g_mul(s, 28, 7, 19);
+      break;
+    case 5:
+      g_mul(s, 29, 18, 12);
+      break;
+    case 6:
+      g_mul(s, 30, 15, 20);
+      break;
+    case 7:
+      g_mul(s, 31, 21, 11);
+      break;
+    default:
+      break;
+  })
+  // phase 17: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 2, xp, 0, n, lane);
+      break;
+    case 1:
+      g_add(s, 3, 25, 25);
+      break;
+    case 2:
+      g_add(s, 6, 13, 9);
+      break;
+    case 3:
+      g_add(s, 7, 4, 5);
+      break;
+    case 4:
+      g_neg(s, 12, 21, 2);  // k=8
+      break;
+    case 5:
+      g_neg(s, 15, 11, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 18: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 25, 24, 3);
+      break;
+    case 1:
+      g_add(s, 16, 24, 3);
+      break;
+    default:
+      break;
+  })
+  // phase 19: round 5 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 17, 13, 24);
+      break;
+    case 1:
+      g_mul(s, 18, 9, 3);
+      break;
+    case 2:
+      g_mul(s, 20, 6, 25);
+      break;
+    case 3:
+      g_mul(s, 32, 4, 24);
+      break;
+    case 4:
+      g_mul(s, 33, 5, 3);
+      break;
+    case 5:
+      g_mul(s, 34, 7, 16);
+      break;
+    case 6:
+      g_mul(s, 35, 12, 2);
+      break;
+    case 7:
+      g_mul(s, 36, 15, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 20: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_one(s, 2);
+      g_add(s, 16, 17, 18);
+      break;
+    case 1:
+      g_load(s, 3, yp, 0, n, lane);
+      g_sub(s, 24, 32, 33, 0);  // k=2
+      break;
+    case 2:
+      g_sub(s, 6, 23, 22, 0);  // k=2
+      g_add(s, 25, 32, 33);
+      break;
+    case 3:
+      g_add(s, 7, 23, 22);
+      break;
+    case 4:
+      g_sub(s, 9, 27, 28, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 12, 27, 28);
+      break;
+    case 6:
+      g_add(s, 13, 31, 31);
+      break;
+    case 7:
+      g_sub(s, 15, 17, 18, 0);  // k=2
+      break;
+    default:
+      break;
+  })
+  // phase 21: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 17, 26, 7, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 18, 29, 12, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 22, 20, 16, 1);  // k=4
+      break;
+    case 3:
+      g_sub(s, 23, 34, 25, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 27, 6, 9, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 28, 30, 15, 1);  // k=4
+      break;
+    case 6:
+      g_add(s, 31, 24, 24);
+      break;
+    default:
+      break;
+  })
+  // phase 22: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 6, 17, 18, 2);  // k=8
+      break;
+    case 1:
+      g_sub(s, 7, 13, 22, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 9, 23, 23);
+      break;
+    case 3:
+      g_sub(s, 12, 28, 31, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 23: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 13, 7, 9, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 17, 24, 12, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 24: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 7, 23, 13, 4);  // k=32
+      break;
+    default:
+      break;
+  })
+  // phase 25: round 6 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 23, 17, 2);
+      break;
+    case 1:
+      g_mul(s, 9, 7, 2);
+      break;
+    case 2:
+      g_mul(s, 24, 14, 3);
+      break;
+    case 3:
+      g_mul(s, 18, 19, 3);
+      break;
+    case 4:
+      g_mul(s, 28, 27, 2);
+      break;
+    case 5:
+      g_mul(s, 31, 6, 2);
+      break;
+    case 6:
+      g_mul(s, 16, 35, 2);
+      break;
+    case 7:
+      g_mul(s, 20, 36, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 26: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 3, 21, 11);
+      break;
+    case 1:
+      g_add(s, 6, 23, 9);
+      break;
+    case 2:
+      g_add(s, 7, 8, 10);
+      break;
+    case 3:
+      g_add(s, 17, 15, 22);
+      break;
+    default:
+      break;
+  })
+  // phase 27: round 7 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 27, 21, 23);
+      break;
+    case 1:
+      g_mul(s, 35, 11, 9);
+      break;
+    case 2:
+      g_mul(s, 36, 3, 6);
+      break;
+    case 3:
+      g_mul(s, 25, 8, 15);
+      break;
+    case 4:
+      g_mul(s, 26, 10, 22);
+      break;
+    case 5:
+      g_mul(s, 29, 7, 17);
+      break;
+    case 6:
+      g_mul(s, 30, 24, 2);
+      break;
+    case 7:
+      g_mul(s, 34, 18, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 28: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 3, f, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 6, f, 1, n, lane);
+      break;
+    case 2:
+      g_load(s, 7, f, 4, n, lane);
+      break;
+    case 3:
+      g_load(s, 9, f, 5, n, lane);
+      break;
+    case 4:
+      g_add(s, 11, 28, 31);
+      break;
+    case 5:
+      g_add(s, 15, 16, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 29: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 17, 3, 6);
+      break;
+    case 1:
+      g_add(s, 18, 7, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 30: round 8 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 21, 3, 28);
+      break;
+    case 1:
+      g_mul(s, 22, 6, 31);
+      break;
+    case 2:
+      g_mul(s, 23, 17, 11);
+      break;
+    case 3:
+      g_mul(s, 24, 7, 16);
+      break;
+    case 4:
+      g_mul(s, 32, 9, 20);
+      break;
+    case 5:
+      g_mul(s, 33, 18, 15);
+      break;
+    case 6:
+      g_mul(s, 37, 3, 16);
+      break;
+    case 7:
+      g_mul(s, 38, 6, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 31: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 11, f, 2, n, lane);
+      break;
+    case 1:
+      g_load(s, 15, f, 3, n, lane);
+      break;
+    case 2:
+      g_add(s, 17, 3, 6);
+      break;
+    case 3:
+      g_add(s, 18, 16, 20);
+      break;
+    case 4:
+      g_add(s, 39, 28, 31);
+      break;
+    case 5:
+      g_add(s, 40, 16, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 32: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 41, 11, 15);
+      break;
+    case 1:
+      g_add(s, 42, 11, 15);
+      break;
+    default:
+      break;
+  })
+  // phase 33: round 9 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 43, 17, 18);
+      break;
+    case 1:
+      g_mul(s, 44, 11, 28);
+      break;
+    case 2:
+      g_mul(s, 45, 15, 31);
+      break;
+    case 3:
+      g_mul(s, 46, 41, 39);
+      break;
+    case 4:
+      g_mul(s, 47, 11, 16);
+      break;
+    case 5:
+      g_mul(s, 48, 15, 20);
+      break;
+    case 6:
+      g_mul(s, 49, 42, 40);
+      break;
+    case 7:
+      g_mul(s, 50, 7, 28);
+      break;
+    default:
+      break;
+  })
+  // phase 34: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 17, f, 6, n, lane);
+      break;
+    case 1:
+      g_load(s, 18, f, 7, n, lane);
+      break;
+    case 2:
+      g_load(s, 39, f, 10, n, lane);
+      break;
+    case 3:
+      g_load(s, 40, f, 11, n, lane);
+      break;
+    case 4:
+      g_add(s, 41, 7, 9);
+      break;
+    case 5:
+      g_add(s, 42, 28, 31);
+      break;
+    case 6:
+      g_add(s, 51, 30, 34);
+      break;
+    case 7:
+      g_add(s, 52, 30, 34);
+      break;
+    default:
+      break;
+  })
+  // phase 35: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 53, 39, 40);
+      break;
+    case 1:
+      g_add(s, 54, 17, 18);
+      break;
+    default:
+      break;
+  })
+  // phase 36: round 10 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 55, 9, 31);
+      break;
+    case 1:
+      g_mul(s, 56, 41, 42);
+      break;
+    case 2:
+      g_mul(s, 57, 39, 30);
+      break;
+    case 3:
+      g_mul(s, 58, 40, 34);
+      break;
+    case 4:
+      g_mul(s, 59, 53, 51);
+      break;
+    case 5:
+      g_mul(s, 60, 17, 30);
+      break;
+    case 6:
+      g_mul(s, 61, 18, 34);
+      break;
+    case 7:
+      g_mul(s, 62, 54, 52);
+      break;
+    default:
+      break;
+  })
+  // phase 37: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 41, f, 8, n, lane);
+      g_add(s, 65, 30, 34);
+      break;
+    case 1:
+      g_load(s, 42, f, 9, n, lane);
+      g_add(s, 66, 28, 31);
+      break;
+    case 2:
+      g_add(s, 51, 3, 17);
+      break;
+    case 3:
+      g_add(s, 52, 6, 18);
+      break;
+    case 4:
+      g_add(s, 53, 7, 39);
+      break;
+    case 5:
+      g_add(s, 54, 9, 40);
+      break;
+    case 6:
+      g_add(s, 63, 16, 30);
+      break;
+    case 7:
+      g_add(s, 64, 20, 34);
+      break;
+    default:
+      break;
+  })
+  // phase 38: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 16, 41, 42);
+      break;
+    case 1:
+      g_add(s, 20, 51, 52);
+      break;
+    default:
+      break;
+  })
+  // phase 39: round 11 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 67, 41, 30);
+      break;
+    case 1:
+      g_mul(s, 68, 42, 34);
+      break;
+    case 2:
+      g_mul(s, 69, 16, 65);
+      break;
+    case 3:
+      g_mul(s, 70, 51, 28);
+      break;
+    case 4:
+      g_mul(s, 71, 52, 31);
+      break;
+    case 5:
+      g_mul(s, 72, 20, 66);
+      break;
+    case 6:
+      g_mul(s, 73, 53, 63);
+      break;
+    case 7:
+      g_mul(s, 74, 54, 64);
+      break;
+    default:
+      break;
+  })
+  // phase 40: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 16, 11, 41);
+      break;
+    case 1:
+      g_add(s, 20, 15, 42);
+      break;
+    case 2:
+      g_add(s, 30, 53, 54);
+      break;
+    case 3:
+      g_add(s, 34, 63, 64);
+      break;
+    case 4:
+      g_add(s, 65, 51, 52);
+      break;
+    case 5:
+      g_add(s, 66, 63, 64);
+      break;
+    case 6:
+      g_add(s, 75, 28, 31);
+      break;
+    default:
+      break;
+  })
+  // phase 41: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 76, 16, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 42: round 12 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 77, 30, 34);
+      break;
+    case 1:
+      g_mul(s, 78, 51, 63);
+      break;
+    case 2:
+      g_mul(s, 79, 52, 64);
+      break;
+    case 3:
+      g_mul(s, 80, 65, 66);
+      break;
+    case 4:
+      g_mul(s, 81, 16, 28);
+      break;
+    case 5:
+      g_mul(s, 82, 20, 31);
+      break;
+    case 6:
+      g_mul(s, 83, 76, 75);
+      break;
+    case 7:
+      g_mul(s, 84, 16, 63);
+      break;
+    default:
+      break;
+  })
+  // phase 43: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 30, 27, 35, 0);  // k=2
+      break;
+    case 1:
+      g_sub(s, 34, 25, 26, 0);  // k=2
+      break;
+    case 2:
+      g_add(s, 51, 16, 20);
+      break;
+    case 3:
+      g_add(s, 52, 63, 64);
+      break;
+    case 4:
+      g_add(s, 65, 53, 54);
+      break;
+    case 5:
+      g_add(s, 66, 28, 31);
+      break;
+    default:
+      break;
+  })
+  // phase 44: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 16, 30, 34, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 45: round 13 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 30, 12, 2);
+      break;
+    case 1:
+      g_mul(s, 34, 13, 2);
+      break;
+    case 2:
+      g_mul(s, 63, 16, 2);
+      break;
+    case 3:
+      g_mul(s, 75, 20, 64);
+      break;
+    case 4:
+      g_mul(s, 76, 51, 52);
+      break;
+    case 5:
+      g_mul(s, 85, 53, 28);
+      break;
+    case 6:
+      g_mul(s, 86, 54, 31);
+      break;
+    case 7:
+      g_mul(s, 87, 65, 66);
+      break;
+    default:
+      break;
+  })
+  // phase 46: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 12, 27, 35);
+      g_sub(s, 53, 44, 45, 0);  // k=2
+      g_add(s, 91, 67, 68);
+      break;
+    case 1:
+      g_add(s, 13, 25, 26);
+      g_add(s, 54, 44, 45);
+      break;
+    case 2:
+      g_sub(s, 16, 21, 22, 0);  // k=2
+      g_sub(s, 64, 47, 48, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 20, 21, 22);
+      g_sub(s, 65, 50, 55, 0);  // k=2
+      break;
+    case 4:
+      g_sub(s, 28, 24, 32, 0);  // k=2
+      g_sub(s, 66, 57, 58, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 31, 24, 32);
+      g_add(s, 88, 57, 58);
+      break;
+    case 6:
+      g_sub(s, 51, 37, 38, 0);  // k=2
+      g_sub(s, 89, 60, 61, 0);  // k=2
+      break;
+    case 7:
+      g_add(s, 52, 37, 38);
+      g_sub(s, 90, 67, 68, 0);  // k=2
+      break;
+    default:
+      break;
+  })
+  // phase 47: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 21, 36, 12, 1);  // k=4
+      g_add(s, 37, 51, 53);
+      break;
+    case 1:
+      g_sub(s, 22, 29, 13, 1);  // k=4
+      g_add(s, 38, 64, 65);
+      break;
+    case 2:
+      g_sub(s, 24, 23, 20, 1);  // k=4
+      break;
+    case 3:
+      g_sub(s, 25, 33, 31, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 26, 43, 52, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 27, 46, 54, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 32, 59, 88, 1);  // k=4
+      break;
+    case 7:
+      g_sub(s, 35, 69, 91, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 48: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 12, 21, 22, 2);  // k=8
+      g_add(s, 43, 38, 89);
+      break;
+    case 1:
+      g_sub(s, 13, 28, 25, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 20, 28, 25);
+      break;
+    case 3:
+      g_add(s, 23, 26, 27);
+      break;
+    case 4:
+      g_sub(s, 29, 66, 32, 2);  // k=8
+      break;
+    case 5:
+      g_add(s, 31, 66, 32);
+      break;
+    case 6:
+      g_sub(s, 33, 90, 35, 2);  // k=8
+      break;
+    case 7:
+      g_add(s, 36, 90, 35);
+      break;
+    default:
+      break;
+  })
+  // phase 49: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 21, 16, 13);
+      break;
+    case 1:
+      g_add(s, 22, 24, 20);
+      break;
+    case 2:
+      g_add(s, 25, 37, 29);
+      break;
+    case 3:
+      g_add(s, 26, 23, 31);
+      break;
+    default:
+      break;
+  })
+  // phase 50: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 13, 21, 33);
+      break;
+    case 1:
+      g_add(s, 16, 22, 36);
+      break;
+    default:
+      break;
+  })
+  // phase 51: round 14 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 33, 12, 2);
+      break;
+    case 1:
+      g_mul(s, 36, 14, 2);
+      break;
+    case 2:
+      g_mul(s, 20, 19, 2);
+      break;
+    case 3:
+      g_mul(s, 24, 13, 2);
+      break;
+    case 4:
+      g_mul(s, 27, 16, 2);
+      break;
+    case 5:
+      g_mul(s, 28, 25, 2);
+      break;
+    case 6:
+      g_mul(s, 32, 26, 2);
+      break;
+    case 7:
+      g_mul(s, 66, 43, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 52: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 12, 47, 48);
+      g_add(s, 46, 78, 79);
+      break;
+    case 1:
+      g_add(s, 13, 50, 55);
+      g_sub(s, 51, 81, 82, 0);  // k=2
+      break;
+    case 2:
+      g_add(s, 14, 60, 61);
+      g_add(s, 52, 81, 82);
+      break;
+    case 3:
+      g_sub(s, 16, 70, 71, 0);  // k=2
+      g_sub(s, 53, 84, 75, 0);  // k=2
+      break;
+    case 4:
+      g_add(s, 19, 70, 71);
+      g_add(s, 54, 84, 75);
+      break;
+    case 5:
+      g_sub(s, 25, 73, 74, 0);  // k=2
+      g_sub(s, 59, 85, 86, 0);  // k=2
+      break;
+    case 6:
+      g_add(s, 26, 73, 74);
+      g_add(s, 64, 85, 86);
+      break;
+    case 7:
+      g_sub(s, 43, 78, 79, 0);  // k=2
+      break;
+    default:
+      break;
+  })
+  // phase 53: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 47, 49, 12, 1);  // k=4
+      g_sub(s, 73, 87, 64, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 48, 56, 13, 1);  // k=4
+      g_add(s, 74, 43, 51);
+      break;
+    case 2:
+      g_sub(s, 50, 62, 14, 1);  // k=4
+      g_add(s, 75, 53, 59);
+      break;
+    case 3:
+      g_sub(s, 55, 72, 19, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 60, 77, 26, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 61, 80, 46, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 70, 83, 52, 1);  // k=4
+      break;
+    case 7:
+      g_sub(s, 71, 76, 54, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 54: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 12, 47, 48);
+      break;
+    case 1:
+      g_sub(s, 13, 25, 60, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 14, 25, 60);
+      break;
+    case 3:
+      g_add(s, 19, 61, 70);
+      break;
+    case 4:
+      g_add(s, 26, 71, 73);
+      break;
+    case 5:
+      g_sub(s, 43, 74, 37, 2);  // k=8
+      break;
+    case 6:
+      g_sub(s, 46, 75, 38, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 55: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 25, 16, 13);
+      break;
+    case 1:
+      g_add(s, 37, 55, 14);
+      break;
+    case 2:
+      g_add(s, 38, 12, 50);
+      break;
+    case 3:
+      g_sub(s, 47, 19, 23, 3);  // k=16
+      break;
+    case 4:
+      g_sub(s, 48, 26, 12, 3);  // k=16
+      break;
+    case 5:
+      g_sub(s, 60, 43, 89, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 61, 46, 90, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 56: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 12, 25, 21, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 13, 37, 22, 3);  // k=16
+      break;
+    case 2:
+      g_sub(s, 14, 47, 50, 2);  // k=8
+      break;
+    case 3:
+      g_sub(s, 16, 48, 35, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 57: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 21, 12, 29, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 22, 13, 31, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 58: round 15 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul(s, 12, 38, 2);
+      break;
+    case 1:
+      g_mul(s, 13, 21, 2);
+      break;
+    case 2:
+      g_mul(s, 29, 22, 2);
+      break;
+    case 3:
+      g_mul(s, 31, 60, 2);
+      break;
+    case 4:
+      g_mul(s, 25, 14, 2);
+      break;
+    case 5:
+      g_mul(s, 35, 61, 2);
+      break;
+    case 6:
+      g_mul(s, 37, 16, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 59: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sel(s, 2, take, 24, 3);
+      if (live) g_store(f_out, 0, n, lane, s, 2);
+      g_sel(s, 47, take, 31, 41);
+      if (live) g_store(f_out, 8, n, lane, s, 47);
+      g_sel(s, 55, take, 36, 0);
+      if (live) g_store(t_out, 4, n, lane, s, 55);
+      break;
+    case 1:
+      g_sel(s, 14, take, 27, 6);
+      if (live) g_store(f_out, 1, n, lane, s, 14);
+      g_sel(s, 48, take, 25, 42);
+      if (live) g_store(f_out, 9, n, lane, s, 48);
+      g_sel(s, 89, take, 20, 1);
+      if (live) g_store(t_out, 5, n, lane, s, 89);
+      break;
+    case 2:
+      g_sel(s, 16, take, 28, 11);
+      if (live) g_store(f_out, 2, n, lane, s, 16);
+      g_sel(s, 50, take, 35, 39);
+      if (live) g_store(f_out, 10, n, lane, s, 50);
+      break;
+    case 3:
+      g_sel(s, 21, take, 32, 15);
+      if (live) g_store(f_out, 3, n, lane, s, 21);
+      g_sel(s, 19, take, 37, 40);
+      if (live) g_store(f_out, 11, n, lane, s, 19);
+      break;
+    case 4:
+      g_sel(s, 22, take, 66, 7);
+      if (live) g_store(f_out, 4, n, lane, s, 22);
+      g_sel(s, 23, take, 30, 4);
+      if (live) g_store(t_out, 0, n, lane, s, 23);
+      break;
+    case 5:
+      g_sel(s, 38, take, 12, 9);
+      if (live) g_store(f_out, 5, n, lane, s, 38);
+      g_sel(s, 26, take, 34, 5);
+      if (live) g_store(t_out, 1, n, lane, s, 26);
+      break;
+    case 6:
+      g_sel(s, 60, take, 13, 17);
+      if (live) g_store(f_out, 6, n, lane, s, 60);
+      g_sel(s, 43, take, 63, 8);
+      if (live) g_store(t_out, 2, n, lane, s, 43);
+      break;
+    case 7:
+      g_sel(s, 61, take, 29, 18);
+      if (live) g_store(f_out, 7, n, lane, s, 61);
+      g_sel(s, 46, take, 33, 10);
+      if (live) g_store(t_out, 3, n, lane, s, 46);
+      break;
+    default:
+      break;
+  })
 }
 
-extern "C" int lh_miller_step_add(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
+extern "C" int lh_miller_step_add_g8(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
                               void* stream) {
+  constexpr int kShared = 2392 * 2 * lh::kGroupLanes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      miller_step_add_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
-    miller_step_add_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    miller_step_add_g8_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 8 * lh::kGroupLanes,
+                          kShared, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(t), static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp), static_cast<const int32_t*>(bit),
+        static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// miller_step_add_g16: 353 limb ops, 111 Montgomery products;
+// 16 threads per lane, 10 rounds of products in 45 phases, 108 slots
+// (179,712 bytes of shared memory per block of 32 lanes).
+static __global__ void __launch_bounds__(16 * lh::kGroupLanes)
+miller_step_add_g16_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ q, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, const int32_t* __restrict__ bit, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
+  LH_GROUP_SHARED(uint16_t, slots, 2808);
+  const int gl = lh::group_lane();
+  const bool live = gl < n;
+  const int lane = live ? gl : n - 1;
+  uint16_t* const s = slots + lh::group_slot();
+  const bool take = bit[lane] != 0;
+  // phase 1: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_load(s, 0, t, 4, n, lane);
+      break;
+    case 1:
+      g_load(s, 1, t, 5, n, lane);
+      break;
+    default:
+      break;
+  })
+  // phase 2: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 2, 0, 1, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 3, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 3: round 1 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 4, 2, 3);
+      break;
+    case 1:
+      g_mul(s, 5, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 4: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_load(s, 2, q, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 3, q, 1, n, lane);
+      break;
+    case 2:
+      g_add(s, 6, 5, 5);
+      break;
+    case 3:
+      g_add(s, 7, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 5: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 5, 4, 6);
+      break;
+    case 1:
+      g_add(s, 8, 2, 3);
+      break;
+    case 2:
+      g_add(s, 9, 4, 6);
+      break;
+    default:
+      break;
+  })
+  // phase 6: round 2 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 10, 4, 0);
+      break;
+    case 1:
+      g_mul(s, 11, 6, 1);
+      break;
+    case 2:
+      g_mul(s, 12, 5, 7);
+      break;
+    case 3:
+      g_mul(s, 13, 2, 4);
+      break;
+    case 4:
+      g_mul(s, 14, 3, 6);
+      break;
+    case 5:
+      g_mul(s, 15, 8, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 7: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_load(s, 4, t, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 5, t, 1, n, lane);
+      break;
+    case 2:
+      g_load(s, 6, q, 2, n, lane);
+      break;
+    case 3:
+      g_load(s, 7, q, 3, n, lane);
+      break;
+    case 4:
+      g_sub(s, 8, 10, 11, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 9, 10, 11);
+      break;
+    case 6:
+      g_sub(s, 16, 13, 14, 0);  // k=2
+      break;
+    case 7:
+      g_add(s, 17, 13, 14);
+      break;
+    case 8:
+      g_add(s, 18, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 8: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 10, 12, 9, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 11, 15, 17, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 13, 16, 4, 1);  // k=4
+      break;
+    case 3:
+      g_add(s, 14, 6, 7);
+      break;
+    default:
+      break;
+  })
+  // phase 9: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 9, 11, 5, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 12, 8, 10);
+      break;
+    default:
+      break;
+  })
+  // phase 10: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 11, 13, 9);
+      break;
+    case 1:
+      g_sub(s, 15, 13, 9, 3);  // k=16
+      break;
+    case 2:
+      g_add(s, 16, 13, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 11: round 3 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 17, 6, 8);
+      break;
+    case 1:
+      g_mul(s, 19, 7, 10);
+      break;
+    case 2:
+      g_mul(s, 20, 14, 12);
+      break;
+    case 3:
+      g_mul(s, 21, 0, 13);
+      break;
+    case 4:
+      g_mul(s, 22, 1, 9);
+      break;
+    case 5:
+      g_mul(s, 23, 18, 11);
+      break;
+    case 6:
+      g_mul(s, 24, 15, 16);
+      break;
+    case 7:
+      g_mul(s, 25, 13, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 12: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_load(s, 8, t, 2, n, lane);
+      break;
+    case 1:
+      g_load(s, 10, t, 3, n, lane);
+      break;
+    case 2:
+      g_load(s, 11, xp, 0, n, lane);
+      break;
+    case 3:
+      g_sub(s, 12, 17, 19, 0);  // k=2
+      break;
+    case 4:
+      g_add(s, 14, 17, 19);
+      break;
+    case 5:
+      g_sub(s, 15, 21, 22, 0);  // k=2
+      break;
+    case 6:
+      g_add(s, 16, 21, 22);
+      break;
+    case 7:
+      g_add(s, 18, 25, 25);
+      break;
+    case 8:
+      g_add(s, 26, 2, 3);
+      break;
+    case 9:
+      g_add(s, 27, 6, 7);
+      break;
+    case 10:
+      g_add(s, 28, 13, 9);
+      break;
+    case 11:
+      g_add(s, 29, 4, 5);
+      break;
+    default:
+      break;
+  })
+  // phase 13: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 17, 20, 14, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 19, 23, 16, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 21, 12, 8, 1);  // k=4
+      break;
+    case 3:
+      g_add(s, 22, 24, 18);
+      break;
+    case 4:
+      g_add(s, 25, 24, 18);
+      break;
+    default:
+      break;
+  })
+  // phase 14: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 12, 17, 10, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 14, 15, 19);
+      break;
+    case 2:
+      g_neg(s, 16, 21, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 15: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 17, 21, 12);
+      break;
+    case 1:
+      g_sub(s, 20, 21, 12, 3);  // k=16
+      break;
+    case 2:
+      g_add(s, 23, 21, 12);
+      break;
+    case 3:
+      g_neg(s, 30, 12, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 16: round 4 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 31, 21, 2);
+      break;
+    case 1:
+      g_mul(s, 32, 12, 3);
+      break;
+    case 2:
+      g_mul(s, 33, 17, 26);
+      break;
+    case 3:
+      g_mul(s, 34, 6, 15);
+      break;
+    case 4:
+      g_mul(s, 35, 7, 19);
+      break;
+    case 5:
+      g_mul(s, 36, 27, 14);
+      break;
+    case 6:
+      g_mul(s, 37, 20, 23);
+      break;
+    case 7:
+      g_mul(s, 38, 21, 12);
+      break;
+    case 8:
+      g_mul(s, 39, 13, 24);
+      break;
+    case 9:
+      g_mul(s, 40, 9, 18);
+      break;
+    case 10:
+      g_mul(s, 41, 28, 22);
+      break;
+    case 11:
+      g_mul(s, 42, 4, 24);
+      break;
+    case 12:
+      g_mul(s, 43, 5, 18);
+      break;
+    case 13:
+      g_mul(s, 44, 29, 25);
+      break;
+    case 14:
+      g_mul(s, 45, 16, 11);
+      break;
+    case 15:
+      g_mul(s, 46, 30, 11);
+      break;
+    default:
+      break;
+  })
+  // phase 17: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_one(s, 2);
+      break;
+    case 1:
+      g_load(s, 3, yp, 0, n, lane);
+      break;
+    case 2:
+      g_sub(s, 6, 31, 32, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 7, 31, 32);
+      break;
+    case 4:
+      g_sub(s, 9, 34, 35, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 11, 34, 35);
+      break;
+    case 6:
+      g_add(s, 13, 38, 38);
+      break;
+    case 7:
+      g_sub(s, 14, 39, 40, 0);  // k=2
+      break;
+    case 8:
+      g_add(s, 16, 39, 40);
+      break;
+    case 9:
+      g_sub(s, 17, 42, 43, 0);  // k=2
+      break;
+    case 10:
+      g_add(s, 18, 42, 43);
+      break;
+    case 11:
+      g_add(s, 20, 8, 10);
+      break;
+    default:
+      break;
+  })
+  // phase 18: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 31, 33, 7, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 32, 36, 11, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 34, 41, 16, 1);  // k=4
+      break;
+    case 3:
+      g_sub(s, 35, 44, 18, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 38, 6, 9, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 39, 37, 14, 1);  // k=4
+      break;
+    case 6:
+      g_add(s, 40, 17, 17);
+      break;
+    default:
+      break;
+  })
+  // phase 19: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 6, 31, 32, 2);  // k=8
+      break;
+    case 1:
+      g_sub(s, 7, 13, 34, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 9, 35, 35);
+      break;
+    case 3:
+      g_sub(s, 11, 39, 40, 2);  // k=8
+      break;
+    case 4:
+      g_add(s, 16, 14, 34);
+      break;
+    default:
+      break;
+  })
+  // phase 20: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 13, 7, 9, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 31, 17, 11, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 21: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 7, 35, 13, 4);  // k=32
+      break;
+    default:
+      break;
+  })
+  // phase 22: round 5 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 35, 31, 2);
+      break;
+    case 1:
+      g_mul(s, 9, 7, 2);
+      break;
+    case 2:
+      g_mul(s, 17, 8, 14);
+      break;
+    case 3:
+      g_mul(s, 32, 10, 34);
+      break;
+    case 4:
+      g_mul(s, 39, 20, 16);
+      break;
+    case 5:
+      g_mul(s, 40, 15, 3);
+      break;
+    case 6:
+      g_mul(s, 18, 19, 3);
+      break;
+    case 7:
+      g_mul(s, 33, 38, 2);
+      break;
+    case 8:
+      g_mul(s, 36, 6, 2);
+      break;
+    case 9:
+      g_mul(s, 37, 45, 2);
+      break;
+    case 10:
+      g_mul(s, 41, 46, 2);
+      break;
+    case 11:
+      g_mul(s, 44, 11, 2);
+      break;
+    case 12:
+      g_mul(s, 42, 13, 2);
+      break;
+    case 13:
+      g_mul(s, 43, 15, 2);
+      break;
+    case 14:
+      g_mul(s, 22, 19, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 23: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_load(s, 3, f, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 6, f, 1, n, lane);
+      break;
+    case 2:
+      g_load(s, 7, f, 2, n, lane);
+      break;
+    case 3:
+      g_load(s, 11, f, 3, n, lane);
+      break;
+    case 4:
+      g_load(s, 13, f, 4, n, lane);
+      break;
+    case 5:
+      g_load(s, 14, f, 5, n, lane);
+      break;
+    case 6:
+      g_add(s, 15, 21, 12);
+      break;
+    case 7:
+      g_add(s, 16, 35, 9);
+      break;
+    case 8:
+      g_add(s, 19, 33, 36);
+      break;
+    case 9:
+      g_add(s, 20, 37, 41);
+      break;
+    case 10:
+      g_add(s, 31, 37, 41);
+      break;
+    default:
+      break;
+  })
+  // phase 24: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 34, 3, 6);
+      break;
+    case 1:
+      g_add(s, 38, 13, 14);
+      break;
+    case 2:
+      g_add(s, 45, 3, 6);
+      break;
+    default:
+      break;
+  })
+  // phase 25: round 6 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 46, 21, 35);
+      break;
+    case 1:
+      g_mul(s, 23, 12, 9);
+      break;
+    case 2:
+      g_mul(s, 24, 15, 16);
+      break;
+    case 3:
+      g_mul(s, 25, 40, 2);
+      break;
+    case 4:
+      g_mul(s, 26, 18, 2);
+      break;
+    case 5:
+      g_mul(s, 27, 3, 33);
+      break;
+    case 6:
+      g_mul(s, 28, 6, 36);
+      break;
+    case 7:
+      g_mul(s, 29, 34, 19);
+      break;
+    case 8:
+      g_mul(s, 30, 13, 37);
+      break;
+    case 9:
+      g_mul(s, 47, 14, 41);
+      break;
+    case 10:
+      g_mul(s, 48, 38, 20);
+      break;
+    case 11:
+      g_mul(s, 49, 3, 37);
+      break;
+    case 12:
+      g_mul(s, 50, 6, 41);
+      break;
+    case 13:
+      g_mul(s, 51, 45, 31);
+      break;
+    case 14:
+      g_mul(s, 52, 7, 33);
+      break;
+    case 15:
+      g_mul(s, 53, 11, 36);
+      break;
+    default:
+      break;
+  })
+  // phase 26: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_load(s, 9, f, 6, n, lane);
+      break;
+    case 1:
+      g_load(s, 12, f, 7, n, lane);
+      break;
+    case 2:
+      g_load(s, 15, f, 8, n, lane);
+      break;
+    case 3:
+      g_load(s, 16, f, 9, n, lane);
+      break;
+    case 4:
+      g_load(s, 18, f, 10, n, lane);
+      break;
+    case 5:
+      g_load(s, 19, f, 11, n, lane);
+      break;
+    case 6:
+      g_add(s, 20, 7, 11);
+      break;
+    case 7:
+      g_add(s, 21, 33, 36);
+      break;
+    case 8:
+      g_add(s, 31, 7, 11);
+      break;
+    case 9:
+      g_add(s, 34, 37, 41);
+      break;
+    case 10:
+      g_add(s, 35, 13, 14);
+      break;
+    case 11:
+      g_add(s, 38, 33, 36);
+      break;
+    case 12:
+      g_add(s, 40, 25, 26);
+      break;
+    case 13:
+      g_add(s, 45, 25, 26);
+      break;
+    case 14:
+      g_add(s, 54, 25, 26);
+      break;
+    default:
+      break;
+  })
+  // phase 27: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 55, 18, 19);
+      break;
+    case 1:
+      g_add(s, 56, 9, 12);
+      break;
+    case 2:
+      g_add(s, 57, 15, 16);
+      break;
+    default:
+      break;
+  })
+  // phase 28: round 7 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 58, 20, 21);
+      break;
+    case 1:
+      g_mul(s, 59, 7, 37);
+      break;
+    case 2:
+      g_mul(s, 60, 11, 41);
+      break;
+    case 3:
+      g_mul(s, 61, 31, 34);
+      break;
+    case 4:
+      g_mul(s, 62, 13, 33);
+      break;
+    case 5:
+      g_mul(s, 63, 14, 36);
+      break;
+    case 6:
+      g_mul(s, 64, 35, 38);
+      break;
+    case 7:
+      g_mul(s, 65, 18, 25);
+      break;
+    case 8:
+      g_mul(s, 66, 19, 26);
+      break;
+    case 9:
+      g_mul(s, 67, 55, 40);
+      break;
+    case 10:
+      g_mul(s, 68, 9, 25);
+      break;
+    case 11:
+      g_mul(s, 69, 12, 26);
+      break;
+    case 12:
+      g_mul(s, 70, 56, 45);
+      break;
+    case 13:
+      g_mul(s, 71, 15, 25);
+      break;
+    case 14:
+      g_mul(s, 72, 16, 26);
+      break;
+    case 15:
+      g_mul(s, 73, 57, 54);
+      break;
+    default:
+      break;
+  })
+  // phase 29: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 20, 3, 9);
+      break;
+    case 1:
+      g_add(s, 21, 6, 12);
+      break;
+    case 2:
+      g_add(s, 31, 7, 15);
+      break;
+    case 3:
+      g_add(s, 34, 11, 16);
+      break;
+    case 4:
+      g_add(s, 35, 13, 18);
+      break;
+    case 5:
+      g_add(s, 38, 14, 19);
+      break;
+    case 6:
+      g_add(s, 40, 37, 25);
+      break;
+    case 7:
+      g_add(s, 45, 41, 26);
+      break;
+    case 8:
+      g_add(s, 54, 33, 36);
+      break;
+    case 9:
+      g_add(s, 55, 33, 36);
+      break;
+    default:
+      break;
+  })
+  // phase 30: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 25, 20, 21);
+      break;
+    case 1:
+      g_add(s, 26, 35, 38);
+      break;
+    case 2:
+      g_add(s, 37, 40, 45);
+      break;
+    case 3:
+      g_add(s, 41, 20, 21);
+      break;
+    case 4:
+      g_add(s, 56, 40, 45);
+      break;
+    case 5:
+      g_add(s, 57, 31, 34);
+      break;
+    case 6:
+      g_add(s, 74, 31, 34);
+      break;
+    case 7:
+      g_add(s, 75, 40, 45);
+      break;
+    default:
+      break;
+  })
+  // phase 31: round 8 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 76, 20, 33);
+      break;
+    case 1:
+      g_mul(s, 77, 21, 36);
+      break;
+    case 2:
+      g_mul(s, 78, 25, 54);
+      break;
+    case 3:
+      g_mul(s, 79, 35, 40);
+      break;
+    case 4:
+      g_mul(s, 80, 38, 45);
+      break;
+    case 5:
+      g_mul(s, 81, 26, 37);
+      break;
+    case 6:
+      g_mul(s, 82, 20, 40);
+      break;
+    case 7:
+      g_mul(s, 83, 21, 45);
+      break;
+    case 8:
+      g_mul(s, 84, 41, 56);
+      break;
+    case 9:
+      g_mul(s, 85, 31, 33);
+      break;
+    case 10:
+      g_mul(s, 86, 34, 36);
+      break;
+    case 11:
+      g_mul(s, 87, 57, 55);
+      break;
+    case 12:
+      g_mul(s, 88, 31, 40);
+      break;
+    case 13:
+      g_mul(s, 89, 34, 45);
+      break;
+    case 14:
+      g_mul(s, 90, 74, 75);
+      break;
+    case 15:
+      g_mul(s, 91, 35, 33);
+      break;
+    default:
+      break;
+  })
+  // phase 32: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 20, 46, 23, 0);  // k=2
+      g_sub(s, 92, 65, 66, 0);  // k=2
+      break;
+    case 1:
+      g_add(s, 21, 46, 23);
+      g_add(s, 93, 65, 66);
+      break;
+    case 2:
+      g_sub(s, 25, 17, 32, 0);  // k=2
+      g_sub(s, 94, 68, 69, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 26, 17, 32);
+      g_add(s, 95, 68, 69);
+      break;
+    case 4:
+      g_sub(s, 31, 27, 28, 0);  // k=2
+      g_sub(s, 96, 71, 72, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 34, 27, 28);
+      g_add(s, 97, 71, 72);
+      break;
+    case 6:
+      g_sub(s, 37, 30, 47, 0);  // k=2
+      g_sub(s, 98, 76, 77, 0);  // k=2
+      break;
+    case 7:
+      g_add(s, 40, 30, 47);
+      g_add(s, 99, 76, 77);
+      break;
+    case 8:
+      g_sub(s, 41, 49, 50, 0);  // k=2
+      g_sub(s, 100, 79, 80, 0);  // k=2
+      break;
+    case 9:
+      g_add(s, 45, 49, 50);
+      g_add(s, 101, 79, 80);
+      break;
+    case 10:
+      g_sub(s, 54, 52, 53, 0);  // k=2
+      g_sub(s, 102, 82, 83, 0);  // k=2
+      break;
+    case 11:
+      g_add(s, 55, 52, 53);
+      g_add(s, 103, 82, 83);
+      break;
+    case 12:
+      g_sub(s, 56, 59, 60, 0);  // k=2
+      g_sub(s, 104, 85, 86, 0);  // k=2
+      break;
+    case 13:
+      g_add(s, 57, 59, 60);
+      g_add(s, 105, 85, 86);
+      break;
+    case 14:
+      g_sub(s, 74, 62, 63, 0);  // k=2
+      g_add(s, 106, 35, 38);
+      break;
+    case 15:
+      g_add(s, 75, 62, 63);
+      g_add(s, 107, 33, 36);
+      break;
+    default:
+      break;
+  })
+  // phase 33: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 17, 24, 21, 1);  // k=4
+      g_add(s, 62, 41, 54);
+      break;
+    case 1:
+      g_sub(s, 23, 39, 26, 1);  // k=4
+      g_add(s, 63, 56, 74);
+      break;
+    case 2:
+      g_sub(s, 27, 20, 25, 1);  // k=4
+      g_add(s, 65, 102, 104);
+      break;
+    case 3:
+      g_sub(s, 28, 29, 34, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 30, 48, 40, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 32, 51, 45, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 33, 58, 55, 1);  // k=4
+      break;
+    case 7:
+      g_sub(s, 35, 61, 57, 1);  // k=4
+      break;
+    case 8:
+      g_sub(s, 46, 64, 75, 1);  // k=4
+      break;
+    case 9:
+      g_sub(s, 47, 67, 93, 1);  // k=4
+      break;
+    case 10:
+      g_sub(s, 49, 70, 95, 1);  // k=4
+      break;
+    case 11:
+      g_sub(s, 50, 73, 97, 1);  // k=4
+      break;
+    case 12:
+      g_sub(s, 52, 78, 99, 1);  // k=4
+      break;
+    case 13:
+      g_sub(s, 53, 81, 101, 1);  // k=4
+      break;
+    case 14:
+      g_sub(s, 59, 84, 103, 1);  // k=4
+      break;
+    case 15:
+      g_sub(s, 60, 87, 105, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 34: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 20, 17, 23, 2);  // k=8
+      break;
+    case 1:
+      g_sub(s, 21, 37, 30, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 24, 37, 30);
+      break;
+    case 3:
+      g_add(s, 25, 32, 33);
+      break;
+    case 4:
+      g_add(s, 26, 35, 46);
+      break;
+    case 5:
+      g_sub(s, 29, 92, 47, 2);  // k=8
+      break;
+    case 6:
+      g_add(s, 34, 92, 47);
+      break;
+    case 7:
+      g_sub(s, 39, 100, 53, 2);  // k=8
+      break;
+    case 8:
+      g_add(s, 40, 100, 53);
+      break;
+    case 9:
+      g_add(s, 41, 59, 60);
+      break;
+    case 10:
+      g_sub(s, 45, 96, 50, 2);  // k=8
+      break;
+    case 11:
+      g_add(s, 48, 96, 50);
+      break;
+    case 12:
+      g_add(s, 51, 63, 94);
+      break;
+    case 13:
+      g_sub(s, 54, 65, 62, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 35: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 17, 31, 21);
+      break;
+    case 1:
+      g_add(s, 23, 28, 24);
+      break;
+    case 2:
+      g_add(s, 30, 98, 39);
+      break;
+    case 3:
+      g_add(s, 32, 52, 40);
+      break;
+    case 4:
+      g_add(s, 33, 62, 29);
+      break;
+    case 5:
+      g_add(s, 35, 25, 34);
+      break;
+    case 6:
+      g_add(s, 37, 26, 49);
+      break;
+    case 7:
+      g_sub(s, 46, 41, 25, 3);  // k=16
+      break;
+    case 8:
+      g_sub(s, 47, 54, 94, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 36: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 21, 17, 45);
+      break;
+    case 1:
+      g_add(s, 24, 23, 48);
+      break;
+    case 2:
+      g_sub(s, 25, 30, 17, 3);  // k=16
+      break;
+    case 3:
+      g_sub(s, 28, 32, 23, 3);  // k=16
+      break;
+    case 4:
+      g_sub(s, 31, 46, 49, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 37: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 17, 25, 29, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 23, 28, 34, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 38: round 9 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 25, 27, 2);
+      break;
+    case 1:
+      g_mul(s, 28, 20, 2);
+      break;
+    case 2:
+      g_mul(s, 29, 38, 36);
+      break;
+    case 3:
+      g_mul(s, 34, 106, 107);
+      break;
+    case 4:
+      g_mul(s, 30, 21, 2);
+      break;
+    case 5:
+      g_mul(s, 32, 24, 2);
+      break;
+    case 6:
+      g_mul(s, 45, 33, 2);
+      break;
+    case 7:
+      g_mul(s, 46, 35, 2);
+      break;
+    case 8:
+      g_mul(s, 48, 51, 2);
+      break;
+    case 9:
+      g_mul(s, 49, 37, 2);
+      break;
+    case 10:
+      g_mul(s, 39, 17, 2);
+      break;
+    case 11:
+      g_mul(s, 40, 23, 2);
+      break;
+    case 12:
+      g_mul(s, 41, 47, 2);
+      break;
+    case 13:
+      g_mul(s, 52, 31, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 39: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 17, 88, 89, 0);  // k=2
+      break;
+    case 1:
+      g_add(s, 20, 88, 89);
+      break;
+    case 2:
+      g_sub(s, 21, 91, 29, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 23, 91, 29);
+      break;
+    default:
+      break;
+  })
+  // phase 40: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 29, 90, 20, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 88, 34, 23, 1);  // k=4
+      break;
+    case 2:
+      g_add(s, 89, 17, 21);
+      break;
+    default:
+      break;
+  })
+  // phase 41: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_add(s, 17, 29, 88);
+      break;
+    case 1:
+      g_sub(s, 20, 89, 63, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 42: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 29, 17, 26, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 63, 20, 96, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 43: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sub(s, 17, 29, 50, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 44: round 10 of products
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_mul(s, 29, 63, 2);
+      break;
+    case 1:
+      g_mul(s, 50, 17, 2);
+      break;
+    default:
+      break;
+  })
+  // phase 45: linear ops
+  LH_RANKS(16, switch (r) {
+    case 0:
+      g_sel(s, 2, take, 30, 3);
+      if (live) g_store(f_out, 0, n, lane, s, 2);
+      g_sel(s, 33, take, 43, 0);
+      if (live) g_store(t_out, 4, n, lane, s, 33);
+      break;
+    case 1:
+      g_sel(s, 17, take, 32, 6);
+      if (live) g_store(f_out, 1, n, lane, s, 17);
+      g_sel(s, 35, take, 22, 1);
+      if (live) g_store(t_out, 5, n, lane, s, 35);
+      break;
+    case 2:
+      g_sel(s, 63, take, 45, 7);
+      if (live) g_store(f_out, 2, n, lane, s, 63);
+      break;
+    case 3:
+      g_sel(s, 20, take, 46, 11);
+      if (live) g_store(f_out, 3, n, lane, s, 20);
+      break;
+    case 4:
+      g_sel(s, 26, take, 48, 13);
+      if (live) g_store(f_out, 4, n, lane, s, 26);
+      break;
+    case 5:
+      g_sel(s, 96, take, 49, 14);
+      if (live) g_store(f_out, 5, n, lane, s, 96);
+      break;
+    case 6:
+      g_sel(s, 88, take, 39, 9);
+      if (live) g_store(f_out, 6, n, lane, s, 88);
+      break;
+    case 7:
+      g_sel(s, 89, take, 40, 12);
+      if (live) g_store(f_out, 7, n, lane, s, 89);
+      break;
+    case 8:
+      g_sel(s, 21, take, 41, 15);
+      if (live) g_store(f_out, 8, n, lane, s, 21);
+      break;
+    case 9:
+      g_sel(s, 23, take, 52, 16);
+      if (live) g_store(f_out, 9, n, lane, s, 23);
+      break;
+    case 10:
+      g_sel(s, 34, take, 29, 18);
+      if (live) g_store(f_out, 10, n, lane, s, 34);
+      break;
+    case 11:
+      g_sel(s, 90, take, 50, 19);
+      if (live) g_store(f_out, 11, n, lane, s, 90);
+      break;
+    case 12:
+      g_sel(s, 91, take, 44, 4);
+      if (live) g_store(t_out, 0, n, lane, s, 91);
+      break;
+    case 13:
+      g_sel(s, 24, take, 42, 5);
+      if (live) g_store(t_out, 1, n, lane, s, 24);
+      break;
+    case 14:
+      g_sel(s, 27, take, 25, 8);
+      if (live) g_store(t_out, 2, n, lane, s, 27);
+      break;
+    case 15:
+      g_sel(s, 31, take, 28, 10);
+      if (live) g_store(t_out, 3, n, lane, s, 31);
+      break;
+    default:
+      break;
+  })
+}
+
+extern "C" int lh_miller_step_add_g16(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
+                              void* stream) {
+  constexpr int kShared = 2808 * 2 * lh::kGroupLanes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      miller_step_add_g16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (n > 0) {
+    miller_step_add_g16_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 16 * lh::kGroupLanes,
+                          kShared, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(t), static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp), static_cast<const int32_t*>(bit),
         static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
   }

@@ -136,23 +136,37 @@ constexpr int kTab = 64;     // diagonals -16..47 (those reached are -10..40)
 // Where one warp's DMMA products stage their operands.
 struct MxuCtx {
   uint32_t (*in)[kStride];   // 32 rows (limbs) x 32 lanes: the B operand
-  uint32_t (*out)[kStride];  // 64 rows (columns) x 32 lanes: the C result
+  uint32_t (*out)[kStride];  // ROWS rows (columns) x 32 lanes: the C result
   const double* tab;         // [2][kTab] Toeplitz diagonals of P'13 and P13
   int lane;                  // lane of this thread in its warp
 };
 
-// Shared memory of a block of W warps.
-template <int W>
+// Shared memory of a block of W warps.  With ROWS = 64 a product's 64 rows
+// of C are staged at once; with ROWS = 32 the 64-row product (m * P) is
+// staged in two passes of 32 rows, for blocks of many warps (the group form
+// of the Miller step), whose staging would not fit in shared memory beside
+// their values otherwise.
+template <int W, int ROWS = 64>
 struct MxuShared {
   double tab[2][kTab];
   uint32_t in[W][32][kStride];
-  uint32_t out[W][64][kStride];
+  uint32_t out[W][ROWS][kStride];
 };
+
+// A group kernel's shared memory (csrc/group.cuh: one rank per warp, W
+// ranks) with the DMMA staging of its warps: the staging first, then `words`
+// of `type` per lane of the block, all in dynamic shared memory (static
+// shared memory stops at 48 KB a block).  The launcher asks for
+// sizeof(MxuShared<W, ROWS>) + words * sizeof(type) * kGroupLanes bytes.
+#define LH_MXU_GROUP_SHARED(W, ROWS, sm, type, name, words)                             \
+  extern __shared__ __align__(16) unsigned char lh_mxu_dyn[];                           \
+  lh::MxuShared<W, ROWS>& sm = *reinterpret_cast<lh::MxuShared<W, ROWS>*>(lh_mxu_dyn); \
+  type* const name = reinterpret_cast<type*>(lh_mxu_dyn + sizeof(lh::MxuShared<W, ROWS>))
 
 // Fill the diagonal tables from the constants and hand each warp its
 // buffers.  Every thread of the block must call it (it synchronises).
-template <int W>
-__device__ __forceinline__ MxuCtx mxu_setup(MxuShared<W>& sm) {
+template <int W, int ROWS>
+__device__ __forceinline__ MxuCtx mxu_setup(MxuShared<W, ROWS>& sm) {
   for (int i = threadIdx.x; i < 2 * kTab; i += blockDim.x) {
     const int d = i % kTab - kTabOff;
     const uint32_t* c = i < kTab ? kPPrime13 : kP13;
@@ -174,37 +188,47 @@ __device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b)
 // y[k] = sum_{i < 30} C[k - i] x[i] for k < NY, C the 13-bit limbs of P'
 // (which = kMxuPPrime) or P (kMxuP), for the 32 lanes of the warp at once:
 // the (RT * 8) x 32 Toeplitz matrix times the 32 x 32 matrix of the lanes'
-// x.  Warp-cooperative: every thread of the warp calls it together.
-template <int RT, int NY>
+// x, its rows staged through ``out`` ROWS at a time (every C entry is an
+// exact integer, so the passes change no byte).  Warp-cooperative: every
+// thread of the warp calls it together.
+template <int RT, int NY, int ROWS = 64>
 __device__ __forceinline__ void toeplitz_dot(int which, const uint32_t* x, uint32_t (&y)[NY],
                                              const MxuCtx& mx) {
+  constexpr int HT = RT < ROWS / 8 ? RT : ROWS / 8;  // row tiles per pass
+  static_assert(RT % HT == 0, "whole passes of row tiles");
   const int g = mx.lane >> 2, q = mx.lane & 3;
   const double* diag = mx.tab + which * kTab + kTabOff + g - q;
 #pragma unroll
   for (int i = 0; i < 32; ++i) mx.in[i][mx.lane] = i < NLOW ? x[i] : 0u;
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {  // n-tile j: lanes 8 j .. 8 j + 7
-    double b[8];
+  for (int h = 0; h < RT / HT; ++h) {  // pass h: row tiles h * HT .. h * HT + HT - 1
 #pragma unroll
-    for (int c = 0; c < 8; ++c) b[c] = static_cast<double>(mx.in[4 * c + q][8 * j + g]);
+    for (int j = 0; j < 4; ++j) {  // n-tile j: lanes 8 j .. 8 j + 7
+      double b[8];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {  // rows 8 r .. 8 r + 7 of the product
-      double d0 = 0.0, d1 = 0.0;
+      for (int c = 0; c < 8; ++c) b[c] = static_cast<double>(mx.in[4 * c + q][8 * j + g]);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {  // k-tile c: limbs 4 c .. 4 c + 3
-        // the tile's diagonals are 8 r - 4 c - 3 .. 8 r - 4 c + 7; C is zero
-        // outside 0..30
-        if (8 * r - 4 * c + 7 < 0 || 8 * r - 4 * c - 3 >= NL13) continue;
-        dmma(d0, d1, diag[8 * r - 4 * c], b[c]);
+      for (int rr = 0; rr < HT; ++rr) {  // rows 8 r .. 8 r + 7 of the product
+        const int r = h * HT + rr;
+        double d0 = 0.0, d1 = 0.0;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {  // k-tile c: limbs 4 c .. 4 c + 3
+          // the tile's diagonals are 8 r - 4 c - 3 .. 8 r - 4 c + 7; C is zero
+          // outside 0..30
+          if (8 * r - 4 * c + 7 < 0 || 8 * r - 4 * c - 3 >= NL13) continue;
+          dmma(d0, d1, diag[8 * r - 4 * c], b[c]);
+        }
+        mx.out[8 * rr + g][8 * j + 2 * q] = __double2uint_rz(d0);
+        mx.out[8 * rr + g][8 * j + 2 * q + 1] = __double2uint_rz(d1);
       }
-      mx.out[8 * r + g][8 * j + 2 * q] = __double2uint_rz(d0);
-      mx.out[8 * r + g][8 * j + 2 * q + 1] = __double2uint_rz(d1);
     }
-  }
-  __syncwarp();
+    __syncwarp();
 #pragma unroll
-  for (int k = 0; k < NY; ++k) y[k] = mx.out[k][mx.lane];
+    for (int k = 0; k < 8 * HT; ++k)
+      if (8 * HT * h + k < NY) y[8 * HT * h + k] = mx.out[k][mx.lane];
+    if (h + 1 < RT / HT) __syncwarp();  // read before the next pass overwrites
+  }
 }
 
 }  // namespace lh
@@ -216,7 +240,9 @@ __device__ __forceinline__ void toeplitz_dot(int which, const uint32_t* x, uint3
 namespace lh {
 
 // out = a * b * R^-1 (mod P) representative, strict 15-bit limbs, on the
-// 13-bit plane (pallas_mxu.mont_core_mxu).  Warp-cooperative.
+// 13-bit plane (pallas_mxu.mont_core_mxu).  Warp-cooperative.  ROWS is the
+// staging's rows of C (MxuShared).
+template <int ROWS = 64>
 __device__ __forceinline__ void mont_core_mxu(const uint32_t (&a)[NL], const uint32_t (&b)[NL],
                                               uint32_t (&out)[NL], const MxuCtx& mx) {
   uint32_t t[NC13];
@@ -227,12 +253,12 @@ __device__ __forceinline__ void mont_core_mxu(const uint32_t (&a)[NL], const uin
     cols13(a13, b13, t);
   }
   uint32_t m[NLOW];
-  toeplitz_dot<4, NLOW>(kMxuPPrime, t, m, mx);
+  toeplitz_dot<4, NLOW, ROWS>(kMxuPPrime, t, m, mx);
   compress13(m);
   compress13(m);
   compress13(m);
   uint32_t u[NC13];
-  toeplitz_dot<8, NC13>(kMxuP, m, u, mx);
+  toeplitz_dot<8, NC13, ROWS>(kMxuP, m, u, mx);
   compress13(u);
   compress13(u);
   compress13(u);

@@ -6,8 +6,9 @@ so on a machine without jax run it as
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-It covers all twelve entry points (mont_mul and miller_step_dbl in every
-form: mont_kernel.FORMS, and kernel 2's group form): mont_mul, miller_step_dbl,
+It covers all twelve entry points (mont_mul in every form of
+mont_kernel.FORMS, the Miller steps in every group form printed: kernel 2,
+kernel 3 at each G of ADD_GROUPS, kernel 2m): mont_mul, miller_step_dbl,
 miller_step_add, fp_chain, fp2_chain, wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
@@ -107,26 +108,41 @@ def test_cuda_mxu_kernels_match_plain_versions():
 
 @pytest.mark.cuda
 def test_cuda_group_forms_match_plain_versions():
-    """Every form of kernel 1 (mont_kernel.FORMS) and kernel 2's group
-    form, at widths that leave ragged tails in their blocks."""
+    """Every form of kernel 1 (mont_kernel.FORMS) and the group forms of the
+    Miller steps (kernel 2; kernel 3 at every G of ADD_GROUPS, random bits;
+    kernel 2m), at widths that leave ragged tails in their blocks, and the
+    steps also at the Miller loop's 4,097 lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
     rng = random.Random(31)
     dev = torch.device("cuda")
-    n = 257
-    f, t = _rand_planes(rng, 12, n).to(dev), _rand_planes(rng, 6, n).to(dev)
-    xp, yp = _rand_planes(rng, 1, n)[0].to(dev), _rand_planes(rng, 1, n)[0].to(dev)
+    n, wide = 257, 4097
+    f, t = _rand_planes(rng, 12, wide).to(dev), _rand_planes(rng, 6, wide).to(dev)
+    qq = _rand_planes(rng, 4, wide).to(dev)
+    xp, yp = _rand_planes(rng, 1, wide)[0].to(dev), _rand_planes(rng, 1, wide)[0].to(dev)
+    bit = torch.tensor([rng.randrange(2) for _ in range(wide)], dtype=torch.int32, device=dev)
     q = torch.full((F.N, n), F.QMAX, dtype=torch.int32, device=dev)
     for form in MK.FORMS:
         g, lanes = form
         for w in sorted({1, 2, max(g - 1, 1), g + 1, lanes - 1, lanes + 1, 31, 33, n}):
-            for a, b in ((xp, yp), (q, q)):
+            for a, b in ((xp[:, :n], yp[:, :n]), (q, q)):
                 a, b = a[:, :w].contiguous(), b[:, :w].contiguous()
                 assert torch.equal(MK.mont_mul(a, b, form=form), MK.mont_mul_plain(a, b)), (form, w)
-    for w in (1, ML.DBL_GROUP + 1, n):
-        args = (f[..., :w].contiguous(), t[..., :w].contiguous(), xp[:, :w].contiguous(),
-                yp[:, :w].contiguous())
-        got = ML.miller_step_dbl(*args, mxu=False)
-        ref = ML.miller_step_dbl_plain(*args)
-        assert all(torch.equal(x, y) for x, y in zip(got, ref)), w
+
+    def cut(w, *planes):
+        return tuple(x[..., :w].contiguous() for x in planes)
+
+    steps = [("dbl", ML.DBL_GROUP, lambda *a: ML.miller_step_dbl(*a, mxu=False),
+              ML.miller_step_dbl_plain, (f, t, xp, yp)),
+             ("dbl_mxu", ML.DBL_MXU_GROUP, lambda *a: ML.miller_step_dbl(*a, mxu=True),
+              lambda *a: ML.miller_step_dbl_plain(*a, mxu=True), (f, t, xp, yp))]
+    steps += [(f"add_g{g}", g, lambda *a, g=g: ML.launch_form("add", False, g, a),
+               ML.miller_step_add_plain, (f, t, qq, xp, yp, bit)) for g in ML.ADD_GROUPS]
+    steps.append(("add", ML.ADD_GROUP, lambda *a: ML.miller_step_add(*a, mxu=False),
+                  ML.miller_step_add_plain, (f, t, qq, xp, yp, bit)))
+    for name, g, kern, plain, planes in steps:
+        for w in (1, g + 1, n, wide):
+            args = cut(w, *planes)
+            got, ref = kern(*args), plain(*args)
+            assert all(torch.equal(x, y) for x, y in zip(got, ref)), (name, w)
     torch.cuda.synchronize()

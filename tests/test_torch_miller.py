@@ -7,12 +7,13 @@
 * The committed CUDA sources are exactly what codegen.py prints.
 * The CUDA sources' arithmetic, compiled for the host with g++ and run lane
   by lane, gives the plain versions' limbs byte for byte: kernel 1 in every
-  form of MK.FORMS and kernel 2 in its group form, each group's ranks run
-  upwards and downwards within a phase (a rank that read another's write
-  of the same phase would differ); the add and WSM steps printed in the
-  group form too.
-* The group schedule of kernel 2 hands every value to a slot that nothing
-  overwrites before its last reader, and no phase writes a slot it reads.
+  form of MK.FORMS and kernels 2 and 3 in their group forms (kernel 3 in
+  every G of ML.ADD_GROUPS), each group's ranks run upwards and downwards
+  within a phase (a rank that read another's write of the same phase would
+  differ); the G1 WSM step printed in the group form too.
+* The group schedules of kernels 2 and 3 hand every value to a slot that
+  nothing overwrites before its last reader, and no phase writes a slot it
+  reads.
 
 The kernels themselves run against the plain versions on a card in
 tests/test_torch_cuda.py (jax-free, so it runs where the card is).
@@ -174,12 +175,14 @@ extern "C" void host_dbl(const uint32_t* f, const uint32_t* t, const uint32_t* x
   lh::host_ranks_down = down;
   EACH_LANE(miller_step_dbl_g16_kernel(f, t, xp, yp, fo, to, n))
 }
-extern "C" void host_add(const uint32_t* f, const uint32_t* t, const uint32_t* q,
-                         const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
-                         uint32_t* fo, uint32_t* to, int n) {
-  EACH_LANE(miller_step_add_kernel(f, t, q, xp, yp, bit, fo, to, n))
-}
-"""
+""" + "".join(f"""
+extern "C" void host_add_g{g}(const uint32_t* f, const uint32_t* t, const uint32_t* q,
+                             const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
+                             uint32_t* fo, uint32_t* to, int n, int down) {{
+  lh::host_ranks_down = down;
+  EACH_LANE(miller_step_add_g{g}_kernel(f, t, q, xp, yp, bit, fo, to, n))
+}}
+""" for g in ML.ADD_GROUPS)
 
 
 @pytest.fixture(scope="module")
@@ -221,25 +224,26 @@ def test_host_compiled_mont_matches_plain(host_kernels):
 
 
 def test_host_compiled_steps_match_plain(host_kernels):
+    """Kernel 2's group form and every group form of kernel 3 (ML.ADD_GROUPS)
+    at 1 lane and at 17 (G + 1 for G = 16), random addition bits, ranks run
+    both ways."""
     rng = random.Random(22)
-    n = 1 + ML.DBL_GROUP
+    n = 1 + max(ML.DBL_GROUP, *ML.ADD_GROUPS)
     f, t, q = _rand_planes(rng, 12, n), _rand_planes(rng, 6, n), _rand_planes(rng, 4, n)
     xp, yp = _rand_planes(rng, 1, n)[0], _rand_planes(rng, 1, n)[0]
     bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32)
-    fo, to = torch.empty_like(f), torch.empty_like(t)
     lib = host_kernels["miller_step"]
-    # kernel 2's group form at 1 and G + 1 lanes, ranks run both ways
-    for w in (1, ML.DBL_GROUP + 1):
-        args = (f[..., :w].contiguous(), t[..., :w].contiguous(), xp[:, :w].contiguous(),
-                yp[:, :w].contiguous())
-        rf, rt = ML.miller_step_dbl_plain(*args)
-        for down in (0, 1):
-            fw, tw = torch.empty_like(args[0]), torch.empty_like(args[1])
-            lib.host_dbl(*map(_ptr, args), _ptr(fw), _ptr(tw), w, down)
-            assert torch.equal(fw, rf) and torch.equal(tw, rt), (w, down)
-    lib.host_add(_ptr(f), _ptr(t), _ptr(q), _ptr(xp), _ptr(yp), _ptr(bit), _ptr(fo), _ptr(to), n)
-    rf, rt = ML.miller_step_add_plain(f, t, q, xp, yp, bit)
-    assert torch.equal(fo, rf) and torch.equal(to, rt)
+    forms = [(ML.DBL_GROUP, lib.host_dbl, ML.miller_step_dbl_plain, (f, t, xp, yp))]
+    forms += [(g, getattr(lib, f"host_add_g{g}"), ML.miller_step_add_plain,
+               (f, t, q, xp, yp, bit)) for g in ML.ADD_GROUPS]
+    for g, kern, plain, operands in forms:
+        for w in (1, n):
+            args = tuple(x[..., :w].contiguous() for x in operands)
+            rf, rt = plain(*args)
+            for down in (0, 1):
+                fw, tw = torch.empty_like(args[0]), torch.empty_like(args[1])
+                kern(*map(_ptr, args), _ptr(fw), _ptr(tw), w, down)
+                assert torch.equal(fw, rf) and torch.equal(tw, rt), (plain.__name__, g, w, down)
 
 
 def _run_schedule(prog, sched):
@@ -265,13 +269,18 @@ def _run_schedule(prog, sched):
     return order
 
 
-@pytest.mark.parametrize("group", [8, ML.DBL_GROUP])
-def test_group_schedule_never_overwrites_a_live_slot(group):
-    """Kernel 2's group schedule on the recorded dbl program (no compiler):
-    each limb op runs once, after its operands, in a phase that does not
-    write what it reads; a round holds at most one product per rank; the
-    outputs are stored from their own slots."""
-    prog = ML.program("dbl")
+@pytest.mark.parametrize("step, group, mxu", [
+    pytest.param("dbl", 8, False, id="8"),
+    pytest.param("dbl", ML.DBL_GROUP, False, id=str(ML.DBL_GROUP)),
+    pytest.param("dbl", ML.DBL_MXU_GROUP, True, id=f"dbl-mxu-{ML.DBL_MXU_GROUP}"),
+    *(pytest.param("add", g, False, id=f"add-{g}") for g in ML.ADD_GROUPS)])
+def test_group_schedule_never_overwrites_a_live_slot(step, group, mxu):
+    """The group schedules of kernels 2, 2m and 3 on the recorded programs
+    (no compiler): each limb op runs once, after its operands, in a phase
+    that does not write what it reads; a round holds at most one product
+    per rank; the outputs are stored from their own slots; the slots (and
+    the MXU form's DMMA staging) fit in one block's shared memory."""
+    prog = ML.program(step)
     sched = codegen.group_schedule(prog, group)
     order = _run_schedule(prog, sched)
     limb_ops = [op.out for op in prog.ops if op.kind not in ML.FLAGS]
@@ -287,7 +296,8 @@ def test_group_schedule_never_overwrites_a_live_slot(group):
     # the level-parallel bound: no more rounds than dealing each level alone
     levels = [len(item) for kind, item in prog.stages if kind in ML.PRODUCTS]
     assert sched.n_rounds <= sum(-(-c // group) for c in levels)
-    assert sched.n_slots * F.N * 2 * 32 <= 232_448  # shared memory of one block
+    staging = codegen.mxu_staging_bytes(group, codegen.MXU_GROUP_ROWS) if mxu else 0
+    assert sched.n_slots * F.N * 2 * 32 + staging <= 232_448  # one block's shared memory
 
 
 def test_step_wrappers_check_operands():
@@ -302,12 +312,6 @@ def test_step_wrappers_check_operands():
 
 
 _HARNESS_GROUP = r"""
-extern "C" void host_add(const uint32_t* f, const uint32_t* t, const uint32_t* q,
-                         const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
-                         uint32_t* fo, uint32_t* to, int n, int down) {
-  lh::host_ranks_down = down;
-  EACH_LANE(miller_step_add_g16_kernel(f, t, q, xp, yp, bit, fo, to, n))
-}
 extern "C" void host_wsm(const uint32_t* acc, const uint32_t* ia, const uint32_t* base,
                          const uint32_t* ib, const uint32_t* bit, uint32_t* ao, uint32_t* io,
                          int n, int down) {
@@ -318,29 +322,21 @@ extern "C" void host_wsm(const uint32_t* acc, const uint32_t* ia, const uint32_t
 
 
 def test_group_form_is_one_argument_for_the_other_steps(tmp_path):
-    """The group form printed for kernel 3 (bit select) and the G1 WSM step
-    (squares, flags), which still ship in the one-thread form: built for
-    the host, they give the plain versions' bytes, ranks run both ways."""
+    """The group form printed for the G1 WSM step (squares, flags), which
+    still ships in the one-thread form: built for the host, it gives the
+    plain version's bytes, ranks run both ways."""
     from lighthouse_tpu_torch.crypto.bls.torch_backend import wsm_kernel as W
 
-    src = (codegen.HEADER + codegen._MILLER_HEAD + codegen._K_MUL + codegen._GLUE
-           + codegen._GROUP_HELPERS + codegen._END_HELPERS
-           + codegen._kernel(ML.program("add"), group=16) + codegen._kernel(W.program(1), group=16))
+    src = (codegen.HEADER + codegen._MILLER_HEAD + codegen._GROUP_HELPERS + codegen._GROUP_MUL
+           + codegen._END_HELPERS + codegen._kernel(W.program(1), group=16))
     lib = host_cuda.build(tmp_path, "group_steps", _HARNESS_GROUP, source=src)
     rng = random.Random(24)
     n = 17
-    f, t, q = _rand_planes(rng, 12, n), _rand_planes(rng, 6, n), _rand_planes(rng, 4, n)
-    xp, yp = _rand_planes(rng, 1, n)[0], _rand_planes(rng, 1, n)[0]
-    bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32)
-    rf, rt = ML.miller_step_add_plain(f, t, q, xp, yp, bit)
     acc, base = _rand_planes(rng, 3, n), _rand_planes(rng, 2, n)
     flags = [torch.tensor([[rng.randrange(2) for _ in range(n)]], dtype=torch.int32)
              for _ in range(3)]
     ra, ri = W.wsm_step_g1_plain(acc, flags[0], base, flags[1], flags[2])
     for down in (0, 1):
-        fo, to = torch.empty_like(f), torch.empty_like(t)
-        lib.host_add(*map(_ptr, (f, t, q, xp, yp, bit, fo, to)), n, down)
-        assert torch.equal(fo, rf) and torch.equal(to, rt)
         ao, io = torch.empty_like(acc), torch.empty_like(flags[0])
         lib.host_wsm(*map(_ptr, (acc, flags[0], base, flags[1], flags[2], ao, io)), n, down)
         assert torch.equal(ao, ra) and torch.equal(io, ri)

@@ -15,9 +15,11 @@ Fast tier (byte equality unless stated):
 * routing on CPU tensors under set_mxu(True): fp.mont_mul, fp_pow and
   h2c.fp2_pow_static (chains on) reach the MXU plain versions; the WSM
   step does not;
-* csrc/mxu.cuh's per-lane parts, and the MXU kernels of mxu.cu and chain.cu,
-  compiled with g++ and held against the plain versions lane by lane (the
-  two DMMA products come from the host stand-in in torch_host_cuda.py);
+* csrc/mxu.cuh's per-lane parts, and the MXU kernels of mxu.cu, chain.cu
+  and miller_step_mxu.cu (the doubling step in its group form, ranks run
+  both ways), compiled with g++ and held against the plain versions lane by
+  lane (the two DMMA products come from the host stand-in in
+  torch_host_cuda.py);
 * B=8 verify through TorchBackend(device="cpu") under chains + WSM + MXU
   equals the oracle, with the MXU variants on every product path (Miller
   63 + 63, Fp chain 12, Fp2 chain 4) and the 15-bit core for the WSM steps.
@@ -324,11 +326,26 @@ extern "C" void host_fp2_chain_mxu(const int32_t* tape, int nd, const uint32_t* 
 """
 
 
+_HARNESS_STEPS = f"""
+extern "C" void host_dbl(const uint32_t* f, const uint32_t* t, const uint32_t* xp,
+                         const uint32_t* yp, uint32_t* fo, uint32_t* to, int n, int down) {{
+  lh::host_ranks_down = down;
+  EACH_LANE(miller_step_dbl_mxu_g{ML.DBL_MXU_GROUP}_kernel(f, t, xp, yp, fo, to, n))
+}}
+extern "C" void host_add(const uint32_t* f, const uint32_t* t, const uint32_t* q,
+                         const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
+                         uint32_t* fo, uint32_t* to, int n) {{
+  EACH_LANE(miller_step_add_mxu_kernel(f, t, q, xp, yp, bit, fo, to, n))
+}}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_mxu(tmp_path_factory):
     d = tmp_path_factory.mktemp("hostmxu")
     return {"mxu": host_cuda.build(d, "mxu", _HARNESS_MXU),
-            "chain": host_cuda.build(d, "chain", _HARNESS_CHAIN)}
+            "chain": host_cuda.build(d, "chain", _HARNESS_CHAIN),
+            "miller_step_mxu": host_cuda.build(d, "miller_step_mxu", _HARNESS_STEPS)}
 
 
 def test_host_compiled_mxu_helpers_match_plain(host_mxu):
@@ -377,6 +394,34 @@ def test_host_compiled_mxu_chains_match_plain(host_mxu):
     lib.host_fp2_chain_mxu(ptr(tape), len(tape), ptr(a), ptr(b), ptr(o0), ptr(o1), 3)
     r0, r1 = CK.fp2_pow_chain_plain(a, b, bits, mxu=True)
     assert torch.equal(o0, r0) and torch.equal(o1, r1)
+
+
+def test_host_compiled_mxu_miller_steps_match_plain(host_mxu):
+    """Kernel 2m's group form at 1 and G + 1 lanes, ranks run both ways, and
+    kernel 3m (one thread per lane) with random addition bits, byte for byte
+    against the plain versions with mxu=True."""
+    lib, ptr = host_mxu["miller_step_mxu"], host_cuda.ptr
+    rng = random.Random(43)
+    n = ML.DBL_MXU_GROUP + 1
+
+    def planes(k):
+        return torch.stack([torch.as_tensor(F.ints_to_limbs(
+            [rng.randrange(2 * P) for _ in range(n)])) for _ in range(k)])
+
+    f, t, q = planes(12), planes(6), planes(4)
+    xp, yp = planes(1)[0], planes(1)[0]
+    for w in (1, n):
+        args = tuple(x[..., :w].contiguous() for x in (f, t, xp, yp))
+        rf, rt = ML.miller_step_dbl_plain(*args, mxu=True)
+        for down in (0, 1):
+            fw, tw = torch.empty_like(args[0]), torch.empty_like(args[1])
+            lib.host_dbl(*map(ptr, args), ptr(fw), ptr(tw), w, down)
+            assert torch.equal(fw, rf) and torch.equal(tw, rt), (w, down)
+    bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32)
+    fo, to = torch.empty_like(f), torch.empty_like(t)
+    lib.host_add(*map(ptr, (f, t, q, xp, yp, bit, fo, to)), n)
+    rf, rt = ML.miller_step_add_plain(f, t, q, xp, yp, bit, mxu=True)
+    assert torch.equal(fo, rf) and torch.equal(to, rt)
 
 
 def test_mxu_wrapper_checks_its_operands():

@@ -9,9 +9,10 @@ card and no nvcc.
 csrc/mxu.cuh's warp-cooperative part (the two products on the FP64 tensor
 cores) is device-only; for host builds ``mxu_host.h`` below supplies the
 same two products, y[k] = sum_i C[k - i] x[i], by a loop per lane (and an
-empty shared-memory setup).  The rest of the MXU kernels (to13, the a * b
-columns, the carry passes, to15, the chains' control flow) runs on the host
-as it does on the card.
+empty shared-memory setup; a group kernel's slots are a local array).  The
+rest of the MXU kernels (to13, the a * b columns, the carry passes, to15,
+the chains' control flow, the group form's phases) runs on the host as it
+does on the card.
 """
 
 import ctypes
@@ -53,15 +54,15 @@ namespace lh {
 struct MxuCtx {
   int unused;
 };
-template <int W>
+template <int W, int ROWS = 64>
 struct MxuShared {
   int unused;
 };
-template <int W>
-inline MxuCtx mxu_setup(MxuShared<W>&) {
+template <int W, int ROWS>
+inline MxuCtx mxu_setup(MxuShared<W, ROWS>&) {
   return MxuCtx{0};
 }
-template <int RT, int NY>
+template <int RT, int NY, int ROWS = 64>
 inline void toeplitz_dot(int which, const uint32_t* x, uint32_t (&y)[NY], const MxuCtx&) {
   const uint32_t* c = which == kMxuPPrime ? kPPrime13 : kP13;
   for (int k = 0; k < NY; ++k) {
@@ -72,6 +73,9 @@ inline void toeplitz_dot(int which, const uint32_t* x, uint32_t (&y)[NY], const 
   }
 }
 }  // namespace lh
+#define LH_MXU_GROUP_SHARED(W, ROWS, sm, type, name, words) \
+  lh::MxuShared<W, ROWS> sm;                                \
+  type name[words]
 """
 
 # Harness prefix: EACH_LANE(call) runs a kernel body for lanes 0..n-1.
