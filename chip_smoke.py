@@ -14,7 +14,7 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
    ptxas's registers, stack, spills and shared memory of the group forms of
-   kernels 1, 2, 3 (every G of ML.ADD_GROUPS) and 2m, the one-thread kernel
+   kernels 1, 2, 3 and 2m, the one-thread kernel
    3m, and the device functions the Miller steps call.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
@@ -24,8 +24,7 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    L - 1, L + 1, 31 and 33 lanes (G threads per lane, L lanes per block);
    the Miller steps and their MXU variants on live pairing steps (random
    addition bits), and the group forms of kernels 2, 3 and 2m also at 1 and
-   G + 1 lanes (G threads per lane), kernel 3 in every G of
-   ML.ADD_GROUPS at every width; the Fp chain
+   G + 1 lanes (G threads per lane); the Fp chain
    and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
    its MXU variant at (p^2+7)/16; one G1 and one G2 WSM step on live points
    with random bits and infinity flags on either side.
@@ -56,8 +55,7 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    (mont_groups), and in the kernels line at the most-launched width with
    the three heaviest beside; mont_mul_mxu at the same width on the mxu
    arm's operands; the chains at their arm's most-launched width; every
-   other kernel on its arm's operands, the Miller steps in every group form
-   printed (group_ms).
+   other kernel on its arm's operands.
 7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
    mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
@@ -66,7 +64,8 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    records), every kernel the card ran and the share of the wall time the
    card was busy (a verify whose kernel records fall short of its launches,
    as when the profiler loses records, is profiled again, up to
-   PROFILE_TRIES).
+   PROFILE_TRIES; if every try falls short, the busy time and share are
+   null: the lost records carry time).
 
 Then the kernels line, the nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -318,7 +317,7 @@ def main() -> int:
     group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
                                for g, lanes in MK.FORMS if g > 1) + ("mont_mul_kernel",),
                  "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel",
-                                 *(f"miller_step_add_g{g}_kernel" for g in ML.ADD_GROUPS),
+                                 f"miller_step_add_g{ML.ADD_GROUP}_kernel",
                                  "g_mul", "g_add", "g_sub"),
                  "miller_step_mxu": (f"miller_step_dbl_mxu_g{ML.DBL_MXU_GROUP}_kernel",
                                      "miller_step_add_mxu_kernel", "g_mul_mxu", "k_mul",
@@ -443,17 +442,15 @@ def main() -> int:
                   "equal": eq})
 
     # the Miller steps' group forms at 1 and G + 1 lanes (a ragged block of
-    # 32), every printed form of kernel 3 also at the check width
+    # 32)
     def cut(w, *planes):
         return tuple(x[..., :w].contiguous() for x in planes)
 
-    group_forms = [("miller_step_dbl", ML.DBL_GROUP, None, (f, tpt, xp, yp)),
-                   ("miller_step_dbl_mxu", ML.DBL_MXU_GROUP, None, (f, tpt, xp, yp))]
-    group_forms += [("miller_step_add", g, lambda *a, g=g: ML.launch_form("add", False, g, a),
-                     (f, tpt, q, xp, yp, bit)) for g in ML.ADD_GROUPS]
-    for name, g, kern, planes in group_forms:
-        widths = sorted({1, g + 1} | ({n} if kern else set()))
-        eqs = [hold(name, cut(w, *planes), kern)[0] for w in widths]
+    for name, g, planes in (("miller_step_dbl", ML.DBL_GROUP, (f, tpt, xp, yp)),
+                            ("miller_step_dbl_mxu", ML.DBL_MXU_GROUP, (f, tpt, xp, yp)),
+                            ("miller_step_add", ML.ADD_GROUP, (f, tpt, q, xp, yp, bit))):
+        widths = [1, g + 1]
+        eqs = [hold(name, cut(w, *planes))[0] for w in widths]
         emit({"phase": "kernel_check", "kernel": name, "group": g, "corpus": "pairing_steps",
               "widths": widths, "equal": all(eqs)})
 
@@ -694,14 +691,7 @@ def main() -> int:
                 record(name, args, source, f"pallas_miller.py:{line}",
                        (planes_in + 18) * plane * n_step + (4 * n_step if step == "add" else 0),
                        n_mul * imad, True, dmma_fmas=n_mul * X.DMMA_FMA_PER_LANE if sfx else 0,
-                       step=call)
-                group = ML.group_of(step, bool(sfx))
-                if group:
-                    # every printed group form of the step on the same operands
-                    forms = ML.ADD_GROUPS if name == "miller_step_add" else (group,)
-                    kernels[name].update(group=group, group_ms={
-                        g: time_ms(torch, lambda g=g: ML.launch_form(step, bool(sfx), g, args),
-                                   LONG_LAUNCHES, queue_first=True) for g in forms})
+                       step=call, group=ML.group_of(step, bool(sfx)))
             for field, line, planes in (("fp", 181, 2), ("fp2", 278, 4)):
                 name = f"{field}_chain{sfx}"
                 widths = path_widths[arm][name]
@@ -766,6 +756,8 @@ def main() -> int:
             records_each.append(prof["kernel_records"])
             if prof["kernel_records"] == prof["device_kernels"]:
                 break
+        else:  # every try lost records: no busy time is printed as measured
+            prof.update(device_busy_s=None, device_busy_share=None)
         emit({"phase": "profile", "arm": arm, "sets": N_SETS, "card": smi, **prof,
               "kernel_records_each": records_each})
         if prof["device_kernels"] != DEVICE_KERNELS[arm]:

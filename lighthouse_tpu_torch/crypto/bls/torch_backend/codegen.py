@@ -6,8 +6,7 @@
   programs of miller_kernel.py, one C statement per limb op, in the group
   form (``_kernel(..., group=G)``): G threads per lane run the program's
   products side by side, in rounds scheduled by ``group_schedule``, their
-  values in shared memory.  Kernel 3 is printed for every G of
-  ``miller_kernel.ADD_GROUPS``.
+  values in shared memory.
 * ``csrc/miller_step_mxu.cu``: their MXU variants, the same programs with
   every product on the 13-bit plane (kernel 7's core): the doubling step in
   the group form (``_kernel(..., mxu=True, group=G)``, one rank per warp),
@@ -182,8 +181,7 @@ __device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int la
 _HELPERS = _HEAD + _K_MUL + _GLUE
 
 _MILLER_HEAD = """// Both steps run in the group form: G = 16 threads per lane
-// (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP), and kernel 3 is
-// also printed at G = 8 (ADD_GROUPS) for comparison.  One thread per lane
+// (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP).  One thread per lane
 // ran a step's 169 (dbl) or 111 (add) products one after another, each a
 // 1,703-multiply chain of one thread, with one warp per SM at the Miller
 // loop's 4,097 lanes: the card waited on that thread's issue rate and
@@ -192,9 +190,9 @@ _MILLER_HEAD = """// Both steps run in the group form: G = 16 threads per lane
 // thread, the unchanged lh::mont_core, so the bytes are the same by
 // construction) and the linear ops between them dealt to the ranks, a
 // barrier after each phase.  The serial chain falls from 169 products to 11
-// rounds (dbl) and from 111 to 10 (add; 15 at G = 8), and the card gets G
-// times the warps.  The lane's values live in shared memory, 16 bits a
-// limb, in slots reassigned by the phase schedule (codegen.group_schedule).
+// rounds (dbl) and from 111 to 10 (add), and the card gets G times the
+// warps.  The lane's values live in shared memory, 16 bits a limb, in
+// slots reassigned by the phase schedule (codegen.group_schedule).
 // The addition step's bit is read by every thread; its selects are linear
 // ops like the others.
 //
@@ -218,8 +216,7 @@ _HEAD_MXU = """// Kernel 2m (the doubling step) runs in the group form of miller
 // form; the tail threads run lane n - 1 again and store nothing.  Each
 // warp stages its DMMA products in shared memory beside the block's slots:
 // the 64 rows of m * P in two passes of 32 (kMxuRows), so that 8 warps'
-// staging and the slots fit in one block (the kernel's header gives the
-// bytes).
+// staging and the slots fit in one block (its launcher asserts the bytes).
 //
 // Kernel 3m (the addition step) runs one thread per lane, one warp per
 // block.  Its intermediates live in the slot array s (registers spilling to
@@ -241,6 +238,7 @@ constexpr int kBlock = 32;  // kernel 3m: 4,097 lanes -> 129 blocks, one per SM
 """
 
 MXU_GROUP_ROWS = 32  # rows of C a group form's warp stages per pass (MxuShared)
+SHARED_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90 (227 KB)
 _HEAD_MXU += f"""constexpr int kMxuRows = {MXU_GROUP_ROWS};  // kernel 2m: rows of C staged per pass
 
 """
@@ -741,13 +739,6 @@ def _group_body(prog: MK.Program, sched: GroupSchedule, mxu: bool) -> list:
     return lines
 
 
-def mxu_staging_bytes(warps: int, rows: int) -> int:
-    """sizeof(lh::MxuShared<warps, rows>) (csrc/mxu.cuh): the two diagonal
-    tables, and each warp's 32-row B and ``rows``-row C staging of 40
-    words a row."""
-    return 2 * 64 * 8 + warps * (32 + rows) * 40 * 4
-
-
 def _group_kernel(prog: MK.Program, group: int, mxu: bool = False) -> str:
     """The group form of a step kernel: ``group`` threads per lane in
     rank-major blocks of 32 lanes (csrc/group.cuh), the program run in the
@@ -763,10 +754,8 @@ def _group_kernel(prog: MK.Program, group: int, mxu: bool = False) -> str:
     counts = sig["counts"] + (" on the 13-bit plane" if mxu else "")
     size = f"({shared:,} bytes of shared memory per block of 32 lanes)"
     if mxu:
-        staging = mxu_staging_bytes(group, MXU_GROUP_ROWS)
         size = (f"({shared:,} bytes of shared memory per block of 32 lanes, and\n"
-                f"// {staging:,} of DMMA staging for its {group} warps: "
-                f"{shared + staging:,} in all)")
+                f"// sizeof(lh::MxuShared<{group}, kMxuRows>) of DMMA staging for its {group} warps)")
         prologue = f"""  LH_MXU_GROUP_SHARED({group}, kMxuRows, mxu_sm, uint16_t, slots, {words});
   const lh::MxuCtx mx = lh::mxu_setup(mxu_sm);"""
         extra = f"static_cast<int>(sizeof(lh::MxuShared<{group}, kMxuRows>)) + "
@@ -790,6 +779,7 @@ static __global__ void __launch_bounds__({group} * lh::kGroupLanes)
 extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
                               void* stream) {{
   constexpr int kShared = {extra}{words} * 2 * lh::kGroupLanes;
+  static_assert(kShared <= {SHARED_LIMIT}, "one block's shared memory on sm_90");
   static const cudaError_t attr = cudaFuncSetAttribute(
       {name}_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -806,7 +796,7 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
 
 def miller_step_source() -> str:
     kernels = _kernel(MK.program("dbl"), group=MK.DBL_GROUP)
-    kernels += "".join(_kernel(MK.program("add"), group=g) for g in MK.ADD_GROUPS)
+    kernels += _kernel(MK.program("add"), group=MK.ADD_GROUP)
     return (HEADER + _MILLER_DOC + _MILLER_HEAD + _GROUP_HELPERS + _GROUP_MUL + _END_HELPERS
             + kernels)
 

@@ -545,8 +545,7 @@ def run_plain(prog: Program, bufs: dict, mxu: bool = False) -> dict:
 # -- wrappers -----------------------------------------------------------------
 
 DBL_GROUP = 16  # threads per lane of kernel 2's group form
-ADD_GROUPS = (8, 16)  # kernel 3's group forms in csrc/miller_step.cu (chip_smoke times each)
-ADD_GROUP = 16  # the one miller_step_add launches
+ADD_GROUP = 16  # kernel 3's (G = 8 ran slower on the card, G = 32 spills)
 DBL_MXU_GROUP = 8  # kernel 2m's: the most warps whose staging fits beside the slots
 
 dbl_launches = 0  # kernel launches (plain-version calls do not count)
@@ -580,12 +579,11 @@ def group_of(step: str, mxu: bool) -> int | None:
     return None if mxu else ADD_GROUP
 
 
-def launch_form(step: str, mxu: bool, group: int | None, args: tuple):
-    """Launch one printed form of the ``"dbl"`` or ``"add"`` step's kernel
-    (lh_miller_step_<step>[_mxu][_g<group>]) on the wrapper's checked CUDA
-    operands ``args``, on the current stream; returns (f', T').  Counts
-    nothing: the wrappers count their launches, and chip_smoke.py holds
-    and times every printed form (ADD_GROUPS) through this."""
+def _launch(step: str, mxu: bool, args: tuple):
+    """Launch the ``"dbl"`` or ``"add"`` step's kernel in its form
+    (lh_miller_step_<step>[_mxu][_g<G>], G from group_of) on the wrapper's
+    checked CUDA operands ``args``, on the current stream; returns (f', T')."""
+    group = group_of(step, mxu)
     name = f"lh_miller_step_{step}" + ("_mxu" if mxu else "") + (f"_g{group}" if group else "")
     if args[0].device.type != "cuda":
         raise ValueError(f"{name} launches on CUDA tensors only")
@@ -622,7 +620,7 @@ def miller_step_dbl(f, t, xp, yp, mxu: bool | None = None):
     mxu = F.mxu_active() if mxu is None else mxu
     if f.device.type == "cpu":
         return miller_step_dbl_plain(f, t, xp, yp, mxu)
-    out = launch_form("dbl", mxu, group_of("dbl", mxu), (f, t, xp, yp))
+    out = _launch("dbl", mxu, (f, t, xp, yp))
     global dbl_launches, dbl_mxu_launches
     if mxu:
         dbl_mxu_launches += 1
@@ -640,7 +638,7 @@ def miller_step_add(f, t, q, xp, yp, bit, mxu: bool | None = None):
     mxu = F.mxu_active() if mxu is None else mxu
     if f.device.type == "cpu":
         return miller_step_add_plain(f, t, q, xp, yp, bit, mxu)
-    out = launch_form("add", mxu, group_of("add", mxu), (f, t, q, xp, yp, bit))
+    out = _launch("add", mxu, (f, t, q, xp, yp, bit))
     global add_launches, add_mxu_launches
     if mxu:
         add_mxu_launches += 1

@@ -6,8 +6,7 @@
 // pallas_miller.py; the plain PyTorch version runs the same programs.
 //
 // Both steps run in the group form: G = 16 threads per lane
-// (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP), and kernel 3 is
-// also printed at G = 8 (ADD_GROUPS) for comparison.  One thread per lane
+// (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP).  One thread per lane
 // ran a step's 169 (dbl) or 111 (add) products one after another, each a
 // 1,703-multiply chain of one thread, with one warp per SM at the Miller
 // loop's 4,097 lanes: the card waited on that thread's issue rate and
@@ -16,9 +15,9 @@
 // thread, the unchanged lh::mont_core, so the bytes are the same by
 // construction) and the linear ops between them dealt to the ranks, a
 // barrier after each phase.  The serial chain falls from 169 products to 11
-// rounds (dbl) and from 111 to 10 (add; 15 at G = 8), and the card gets G
-// times the warps.  The lane's values live in shared memory, 16 bits a
-// limb, in slots reassigned by the phase schedule (codegen.group_schedule).
+// rounds (dbl) and from 111 to 10 (add), and the card gets G times the
+// warps.  The lane's values live in shared memory, 16 bits a limb, in
+// slots reassigned by the phase schedule (codegen.group_schedule).
 // The addition step's bit is read by every thread; its selects are linear
 // ops like the others.
 //
@@ -2042,6 +2041,7 @@ miller_step_dbl_g16_kernel(const uint32_t* __restrict__ f, const uint32_t* __res
 extern "C" int lh_miller_step_dbl_g16(const void* f, const void* t, const void* xp, const void* yp, void* f_out, void* t_out, int n,
                               void* stream) {
   constexpr int kShared = 2392 * 2 * lh::kGroupLanes;
+  static_assert(kShared <= 232448, "one block's shared memory on sm_90");
   static const cudaError_t attr = cudaFuncSetAttribute(
       miller_step_dbl_g16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -2049,1327 +2049,6 @@ extern "C" int lh_miller_step_dbl_g16(const void* f, const void* t, const void* 
     miller_step_dbl_g16_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 16 * lh::kGroupLanes,
                           kShared, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(t), static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp),
-        static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// miller_step_add_g8: 353 limb ops, 111 Montgomery products;
-// 8 threads per lane, 15 rounds of products in 59 phases, 92 slots
-// (153,088 bytes of shared memory per block of 32 lanes).
-static __global__ void __launch_bounds__(8 * lh::kGroupLanes)
-miller_step_add_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ q, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, const int32_t* __restrict__ bit, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
-  LH_GROUP_SHARED(uint16_t, slots, 2392);
-  const int gl = lh::group_lane();
-  const bool live = gl < n;
-  const int lane = live ? gl : n - 1;
-  uint16_t* const s = slots + lh::group_slot();
-  const bool take = bit[lane] != 0;
-  // phase 1: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 0, t, 4, n, lane);
-      break;
-    case 1:
-      g_load(s, 1, t, 5, n, lane);
-      break;
-    default:
-      break;
-  })
-  // phase 2: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 2, 0, 1, 1);  // k=4
-      break;
-    case 1:
-      g_add(s, 3, 0, 1);
-      break;
-    default:
-      break;
-  })
-  // phase 3: round 1 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 4, 2, 3);
-      break;
-    case 1:
-      g_mul(s, 5, 0, 1);
-      break;
-    default:
-      break;
-  })
-  // phase 4: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 2, q, 0, n, lane);
-      break;
-    case 1:
-      g_load(s, 3, q, 1, n, lane);
-      break;
-    case 2:
-      g_add(s, 6, 5, 5);
-      break;
-    case 3:
-      g_add(s, 7, 0, 1);
-      break;
-    default:
-      break;
-  })
-  // phase 5: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 5, 4, 6);
-      break;
-    case 1:
-      g_add(s, 8, 2, 3);
-      break;
-    case 2:
-      g_add(s, 9, 4, 6);
-      break;
-    default:
-      break;
-  })
-  // phase 6: round 2 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 10, 4, 0);
-      break;
-    case 1:
-      g_mul(s, 11, 6, 1);
-      break;
-    case 2:
-      g_mul(s, 12, 5, 7);
-      break;
-    case 3:
-      g_mul(s, 13, 2, 4);
-      break;
-    case 4:
-      g_mul(s, 14, 3, 6);
-      break;
-    case 5:
-      g_mul(s, 15, 8, 9);
-      break;
-    default:
-      break;
-  })
-  // phase 7: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 4, t, 0, n, lane);
-      g_add(s, 18, 0, 1);
-      break;
-    case 1:
-      g_load(s, 5, t, 1, n, lane);
-      break;
-    case 2:
-      g_load(s, 6, q, 2, n, lane);
-      break;
-    case 3:
-      g_load(s, 7, q, 3, n, lane);
-      break;
-    case 4:
-      g_sub(s, 8, 10, 11, 0);  // k=2
-      break;
-    case 5:
-      g_add(s, 9, 10, 11);
-      break;
-    case 6:
-      g_sub(s, 16, 13, 14, 0);  // k=2
-      break;
-    case 7:
-      g_add(s, 17, 13, 14);
-      break;
-    default:
-      break;
-  })
-  // phase 8: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 10, 12, 9, 1);  // k=4
-      break;
-    case 1:
-      g_sub(s, 11, 15, 17, 1);  // k=4
-      break;
-    case 2:
-      g_sub(s, 13, 16, 4, 1);  // k=4
-      break;
-    case 3:
-      g_add(s, 14, 6, 7);
-      break;
-    default:
-      break;
-  })
-  // phase 9: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 9, 11, 5, 1);  // k=4
-      break;
-    case 1:
-      g_add(s, 12, 8, 10);
-      break;
-    default:
-      break;
-  })
-  // phase 10: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 11, 13, 9);
-      break;
-    case 1:
-      g_sub(s, 15, 13, 9, 3);  // k=16
-      break;
-    case 2:
-      g_add(s, 16, 13, 9);
-      break;
-    default:
-      break;
-  })
-  // phase 11: round 3 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 17, 6, 8);
-      break;
-    case 1:
-      g_mul(s, 19, 7, 10);
-      break;
-    case 2:
-      g_mul(s, 20, 14, 12);
-      break;
-    case 3:
-      g_mul(s, 21, 0, 13);
-      break;
-    case 4:
-      g_mul(s, 22, 1, 9);
-      break;
-    case 5:
-      g_mul(s, 23, 18, 11);
-      break;
-    case 6:
-      g_mul(s, 24, 15, 16);
-      break;
-    case 7:
-      g_mul(s, 25, 13, 9);
-      break;
-    default:
-      break;
-  })
-  // phase 12: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 8, t, 2, n, lane);
-      break;
-    case 1:
-      g_load(s, 10, t, 3, n, lane);
-      break;
-    case 2:
-      g_sub(s, 11, 17, 19, 0);  // k=2
-      break;
-    case 3:
-      g_add(s, 12, 17, 19);
-      break;
-    case 4:
-      g_sub(s, 14, 21, 22, 0);  // k=2
-      break;
-    case 5:
-      g_add(s, 15, 21, 22);
-      break;
-    case 6:
-      g_add(s, 16, 2, 3);
-      break;
-    case 7:
-      g_add(s, 18, 6, 7);
-      break;
-    default:
-      break;
-  })
-  // phase 13: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 17, 20, 12, 1);  // k=4
-      break;
-    case 1:
-      g_sub(s, 19, 23, 15, 1);  // k=4
-      break;
-    case 2:
-      g_sub(s, 21, 11, 8, 1);  // k=4
-      break;
-    default:
-      break;
-  })
-  // phase 14: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 11, 17, 10, 1);  // k=4
-      break;
-    case 1:
-      g_add(s, 12, 14, 19);
-      break;
-    default:
-      break;
-  })
-  // phase 15: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 17, 21, 11);
-      break;
-    case 1:
-      g_sub(s, 15, 21, 11, 3);  // k=16
-      break;
-    case 2:
-      g_add(s, 20, 21, 11);
-      break;
-    default:
-      break;
-  })
-  // phase 16: round 4 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 23, 21, 2);
-      break;
-    case 1:
-      g_mul(s, 22, 11, 3);
-      break;
-    case 2:
-      g_mul(s, 26, 17, 16);
-      break;
-    case 3:
-      g_mul(s, 27, 6, 14);
-      break;
-    case 4:
-      g_mul(s, 28, 7, 19);
-      break;
-    case 5:
-      g_mul(s, 29, 18, 12);
-      break;
-    case 6:
-      g_mul(s, 30, 15, 20);
-      break;
-    case 7:
-      g_mul(s, 31, 21, 11);
-      break;
-    default:
-      break;
-  })
-  // phase 17: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 2, xp, 0, n, lane);
-      break;
-    case 1:
-      g_add(s, 3, 25, 25);
-      break;
-    case 2:
-      g_add(s, 6, 13, 9);
-      break;
-    case 3:
-      g_add(s, 7, 4, 5);
-      break;
-    case 4:
-      g_neg(s, 12, 21, 2);  // k=8
-      break;
-    case 5:
-      g_neg(s, 15, 11, 3);  // k=16
-      break;
-    default:
-      break;
-  })
-  // phase 18: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 25, 24, 3);
-      break;
-    case 1:
-      g_add(s, 16, 24, 3);
-      break;
-    default:
-      break;
-  })
-  // phase 19: round 5 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 17, 13, 24);
-      break;
-    case 1:
-      g_mul(s, 18, 9, 3);
-      break;
-    case 2:
-      g_mul(s, 20, 6, 25);
-      break;
-    case 3:
-      g_mul(s, 32, 4, 24);
-      break;
-    case 4:
-      g_mul(s, 33, 5, 3);
-      break;
-    case 5:
-      g_mul(s, 34, 7, 16);
-      break;
-    case 6:
-      g_mul(s, 35, 12, 2);
-      break;
-    case 7:
-      g_mul(s, 36, 15, 2);
-      break;
-    default:
-      break;
-  })
-  // phase 20: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_one(s, 2);
-      g_add(s, 16, 17, 18);
-      break;
-    case 1:
-      g_load(s, 3, yp, 0, n, lane);
-      g_sub(s, 24, 32, 33, 0);  // k=2
-      break;
-    case 2:
-      g_sub(s, 6, 23, 22, 0);  // k=2
-      g_add(s, 25, 32, 33);
-      break;
-    case 3:
-      g_add(s, 7, 23, 22);
-      break;
-    case 4:
-      g_sub(s, 9, 27, 28, 0);  // k=2
-      break;
-    case 5:
-      g_add(s, 12, 27, 28);
-      break;
-    case 6:
-      g_add(s, 13, 31, 31);
-      break;
-    case 7:
-      g_sub(s, 15, 17, 18, 0);  // k=2
-      break;
-    default:
-      break;
-  })
-  // phase 21: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 17, 26, 7, 1);  // k=4
-      break;
-    case 1:
-      g_sub(s, 18, 29, 12, 1);  // k=4
-      break;
-    case 2:
-      g_sub(s, 22, 20, 16, 1);  // k=4
-      break;
-    case 3:
-      g_sub(s, 23, 34, 25, 1);  // k=4
-      break;
-    case 4:
-      g_sub(s, 27, 6, 9, 1);  // k=4
-      break;
-    case 5:
-      g_sub(s, 28, 30, 15, 1);  // k=4
-      break;
-    case 6:
-      g_add(s, 31, 24, 24);
-      break;
-    default:
-      break;
-  })
-  // phase 22: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 6, 17, 18, 2);  // k=8
-      break;
-    case 1:
-      g_sub(s, 7, 13, 22, 2);  // k=8
-      break;
-    case 2:
-      g_add(s, 9, 23, 23);
-      break;
-    case 3:
-      g_sub(s, 12, 28, 31, 2);  // k=8
-      break;
-    default:
-      break;
-  })
-  // phase 23: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 13, 7, 9, 3);  // k=16
-      break;
-    case 1:
-      g_sub(s, 17, 24, 12, 3);  // k=16
-      break;
-    default:
-      break;
-  })
-  // phase 24: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 7, 23, 13, 4);  // k=32
-      break;
-    default:
-      break;
-  })
-  // phase 25: round 6 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 23, 17, 2);
-      break;
-    case 1:
-      g_mul(s, 9, 7, 2);
-      break;
-    case 2:
-      g_mul(s, 24, 14, 3);
-      break;
-    case 3:
-      g_mul(s, 18, 19, 3);
-      break;
-    case 4:
-      g_mul(s, 28, 27, 2);
-      break;
-    case 5:
-      g_mul(s, 31, 6, 2);
-      break;
-    case 6:
-      g_mul(s, 16, 35, 2);
-      break;
-    case 7:
-      g_mul(s, 20, 36, 2);
-      break;
-    default:
-      break;
-  })
-  // phase 26: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 3, 21, 11);
-      break;
-    case 1:
-      g_add(s, 6, 23, 9);
-      break;
-    case 2:
-      g_add(s, 7, 8, 10);
-      break;
-    case 3:
-      g_add(s, 17, 15, 22);
-      break;
-    default:
-      break;
-  })
-  // phase 27: round 7 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 27, 21, 23);
-      break;
-    case 1:
-      g_mul(s, 35, 11, 9);
-      break;
-    case 2:
-      g_mul(s, 36, 3, 6);
-      break;
-    case 3:
-      g_mul(s, 25, 8, 15);
-      break;
-    case 4:
-      g_mul(s, 26, 10, 22);
-      break;
-    case 5:
-      g_mul(s, 29, 7, 17);
-      break;
-    case 6:
-      g_mul(s, 30, 24, 2);
-      break;
-    case 7:
-      g_mul(s, 34, 18, 2);
-      break;
-    default:
-      break;
-  })
-  // phase 28: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 3, f, 0, n, lane);
-      break;
-    case 1:
-      g_load(s, 6, f, 1, n, lane);
-      break;
-    case 2:
-      g_load(s, 7, f, 4, n, lane);
-      break;
-    case 3:
-      g_load(s, 9, f, 5, n, lane);
-      break;
-    case 4:
-      g_add(s, 11, 28, 31);
-      break;
-    case 5:
-      g_add(s, 15, 16, 20);
-      break;
-    default:
-      break;
-  })
-  // phase 29: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 17, 3, 6);
-      break;
-    case 1:
-      g_add(s, 18, 7, 9);
-      break;
-    default:
-      break;
-  })
-  // phase 30: round 8 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 21, 3, 28);
-      break;
-    case 1:
-      g_mul(s, 22, 6, 31);
-      break;
-    case 2:
-      g_mul(s, 23, 17, 11);
-      break;
-    case 3:
-      g_mul(s, 24, 7, 16);
-      break;
-    case 4:
-      g_mul(s, 32, 9, 20);
-      break;
-    case 5:
-      g_mul(s, 33, 18, 15);
-      break;
-    case 6:
-      g_mul(s, 37, 3, 16);
-      break;
-    case 7:
-      g_mul(s, 38, 6, 20);
-      break;
-    default:
-      break;
-  })
-  // phase 31: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 11, f, 2, n, lane);
-      break;
-    case 1:
-      g_load(s, 15, f, 3, n, lane);
-      break;
-    case 2:
-      g_add(s, 17, 3, 6);
-      break;
-    case 3:
-      g_add(s, 18, 16, 20);
-      break;
-    case 4:
-      g_add(s, 39, 28, 31);
-      break;
-    case 5:
-      g_add(s, 40, 16, 20);
-      break;
-    default:
-      break;
-  })
-  // phase 32: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 41, 11, 15);
-      break;
-    case 1:
-      g_add(s, 42, 11, 15);
-      break;
-    default:
-      break;
-  })
-  // phase 33: round 9 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 43, 17, 18);
-      break;
-    case 1:
-      g_mul(s, 44, 11, 28);
-      break;
-    case 2:
-      g_mul(s, 45, 15, 31);
-      break;
-    case 3:
-      g_mul(s, 46, 41, 39);
-      break;
-    case 4:
-      g_mul(s, 47, 11, 16);
-      break;
-    case 5:
-      g_mul(s, 48, 15, 20);
-      break;
-    case 6:
-      g_mul(s, 49, 42, 40);
-      break;
-    case 7:
-      g_mul(s, 50, 7, 28);
-      break;
-    default:
-      break;
-  })
-  // phase 34: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 17, f, 6, n, lane);
-      break;
-    case 1:
-      g_load(s, 18, f, 7, n, lane);
-      break;
-    case 2:
-      g_load(s, 39, f, 10, n, lane);
-      break;
-    case 3:
-      g_load(s, 40, f, 11, n, lane);
-      break;
-    case 4:
-      g_add(s, 41, 7, 9);
-      break;
-    case 5:
-      g_add(s, 42, 28, 31);
-      break;
-    case 6:
-      g_add(s, 51, 30, 34);
-      break;
-    case 7:
-      g_add(s, 52, 30, 34);
-      break;
-    default:
-      break;
-  })
-  // phase 35: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 53, 39, 40);
-      break;
-    case 1:
-      g_add(s, 54, 17, 18);
-      break;
-    default:
-      break;
-  })
-  // phase 36: round 10 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 55, 9, 31);
-      break;
-    case 1:
-      g_mul(s, 56, 41, 42);
-      break;
-    case 2:
-      g_mul(s, 57, 39, 30);
-      break;
-    case 3:
-      g_mul(s, 58, 40, 34);
-      break;
-    case 4:
-      g_mul(s, 59, 53, 51);
-      break;
-    case 5:
-      g_mul(s, 60, 17, 30);
-      break;
-    case 6:
-      g_mul(s, 61, 18, 34);
-      break;
-    case 7:
-      g_mul(s, 62, 54, 52);
-      break;
-    default:
-      break;
-  })
-  // phase 37: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_load(s, 41, f, 8, n, lane);
-      g_add(s, 65, 30, 34);
-      break;
-    case 1:
-      g_load(s, 42, f, 9, n, lane);
-      g_add(s, 66, 28, 31);
-      break;
-    case 2:
-      g_add(s, 51, 3, 17);
-      break;
-    case 3:
-      g_add(s, 52, 6, 18);
-      break;
-    case 4:
-      g_add(s, 53, 7, 39);
-      break;
-    case 5:
-      g_add(s, 54, 9, 40);
-      break;
-    case 6:
-      g_add(s, 63, 16, 30);
-      break;
-    case 7:
-      g_add(s, 64, 20, 34);
-      break;
-    default:
-      break;
-  })
-  // phase 38: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 16, 41, 42);
-      break;
-    case 1:
-      g_add(s, 20, 51, 52);
-      break;
-    default:
-      break;
-  })
-  // phase 39: round 11 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 67, 41, 30);
-      break;
-    case 1:
-      g_mul(s, 68, 42, 34);
-      break;
-    case 2:
-      g_mul(s, 69, 16, 65);
-      break;
-    case 3:
-      g_mul(s, 70, 51, 28);
-      break;
-    case 4:
-      g_mul(s, 71, 52, 31);
-      break;
-    case 5:
-      g_mul(s, 72, 20, 66);
-      break;
-    case 6:
-      g_mul(s, 73, 53, 63);
-      break;
-    case 7:
-      g_mul(s, 74, 54, 64);
-      break;
-    default:
-      break;
-  })
-  // phase 40: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 16, 11, 41);
-      break;
-    case 1:
-      g_add(s, 20, 15, 42);
-      break;
-    case 2:
-      g_add(s, 30, 53, 54);
-      break;
-    case 3:
-      g_add(s, 34, 63, 64);
-      break;
-    case 4:
-      g_add(s, 65, 51, 52);
-      break;
-    case 5:
-      g_add(s, 66, 63, 64);
-      break;
-    case 6:
-      g_add(s, 75, 28, 31);
-      break;
-    default:
-      break;
-  })
-  // phase 41: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 76, 16, 20);
-      break;
-    default:
-      break;
-  })
-  // phase 42: round 12 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 77, 30, 34);
-      break;
-    case 1:
-      g_mul(s, 78, 51, 63);
-      break;
-    case 2:
-      g_mul(s, 79, 52, 64);
-      break;
-    case 3:
-      g_mul(s, 80, 65, 66);
-      break;
-    case 4:
-      g_mul(s, 81, 16, 28);
-      break;
-    case 5:
-      g_mul(s, 82, 20, 31);
-      break;
-    case 6:
-      g_mul(s, 83, 76, 75);
-      break;
-    case 7:
-      g_mul(s, 84, 16, 63);
-      break;
-    default:
-      break;
-  })
-  // phase 43: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 30, 27, 35, 0);  // k=2
-      break;
-    case 1:
-      g_sub(s, 34, 25, 26, 0);  // k=2
-      break;
-    case 2:
-      g_add(s, 51, 16, 20);
-      break;
-    case 3:
-      g_add(s, 52, 63, 64);
-      break;
-    case 4:
-      g_add(s, 65, 53, 54);
-      break;
-    case 5:
-      g_add(s, 66, 28, 31);
-      break;
-    default:
-      break;
-  })
-  // phase 44: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 16, 30, 34, 1);  // k=4
-      break;
-    default:
-      break;
-  })
-  // phase 45: round 13 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 30, 12, 2);
-      break;
-    case 1:
-      g_mul(s, 34, 13, 2);
-      break;
-    case 2:
-      g_mul(s, 63, 16, 2);
-      break;
-    case 3:
-      g_mul(s, 75, 20, 64);
-      break;
-    case 4:
-      g_mul(s, 76, 51, 52);
-      break;
-    case 5:
-      g_mul(s, 85, 53, 28);
-      break;
-    case 6:
-      g_mul(s, 86, 54, 31);
-      break;
-    case 7:
-      g_mul(s, 87, 65, 66);
-      break;
-    default:
-      break;
-  })
-  // phase 46: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 12, 27, 35);
-      g_sub(s, 53, 44, 45, 0);  // k=2
-      g_add(s, 91, 67, 68);
-      break;
-    case 1:
-      g_add(s, 13, 25, 26);
-      g_add(s, 54, 44, 45);
-      break;
-    case 2:
-      g_sub(s, 16, 21, 22, 0);  // k=2
-      g_sub(s, 64, 47, 48, 0);  // k=2
-      break;
-    case 3:
-      g_add(s, 20, 21, 22);
-      g_sub(s, 65, 50, 55, 0);  // k=2
-      break;
-    case 4:
-      g_sub(s, 28, 24, 32, 0);  // k=2
-      g_sub(s, 66, 57, 58, 0);  // k=2
-      break;
-    case 5:
-      g_add(s, 31, 24, 32);
-      g_add(s, 88, 57, 58);
-      break;
-    case 6:
-      g_sub(s, 51, 37, 38, 0);  // k=2
-      g_sub(s, 89, 60, 61, 0);  // k=2
-      break;
-    case 7:
-      g_add(s, 52, 37, 38);
-      g_sub(s, 90, 67, 68, 0);  // k=2
-      break;
-    default:
-      break;
-  })
-  // phase 47: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 21, 36, 12, 1);  // k=4
-      g_add(s, 37, 51, 53);
-      break;
-    case 1:
-      g_sub(s, 22, 29, 13, 1);  // k=4
-      g_add(s, 38, 64, 65);
-      break;
-    case 2:
-      g_sub(s, 24, 23, 20, 1);  // k=4
-      break;
-    case 3:
-      g_sub(s, 25, 33, 31, 1);  // k=4
-      break;
-    case 4:
-      g_sub(s, 26, 43, 52, 1);  // k=4
-      break;
-    case 5:
-      g_sub(s, 27, 46, 54, 1);  // k=4
-      break;
-    case 6:
-      g_sub(s, 32, 59, 88, 1);  // k=4
-      break;
-    case 7:
-      g_sub(s, 35, 69, 91, 1);  // k=4
-      break;
-    default:
-      break;
-  })
-  // phase 48: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 12, 21, 22, 2);  // k=8
-      g_add(s, 43, 38, 89);
-      break;
-    case 1:
-      g_sub(s, 13, 28, 25, 2);  // k=8
-      break;
-    case 2:
-      g_add(s, 20, 28, 25);
-      break;
-    case 3:
-      g_add(s, 23, 26, 27);
-      break;
-    case 4:
-      g_sub(s, 29, 66, 32, 2);  // k=8
-      break;
-    case 5:
-      g_add(s, 31, 66, 32);
-      break;
-    case 6:
-      g_sub(s, 33, 90, 35, 2);  // k=8
-      break;
-    case 7:
-      g_add(s, 36, 90, 35);
-      break;
-    default:
-      break;
-  })
-  // phase 49: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 21, 16, 13);
-      break;
-    case 1:
-      g_add(s, 22, 24, 20);
-      break;
-    case 2:
-      g_add(s, 25, 37, 29);
-      break;
-    case 3:
-      g_add(s, 26, 23, 31);
-      break;
-    default:
-      break;
-  })
-  // phase 50: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 13, 21, 33);
-      break;
-    case 1:
-      g_add(s, 16, 22, 36);
-      break;
-    default:
-      break;
-  })
-  // phase 51: round 14 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 33, 12, 2);
-      break;
-    case 1:
-      g_mul(s, 36, 14, 2);
-      break;
-    case 2:
-      g_mul(s, 20, 19, 2);
-      break;
-    case 3:
-      g_mul(s, 24, 13, 2);
-      break;
-    case 4:
-      g_mul(s, 27, 16, 2);
-      break;
-    case 5:
-      g_mul(s, 28, 25, 2);
-      break;
-    case 6:
-      g_mul(s, 32, 26, 2);
-      break;
-    case 7:
-      g_mul(s, 66, 43, 2);
-      break;
-    default:
-      break;
-  })
-  // phase 52: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 12, 47, 48);
-      g_add(s, 46, 78, 79);
-      break;
-    case 1:
-      g_add(s, 13, 50, 55);
-      g_sub(s, 51, 81, 82, 0);  // k=2
-      break;
-    case 2:
-      g_add(s, 14, 60, 61);
-      g_add(s, 52, 81, 82);
-      break;
-    case 3:
-      g_sub(s, 16, 70, 71, 0);  // k=2
-      g_sub(s, 53, 84, 75, 0);  // k=2
-      break;
-    case 4:
-      g_add(s, 19, 70, 71);
-      g_add(s, 54, 84, 75);
-      break;
-    case 5:
-      g_sub(s, 25, 73, 74, 0);  // k=2
-      g_sub(s, 59, 85, 86, 0);  // k=2
-      break;
-    case 6:
-      g_add(s, 26, 73, 74);
-      g_add(s, 64, 85, 86);
-      break;
-    case 7:
-      g_sub(s, 43, 78, 79, 0);  // k=2
-      break;
-    default:
-      break;
-  })
-  // phase 53: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 47, 49, 12, 1);  // k=4
-      g_sub(s, 73, 87, 64, 1);  // k=4
-      break;
-    case 1:
-      g_sub(s, 48, 56, 13, 1);  // k=4
-      g_add(s, 74, 43, 51);
-      break;
-    case 2:
-      g_sub(s, 50, 62, 14, 1);  // k=4
-      g_add(s, 75, 53, 59);
-      break;
-    case 3:
-      g_sub(s, 55, 72, 19, 1);  // k=4
-      break;
-    case 4:
-      g_sub(s, 60, 77, 26, 1);  // k=4
-      break;
-    case 5:
-      g_sub(s, 61, 80, 46, 1);  // k=4
-      break;
-    case 6:
-      g_sub(s, 70, 83, 52, 1);  // k=4
-      break;
-    case 7:
-      g_sub(s, 71, 76, 54, 1);  // k=4
-      break;
-    default:
-      break;
-  })
-  // phase 54: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 12, 47, 48);
-      break;
-    case 1:
-      g_sub(s, 13, 25, 60, 2);  // k=8
-      break;
-    case 2:
-      g_add(s, 14, 25, 60);
-      break;
-    case 3:
-      g_add(s, 19, 61, 70);
-      break;
-    case 4:
-      g_add(s, 26, 71, 73);
-      break;
-    case 5:
-      g_sub(s, 43, 74, 37, 2);  // k=8
-      break;
-    case 6:
-      g_sub(s, 46, 75, 38, 2);  // k=8
-      break;
-    default:
-      break;
-  })
-  // phase 55: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_add(s, 25, 16, 13);
-      break;
-    case 1:
-      g_add(s, 37, 55, 14);
-      break;
-    case 2:
-      g_add(s, 38, 12, 50);
-      break;
-    case 3:
-      g_sub(s, 47, 19, 23, 3);  // k=16
-      break;
-    case 4:
-      g_sub(s, 48, 26, 12, 3);  // k=16
-      break;
-    case 5:
-      g_sub(s, 60, 43, 89, 1);  // k=4
-      break;
-    case 6:
-      g_sub(s, 61, 46, 90, 1);  // k=4
-      break;
-    default:
-      break;
-  })
-  // phase 56: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 12, 25, 21, 3);  // k=16
-      break;
-    case 1:
-      g_sub(s, 13, 37, 22, 3);  // k=16
-      break;
-    case 2:
-      g_sub(s, 14, 47, 50, 2);  // k=8
-      break;
-    case 3:
-      g_sub(s, 16, 48, 35, 2);  // k=8
-      break;
-    default:
-      break;
-  })
-  // phase 57: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sub(s, 21, 12, 29, 3);  // k=16
-      break;
-    case 1:
-      g_sub(s, 22, 13, 31, 3);  // k=16
-      break;
-    default:
-      break;
-  })
-  // phase 58: round 15 of products
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_mul(s, 12, 38, 2);
-      break;
-    case 1:
-      g_mul(s, 13, 21, 2);
-      break;
-    case 2:
-      g_mul(s, 29, 22, 2);
-      break;
-    case 3:
-      g_mul(s, 31, 60, 2);
-      break;
-    case 4:
-      g_mul(s, 25, 14, 2);
-      break;
-    case 5:
-      g_mul(s, 35, 61, 2);
-      break;
-    case 6:
-      g_mul(s, 37, 16, 2);
-      break;
-    default:
-      break;
-  })
-  // phase 59: linear ops
-  LH_RANKS(8, switch (r) {
-    case 0:
-      g_sel(s, 2, take, 24, 3);
-      if (live) g_store(f_out, 0, n, lane, s, 2);
-      g_sel(s, 47, take, 31, 41);
-      if (live) g_store(f_out, 8, n, lane, s, 47);
-      g_sel(s, 55, take, 36, 0);
-      if (live) g_store(t_out, 4, n, lane, s, 55);
-      break;
-    case 1:
-      g_sel(s, 14, take, 27, 6);
-      if (live) g_store(f_out, 1, n, lane, s, 14);
-      g_sel(s, 48, take, 25, 42);
-      if (live) g_store(f_out, 9, n, lane, s, 48);
-      g_sel(s, 89, take, 20, 1);
-      if (live) g_store(t_out, 5, n, lane, s, 89);
-      break;
-    case 2:
-      g_sel(s, 16, take, 28, 11);
-      if (live) g_store(f_out, 2, n, lane, s, 16);
-      g_sel(s, 50, take, 35, 39);
-      if (live) g_store(f_out, 10, n, lane, s, 50);
-      break;
-    case 3:
-      g_sel(s, 21, take, 32, 15);
-      if (live) g_store(f_out, 3, n, lane, s, 21);
-      g_sel(s, 19, take, 37, 40);
-      if (live) g_store(f_out, 11, n, lane, s, 19);
-      break;
-    case 4:
-      g_sel(s, 22, take, 66, 7);
-      if (live) g_store(f_out, 4, n, lane, s, 22);
-      g_sel(s, 23, take, 30, 4);
-      if (live) g_store(t_out, 0, n, lane, s, 23);
-      break;
-    case 5:
-      g_sel(s, 38, take, 12, 9);
-      if (live) g_store(f_out, 5, n, lane, s, 38);
-      g_sel(s, 26, take, 34, 5);
-      if (live) g_store(t_out, 1, n, lane, s, 26);
-      break;
-    case 6:
-      g_sel(s, 60, take, 13, 17);
-      if (live) g_store(f_out, 6, n, lane, s, 60);
-      g_sel(s, 43, take, 63, 8);
-      if (live) g_store(t_out, 2, n, lane, s, 43);
-      break;
-    case 7:
-      g_sel(s, 61, take, 29, 18);
-      if (live) g_store(f_out, 7, n, lane, s, 61);
-      g_sel(s, 46, take, 33, 10);
-      if (live) g_store(t_out, 3, n, lane, s, 46);
-      break;
-    default:
-      break;
-  })
-}
-
-extern "C" int lh_miller_step_add_g8(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
-                              void* stream) {
-  constexpr int kShared = 2392 * 2 * lh::kGroupLanes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      miller_step_add_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (n > 0) {
-    miller_step_add_g8_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 8 * lh::kGroupLanes,
-                          kShared, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(t), static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp), static_cast<const int32_t*>(bit),
         static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
   }
   return static_cast<int>(cudaGetLastError());
@@ -4648,6 +3327,7 @@ miller_step_add_g16_kernel(const uint32_t* __restrict__ f, const uint32_t* __res
 extern "C" int lh_miller_step_add_g16(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
                               void* stream) {
   constexpr int kShared = 2808 * 2 * lh::kGroupLanes;
+  static_assert(kShared <= 232448, "one block's shared memory on sm_90");
   static const cudaError_t attr = cudaFuncSetAttribute(
       miller_step_add_g16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);

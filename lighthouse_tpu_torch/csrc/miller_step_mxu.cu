@@ -14,8 +14,7 @@
 // form; the tail threads run lane n - 1 again and store nothing.  Each
 // warp stages its DMMA products in shared memory beside the block's slots:
 // the 64 rows of m * P in two passes of 32 (kMxuRows), so that 8 warps'
-// staging and the slots fit in one block (the kernel's header gives the
-// bytes).
+// staging and the slots fit in one block (its launcher asserts the bytes).
 //
 // Kernel 3m (the addition step) runs one thread per lane, one warp per
 // block.  Its intermediates live in the slot array s (registers spilling to
@@ -202,7 +201,7 @@ __device__ __noinline__ void g_mul_mxu(uint16_t* s, int o, int a, int b, const l
 // miller_step_dbl_mxu_g8: 565 limb ops, 169 Montgomery products on the 13-bit plane;
 // 8 threads per lane, 22 rounds of products in 88 phases, 78 slots
 // (129,792 bytes of shared memory per block of 32 lanes, and
-// 82,944 of DMMA staging for its 8 warps: 212,736 in all).
+// sizeof(lh::MxuShared<8, kMxuRows>) of DMMA staging for its 8 warps).
 static __global__ void __launch_bounds__(8 * lh::kGroupLanes)
 miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
   LH_MXU_GROUP_SHARED(8, kMxuRows, mxu_sm, uint16_t, slots, 2028);
@@ -2241,6 +2240,7 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
 extern "C" int lh_miller_step_dbl_mxu_g8(const void* f, const void* t, const void* xp, const void* yp, void* f_out, void* t_out, int n,
                               void* stream) {
   constexpr int kShared = static_cast<int>(sizeof(lh::MxuShared<8, kMxuRows>)) + 2028 * 2 * lh::kGroupLanes;
+  static_assert(kShared <= 232448, "one block's shared memory on sm_90");
   static const cudaError_t attr = cudaFuncSetAttribute(
       miller_step_dbl_mxu_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);

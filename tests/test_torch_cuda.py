@@ -7,9 +7,9 @@ so on a machine without jax run it as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 It covers all twelve entry points (mont_mul in every form of
-mont_kernel.FORMS, the Miller steps in every group form printed: kernel 2,
-kernel 3 at each G of ADD_GROUPS, kernel 2m): mont_mul, miller_step_dbl,
-miller_step_add, fp_chain, fp2_chain, wsm_step_g1 and wsm_step_g2, and the
+mont_kernel.FORMS, the Miller steps in their group forms: kernels 2, 3 and
+2m): mont_mul, miller_step_dbl, miller_step_add, fp_chain, fp2_chain,
+wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
 runs the same checks at the path's own widths and operands.
@@ -109,9 +109,9 @@ def test_cuda_mxu_kernels_match_plain_versions():
 @pytest.mark.cuda
 def test_cuda_group_forms_match_plain_versions():
     """Every form of kernel 1 (mont_kernel.FORMS) and the group forms of the
-    Miller steps (kernel 2; kernel 3 at every G of ADD_GROUPS, random bits;
-    kernel 2m), at widths that leave ragged tails in their blocks, and the
-    steps also at the Miller loop's 4,097 lanes."""
+    Miller steps (kernels 2, 3 with random bits, and 2m), at widths that
+    leave ragged tails in their blocks, and the steps also at the Miller
+    loop's 4,097 lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
     rng = random.Random(31)
@@ -135,11 +135,9 @@ def test_cuda_group_forms_match_plain_versions():
     steps = [("dbl", ML.DBL_GROUP, lambda *a: ML.miller_step_dbl(*a, mxu=False),
               ML.miller_step_dbl_plain, (f, t, xp, yp)),
              ("dbl_mxu", ML.DBL_MXU_GROUP, lambda *a: ML.miller_step_dbl(*a, mxu=True),
-              lambda *a: ML.miller_step_dbl_plain(*a, mxu=True), (f, t, xp, yp))]
-    steps += [(f"add_g{g}", g, lambda *a, g=g: ML.launch_form("add", False, g, a),
-               ML.miller_step_add_plain, (f, t, qq, xp, yp, bit)) for g in ML.ADD_GROUPS]
-    steps.append(("add", ML.ADD_GROUP, lambda *a: ML.miller_step_add(*a, mxu=False),
-                  ML.miller_step_add_plain, (f, t, qq, xp, yp, bit)))
+              lambda *a: ML.miller_step_dbl_plain(*a, mxu=True), (f, t, xp, yp)),
+             ("add", ML.ADD_GROUP, lambda *a: ML.miller_step_add(*a, mxu=False),
+              ML.miller_step_add_plain, (f, t, qq, xp, yp, bit))]
     for name, g, kern, plain, planes in steps:
         for w in (1, g + 1, n, wide):
             args = cut(w, *planes)

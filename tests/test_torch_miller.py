@@ -7,8 +7,8 @@
 * The committed CUDA sources are exactly what codegen.py prints.
 * The CUDA sources' arithmetic, compiled for the host with g++ and run lane
   by lane, gives the plain versions' limbs byte for byte: kernel 1 in every
-  form of MK.FORMS and kernels 2 and 3 in their group forms (kernel 3 in
-  every G of ML.ADD_GROUPS), each group's ranks run upwards and downwards
+  form of MK.FORMS and kernels 2 and 3 in their group forms, each group's
+  ranks run upwards and downwards
   within a phase (a rank that read another's write of the same phase would
   differ); the G1 WSM step printed in the group form too.
 * The group schedules of kernels 2 and 3 hand every value to a slot that
@@ -175,14 +175,13 @@ extern "C" void host_dbl(const uint32_t* f, const uint32_t* t, const uint32_t* x
   lh::host_ranks_down = down;
   EACH_LANE(miller_step_dbl_g16_kernel(f, t, xp, yp, fo, to, n))
 }
-""" + "".join(f"""
-extern "C" void host_add_g{g}(const uint32_t* f, const uint32_t* t, const uint32_t* q,
-                             const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
-                             uint32_t* fo, uint32_t* to, int n, int down) {{
+extern "C" void host_add(const uint32_t* f, const uint32_t* t, const uint32_t* q,
+                         const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
+                         uint32_t* fo, uint32_t* to, int n, int down) {
   lh::host_ranks_down = down;
-  EACH_LANE(miller_step_add_g{g}_kernel(f, t, q, xp, yp, bit, fo, to, n))
-}}
-""" for g in ML.ADD_GROUPS)
+  EACH_LANE(miller_step_add_g16_kernel(f, t, q, xp, yp, bit, fo, to, n))
+}
+"""
 
 
 @pytest.fixture(scope="module")
@@ -224,18 +223,16 @@ def test_host_compiled_mont_matches_plain(host_kernels):
 
 
 def test_host_compiled_steps_match_plain(host_kernels):
-    """Kernel 2's group form and every group form of kernel 3 (ML.ADD_GROUPS)
-    at 1 lane and at 17 (G + 1 for G = 16), random addition bits, ranks run
-    both ways."""
+    """The group forms of kernels 2 and 3 at 1 lane and at 17 (G + 1 for
+    G = 16), random addition bits, ranks run both ways."""
     rng = random.Random(22)
-    n = 1 + max(ML.DBL_GROUP, *ML.ADD_GROUPS)
+    n = 1 + max(ML.DBL_GROUP, ML.ADD_GROUP)
     f, t, q = _rand_planes(rng, 12, n), _rand_planes(rng, 6, n), _rand_planes(rng, 4, n)
     xp, yp = _rand_planes(rng, 1, n)[0], _rand_planes(rng, 1, n)[0]
     bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32)
     lib = host_kernels["miller_step"]
-    forms = [(ML.DBL_GROUP, lib.host_dbl, ML.miller_step_dbl_plain, (f, t, xp, yp))]
-    forms += [(g, getattr(lib, f"host_add_g{g}"), ML.miller_step_add_plain,
-               (f, t, q, xp, yp, bit)) for g in ML.ADD_GROUPS]
+    forms = [(ML.DBL_GROUP, lib.host_dbl, ML.miller_step_dbl_plain, (f, t, xp, yp)),
+             (ML.ADD_GROUP, lib.host_add, ML.miller_step_add_plain, (f, t, q, xp, yp, bit))]
     for g, kern, plain, operands in forms:
         for w in (1, n):
             args = tuple(x[..., :w].contiguous() for x in operands)
@@ -273,13 +270,15 @@ def _run_schedule(prog, sched):
     pytest.param("dbl", 8, False, id="8"),
     pytest.param("dbl", ML.DBL_GROUP, False, id=str(ML.DBL_GROUP)),
     pytest.param("dbl", ML.DBL_MXU_GROUP, True, id=f"dbl-mxu-{ML.DBL_MXU_GROUP}"),
-    *(pytest.param("add", g, False, id=f"add-{g}") for g in ML.ADD_GROUPS)])
+    pytest.param("add", 8, False, id="add-8"),
+    pytest.param("add", ML.ADD_GROUP, False, id=f"add-{ML.ADD_GROUP}")])
 def test_group_schedule_never_overwrites_a_live_slot(step, group, mxu):
     """The group schedules of kernels 2, 2m and 3 on the recorded programs
     (no compiler): each limb op runs once, after its operands, in a phase
     that does not write what it reads; a round holds at most one product
-    per rank; the outputs are stored from their own slots; the slots (and
-    the MXU form's DMMA staging) fit in one block's shared memory."""
+    per rank; the outputs are stored from their own slots; the slots fit in
+    one block's shared memory, and the printed launcher asserts that they
+    do with the MXU form's DMMA staging (nvcc checks it)."""
     prog = ML.program(step)
     sched = codegen.group_schedule(prog, group)
     order = _run_schedule(prog, sched)
@@ -296,8 +295,10 @@ def test_group_schedule_never_overwrites_a_live_slot(step, group, mxu):
     # the level-parallel bound: no more rounds than dealing each level alone
     levels = [len(item) for kind, item in prog.stages if kind in ML.PRODUCTS]
     assert sched.n_rounds <= sum(-(-c // group) for c in levels)
-    staging = codegen.mxu_staging_bytes(group, codegen.MXU_GROUP_ROWS) if mxu else 0
-    assert sched.n_slots * F.N * 2 * 32 + staging <= 232_448  # one block's shared memory
+    assert sched.n_slots * F.N * 2 * 32 <= codegen.SHARED_LIMIT
+    launcher = codegen._kernel(prog, mxu=mxu, group=group).split('extern "C"')[1]
+    assert f"static_assert(kShared <= {codegen.SHARED_LIMIT}," in launcher
+    assert ("sizeof(lh::MxuShared" in launcher.split("static_assert")[0]) == mxu
 
 
 def test_step_wrappers_check_operands():
