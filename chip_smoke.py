@@ -14,8 +14,8 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
    ptxas's registers, stack, spills and shared memory of the group forms of
-   kernels 1, 2, 3 and 2m, the one-thread kernel
-   3m, and the device functions the Miller steps call.
+   kernels 1, 2, 3, 2m, 4 and 5, the one-thread kernels 3m, 4m and 5m, and
+   the device functions the Miller steps call.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
@@ -26,8 +26,11 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    addition bits), and the group forms of kernels 2, 3 and 2m also at 1 and
    G + 1 lanes (G threads per lane); the Fp chain
    and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
-   its MXU variant at (p^2+7)/16; one G1 and one G2 WSM step on live points
-   with random bits and infinity flags on either side.
+   its MXU variant at (p^2+7)/16; the 15-bit chains (the Fp chain in every
+   form of chain_kernel.FP_FORMS, the Fp2 chain in FP2_FORM) also at 1, 2,
+   G + 1, L - 1, L + 1 and 257 lanes; one
+   G1 and one G2 WSM step on live points with random bits and infinity flags
+   on either side.
 4. reference: the device map-to-G2 on a few messages against the host
    hash_to_g2; the chains' outputs (both planes) on a few lanes against
    host pow and the oracle's Fp2.pow.
@@ -54,8 +57,11 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    the three widths with the most device time and at wider calls
    (mont_groups), and in the kernels line at the most-launched width with
    the three heaviest beside; mont_mul_mxu at the same width on the mxu
-   arm's operands; the chains at their arm's most-launched width; every
-   other kernel on its arm's operands.
+   arm's operands; the 15-bit chains at every width their arm launches, the
+   Fp chain in every form and also at CHAIN_SWEEP widths between them
+   (chain_forms, whose readings the kernels line reuses); the MXU chains at
+   their arm's most-launched width; every other kernel on its arm's
+   operands.
 7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
    mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
@@ -99,6 +105,9 @@ MONT_HEAVY = 3  # mont_mul widths of the default path timed: the most device tim
 # every form of kernel 1 is timed (where the one-thread form takes over)
 MONT_WIDE = (4, 16, 64)
 SWEEP_WINDOWS = 3  # timing windows per width in the mont_mul width sweep
+# Fp-chain widths between the path's 1 and 4,096 where every form is timed
+# (chain_kernel.form_for's crossover)
+CHAIN_SWEEP = (16, 128, 512, 1024, 1536, 2048, 3072)
 # launches per verify of 4,096 sets, by arm: the wrappers' counts in all, and
 # the device kernels of the profiled verify
 WRAPPER_LAUNCHES = {"default": 25_925, "arm": 7_465, "mxu": 7_465}
@@ -312,8 +321,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(built["seconds"], 3), "built": built["built"],
           "dir": str(_build.build_dir().relative_to(_build.PKG_ROOT.parent)),
           "ptxas": built["ptxas"]})
-    # the group forms of kernels 1, 2, 3 and 2m, kernel 3m, and the device
-    # functions the Miller steps call
+    # the group forms of kernels 1, 2, 3, 2m, 4 and 5, kernels 3m, 4m and 5m,
+    # and the device functions the Miller steps call
     group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
                                for g, lanes in MK.FORMS if g > 1) + ("mont_mul_kernel",),
                  "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel",
@@ -321,7 +330,10 @@ def main() -> int:
                                  "g_mul", "g_add", "g_sub"),
                  "miller_step_mxu": (f"miller_step_dbl_mxu_g{ML.DBL_MXU_GROUP}_kernel",
                                      "miller_step_add_mxu_kernel", "g_mul_mxu", "k_mul",
-                                     "g_add", "g_sub")}
+                                     "g_add", "g_sub"),
+                 "chain": tuple(f"fp_chain_group_kernelILi{lanes}E" for _, lanes in CK.FP_FORMS)
+                 + (f"fp2_chain_group_kernelILi{CK.FP2_FORM[1]}E",
+                    "fp_chain_mxu_kernel", "fp2_chain_mxu_kernel")}
     emit({"phase": "ptxas", **{lib: ptxas_report((_build.build_dir() / f"{lib}.log").read_text(),
                                                  names) for lib, names in group_fns.items()}})
 
@@ -467,6 +479,22 @@ def main() -> int:
         eq, fp2_out[sfx] = hold("fp2_chain" + sfx, (a.limbs, b.limbs, h2c.SQRT_EXP_BITS))
         emit({"phase": "kernel_check", "kernel": "fp2_chain" + sfx, "corpus": "strict", "n": n,
               "exponent": "(p^2+7)/16", "equal": eq})
+    # the 15-bit chains in each form at widths around its group size and its
+    # block (ragged tails)
+    def ragged(form):
+        g, lanes = form
+        return sorted({1, 2, g + 1, lanes - 1, lanes + 1, 257})
+
+    for form in CK.FP_FORMS:
+        eqs = [hold("fp_chain", (base[:, :w].contiguous(), F.P_INT - 2),
+                    lambda *x, f=form: [CK.pow_chain(*x, mxu=False, form=f)])[0]
+               for w in ragged(form) for base in (a.limbs, lazy.limbs)]
+        emit({"phase": "kernel_check", "kernel": "fp_chain", "form": form,
+              "corpora": ["strict", "lazy_bound4"], "widths": ragged(form), "equal": all(eqs)})
+    eqs = [hold("fp2_chain", (*cut(w, a.limbs, b.limbs), h2c.SQRT_EXP_BITS),
+                lambda *x: CK.fp2_pow_chain(*x, mxu=False))[0] for w in ragged(CK.FP2_FORM)]
+    emit({"phase": "kernel_check", "kernel": "fp2_chain", "form": CK.FP2_FORM,
+          "corpora": ["strict"], "widths": ragged(CK.FP2_FORM), "equal": all(eqs)})
 
     # One WSM step per curve on live points: the acc a reduced Jacobian
     # multiple of the generator, the base another lane's affine multiple;
@@ -622,15 +650,18 @@ def main() -> int:
         kernels = {}
 
         def record(name, args, source, replaces, bytes_moved, imads, long, dmma_fmas=0,
-                   **extra):
+                   ms=None, **extra):
+            """The kernels line's row of ``name`` on ``args``; ``ms`` is a
+            reading taken in this run on the same args, else timed here."""
             kern, plain = funcs[name]
             bms, by = bound_ms(bytes_moved, imads, dmma_fmas)
+            if ms is None:
+                ms = time_ms(torch, lambda: kern(*args),
+                             LONG_LAUNCHES if long else KERNEL_LAUNCHES, queue_first=True)
             kernels[name] = {
                 "route": "cuda", "source": f"lighthouse_tpu_torch/csrc/{source}",
                 "replaces": f"lighthouse_tpu/crypto/bls/jax_backend/{replaces}",
-                **checked[name], "n": args[0].shape[-1], **extra,
-                "ms": time_ms(torch, lambda: kern(*args),
-                              LONG_LAUNCHES if long else KERNEL_LAUNCHES, queue_first=True),
+                **checked[name], "n": args[0].shape[-1], **extra, "ms": ms,
                 "plain_ms": (time_ms(torch, lambda: plain(*args), 1, windows=3) if long
                              else time_ms(torch, lambda: plain(*args), PLAIN_LAUNCHES)),
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -677,6 +708,31 @@ def main() -> int:
         record("mont_mul_mxu", mxu_ops[n_mxu], "mxu.cu", "pallas_mxu.py:161",
                3 * plane * n_mxu, X.IMAD_PER_LANE * n_mxu, False,
                dmma_fmas=X.DMMA_FMA_PER_LANE * n_mxu)
+        # the 15-bit chains at every width the arm launches: the Fp chain in
+        # every form, there and at CHAIN_SWEEP widths cut from the arm's
+        # widest operands (where form_for's crossover is read); the Fp2
+        # chain in its one form
+        def form_key(form):
+            return "x".join(map(str, form))
+
+        fp_ops = dict(path_ops["arm"]["fp_chain"])
+        widest = fp_ops[max(fp_ops)]
+        for w in CHAIN_SWEEP:
+            if w < widest[0].shape[-1] and w not in fp_ops:
+                fp_ops[w] = (widest[0][:, :w].contiguous(), *widest[1:])
+        chain_ms = {"fp_chain": {
+            w: {form_key(f): time_ms(torch, lambda f=f, a=args: CK.pow_chain(*a, mxu=False, form=f),
+                                     LONG_LAUNCHES, queue_first=True) for f in CK.FP_FORMS}
+            for w, args in sorted(fp_ops.items())}}
+        chain_ms["fp2_chain"] = {
+            w: {form_key(CK.FP2_FORM): time_ms(
+                torch, lambda a=args: CK.fp2_pow_chain(*a, mxu=False), LONG_LAUNCHES,
+                queue_first=True)} for w, args in sorted(path_ops["arm"]["fp2_chain"].items())}
+        emit({"phase": "chain_forms", "card": smi, "ms": chain_ms,
+              "calls_by_width": {name: path_widths["arm"][name] for name in chain_ms},
+              "fastest": {w: min(t, key=t.get) for w, t in chain_ms["fp_chain"].items()},
+              "form_for": {w: CK.form_for(w) for w in chain_ms["fp_chain"]}})
+        del fp_ops, widest
         for arm, sfx, source in (("arm", "", "miller_step.cu"),
                                  ("mxu", "_mxu", "miller_step_mxu.cu")):
             ops = path_ops[arm]
@@ -700,11 +756,26 @@ def main() -> int:
                 bits = bin(args[1])[2:] if field == "fp" else "".join(map(str, args[2]))
                 nd = len(CK.window_digits(bits))
                 c = CK.products_per_lane(nd)[field]
-                record(name, args, "chain.cu", f"pallas_fp.py:{line}",
-                       planes * plane * n_ch + 4 * nd,
-                       CK.imads_per_lane(field, nd, bool(sfx)) * n_ch, True,
-                       dmma_fmas=(c["mul"] + c["sqr"]) * X.DMMA_FMA_PER_LANE * n_ch if sfx else 0,
-                       digits=nd)
+
+                def work(w, field=field, planes=planes, nd=nd, c=c, sfx=sfx):
+                    """(bytes, 32-bit multiplies, DMMA multiply-adds) of a w-lane call"""
+                    return (planes * plane * w + 4 * nd,
+                            CK.imads_per_lane(field, nd, bool(sfx)) * w,
+                            (c["mul"] + c["sqr"]) * X.DMMA_FMA_PER_LANE * w if sfx else 0)
+
+                def form(w, field=field):
+                    return CK.form_for(w) if field == "fp" else CK.FP2_FORM
+
+                extra = ({"group": 1, "form": (1, 32)} if sfx else
+                         {"group": form(n_ch)[0], "form": form(n_ch),
+                          "ms": chain_ms[name][n_ch][form_key(form(n_ch))],
+                          "by_width": [{"n": w, "calls": widths[w],
+                                        "ms": chain_ms[name][w][form_key(form(w))],
+                                        "bound_ms": bound_ms(*work(w))[0],
+                                        "form": form(w)} for w in sorted(widths)]})
+                nbytes, imads, fmas = work(n_ch)
+                record(name, args, "chain.cu", f"pallas_fp.py:{line}", nbytes, imads, True,
+                       dmma_fmas=fmas, digits=nd, **extra)
         ops = path_ops["arm"]
         for name, nc in (("wsm_step_g1", 1), ("wsm_step_g2", 2)):
             call = max(ops[name])

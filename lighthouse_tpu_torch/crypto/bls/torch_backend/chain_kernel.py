@@ -25,12 +25,20 @@ the 13-bit plane (kernel 7's core, mxu_kernel.py): the Fp chain's square is
 then the full product mont(a, a), not the triangle (pallas_fp._core_pair).
 Those variants launch as ``fp_chain_mxu`` and ``fp2_chain_mxu``.
 
-Hopper design (csrc/chain.cu): one launch per chain, one thread per lane,
-the power table in local memory, the digit tape in device memory uploaded
-once per device and exponent.  What bounds it on the card: integer
-multiplies (about 0.75M per lane for the p-2 chain, 3.6M for the Fp2 square
-root) against a few hundred bytes per lane; at one thread per lane the
-card is far from that bound.
+Hopper design (csrc/chain.cu): one launch per chain.  The 15-bit chains
+run in kernel 1's group form (csrc/mont_coop.cuh): 16 threads per lane, each
+product and square cut into tiles, one per rank, its phases ending at block
+barriers; the Fp chain squares with the group triangle square.  The lane's
+power table, accumulator and temporaries stay in shared memory, so a
+digit's table entry is a shared-memory offset.  The Fp2 chain's products
+run one after another on all 16 ranks, its linear ops dealt to the ranks
+limb by limb.  ``FP_FORMS`` lists the Fp chain's forms (threads per lane,
+lanes per block) and ``form_for`` picks one by width; the Fp2 chain has one
+form, ``FP2_FORM``, the path's only width being 4,096.  The MXU variants stay one
+thread per lane.  What bounds it on the card: integer multiplies (about
+0.75M per lane for the p-2 chain, 3.6M for the Fp2 square root) against a
+few hundred bytes per lane.  The digit tape sits in device memory, uploaded
+once per device and exponent.
 """
 
 from __future__ import annotations
@@ -52,6 +60,17 @@ fp_launches = 0  # kernel launches (plain-version calls do not count)
 fp2_launches = 0
 fp_mxu_launches = 0  # the MXU variants
 fp2_mxu_launches = 0
+
+# The compiled forms of the 15-bit Fp chain: (threads per lane, lanes per block)
+FP_FORMS = ((16, 8), (16, 16))
+# The widest n each form is used for, in FP_FORMS' order; wider calls take
+# the last form.  chip_smoke.py's chain_forms phase times both forms at the
+# widths the path launches (1 and 4,096) and at a sweep between them:
+# blocks of 8 lanes win at every width up to 3,072, blocks of 16 at 4,096;
+# the widths between are not measured.
+FORM_MAX_WIDTH = (3072,)
+# The one form of the 15-bit Fp2 chain (csrc/chain.cu kFp2Lanes)
+FP2_FORM = (16, 16)
 
 
 def window_digits(bitstr: str, w: int = CHAIN_WINDOW) -> list[int]:
@@ -86,6 +105,14 @@ def imads_per_lane(kind: str, n_digits: int, mxu: bool = False) -> int:
     return c["mul"] * IMAD_PER_LANE + c["sqr"] * SQR_IMAD_PER_LANE
 
 
+def form_for(n: int) -> tuple:
+    """The form of the 15-bit Fp chain for an n-lane call."""
+    for form, widest in zip(FP_FORMS, FORM_MAX_WIDTH):
+        if n <= widest:
+            return form
+    return FP_FORMS[-1]
+
+
 def _cores(mxu: bool):
     """(mul, sqr) plain cores: the 15-bit product and triangle square, or
     the 13-bit product for both (pallas_fp._core_pair)."""
@@ -99,6 +126,15 @@ def _tape(digits: tuple, device: str) -> torch.Tensor:
     """The digit tape on ``device``, uploaded once per device and exponent
     (pinned, without a host sync)."""
     return F.upload(torch.tensor(digits, dtype=torch.int32), device)
+
+
+def _form(form, n: int) -> tuple:
+    """The 15-bit Fp chain's form: ``form`` (one of FP_FORMS) or form_for(n)."""
+    if form is None:
+        return form_for(n)
+    if tuple(form) not in FP_FORMS:
+        raise ValueError(f"the Fp chain has no form {form}")
+    return tuple(form)
 
 
 def _check(name: str, *planes: torch.Tensor) -> None:
@@ -120,11 +156,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("chain")
     if not lib.lh_fp_chain.argtypes:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.lh_fp_chain, lib.lh_fp_chain_mxu):
-            fn.argtypes = [vp, ci, vp, vp, ci, vp]
-            fn.restype = ctypes.c_int
-        for fn in (lib.lh_fp2_chain, lib.lh_fp2_chain_mxu):
-            fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp]
+        lib.lh_fp_chain.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
+        lib.lh_fp_chain_mxu.argtypes = [vp, ci, vp, vp, ci, vp]
+        lib.lh_fp2_chain.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp]
+        lib.lh_fp2_chain_mxu.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp]
+        for fn in (lib.lh_fp_chain, lib.lh_fp_chain_mxu, lib.lh_fp2_chain, lib.lh_fp2_chain_mxu):
             fn.restype = ctypes.c_int
     return lib
 
@@ -149,27 +185,33 @@ def pow_chain_plain(base: torch.Tensor, exponent: int, mxu: bool = False) -> tor
     return acc
 
 
-def pow_chain(base: torch.Tensor, exponent: int, mxu: bool | None = None) -> torch.Tensor:
+def pow_chain(base: torch.Tensor, exponent: int, mxu: bool | None = None,
+              form: tuple | None = None) -> torch.Tensor:
     """base^exponent for (26, n) limbs of values below 4.3 P -> (26, n)
-    strict limbs.  CUDA tensors launch kernel 4 on the current stream (its
-    MXU variant with ``mxu``, which defaults to ``fp.mxu_active()``); CPU
-    tensors take the plain version."""
+    strict limbs.  CUDA tensors launch kernel 4 on the current stream, in
+    ``form`` (one of FP_FORMS; by default ``form_for(n)``), or its MXU variant
+    with ``mxu``, which defaults to ``fp.mxu_active()``; CPU tensors take
+    the plain version."""
     _check("pow_chain", base)
     if exponent < 1:
         raise ValueError("pow_chain takes a positive exponent")
     mxu = F.mxu_active() if mxu is None else mxu
+    n = base.shape[1]
+    group, lanes = _form(form, n)
     if base.device.type == "cpu":
         return pow_chain_plain(base, exponent, mxu)
     digits = tuple(window_digits(bin(exponent)[2:]))
     out = torch.empty_like(base)
-    n = base.shape[1]
     if n == 0:
         return out
     lib = _lib()
-    launch = lib.lh_fp_chain_mxu if mxu else lib.lh_fp_chain
-    err = launch(_tape(digits, str(base.device)).data_ptr(), len(digits),
-                 base.data_ptr(), out.data_ptr(), n,
-                 torch.cuda.current_stream(base.device).cuda_stream)
+    tape = _tape(digits, str(base.device)).data_ptr()
+    stream = torch.cuda.current_stream(base.device).cuda_stream
+    if mxu:
+        err = lib.lh_fp_chain_mxu(tape, len(digits), base.data_ptr(), out.data_ptr(), n, stream)
+    else:
+        err = lib.lh_fp_chain(tape, len(digits), base.data_ptr(), out.data_ptr(), n, group,
+                              lanes, stream)
     _build.check(lib, err, "fp_chain_mxu kernel" if mxu else "fp_chain kernel")
     global fp_launches, fp_mxu_launches
     if mxu:
@@ -227,22 +269,23 @@ def fp2_pow_chain_plain(a0: torch.Tensor, a1: torch.Tensor, bits, mxu: bool = Fa
 def fp2_pow_chain(a0: torch.Tensor, a1: torch.Tensor, bits, mxu: bool | None = None) -> tuple:
     """(a0 + a1 u)^e for reduced (26, n) limb planes and MSB-first ``bits``
     -> (r0, r1), each bounded by 6 P.  CUDA tensors launch kernel 5 on the
-    current stream (its MXU variant with ``mxu``, which defaults to
-    ``fp.mxu_active()``); CPU tensors take the plain version."""
+    current stream (in FP2_FORM), or its MXU variant with ``mxu``, which
+    defaults to ``fp.mxu_active()``; CPU tensors take the plain version."""
     _check("fp2_pow_chain", a0, a1)
     mxu = F.mxu_active() if mxu is None else mxu
+    n = a0.shape[1]
     if a0.device.type == "cpu":
         return fp2_pow_chain_plain(a0, a1, bits, mxu)
     digits = tuple(window_digits(_fp2_bits(bits)))
     o0, o1 = torch.empty_like(a0), torch.empty_like(a1)
-    n = a0.shape[1]
     if n == 0:
         return o0, o1
     lib = _lib()
+    tape = _tape(digits, str(a0.device)).data_ptr()
+    stream = torch.cuda.current_stream(a0.device).cuda_stream
+    ptrs = (a0.data_ptr(), a1.data_ptr(), o0.data_ptr(), o1.data_ptr())
     launch = lib.lh_fp2_chain_mxu if mxu else lib.lh_fp2_chain
-    err = launch(_tape(digits, str(a0.device)).data_ptr(), len(digits),
-                 a0.data_ptr(), a1.data_ptr(), o0.data_ptr(), o1.data_ptr(), n,
-                 torch.cuda.current_stream(a0.device).cuda_stream)
+    err = launch(tape, len(digits), *ptrs, n, stream)
     _build.check(lib, err, "fp2_chain_mxu kernel" if mxu else "fp2_chain kernel")
     global fp2_launches, fp2_mxu_launches
     if mxu:

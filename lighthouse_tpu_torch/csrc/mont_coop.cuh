@@ -1,5 +1,6 @@
 // Montgomery product on 26 x 15-bit limbs by a group of G threads per lane
-// (kernel 1's cooperative core; group.cuh gives the layout and the phases).
+// (kernel 1's cooperative core, also the 15-bit chains' products and
+// squares in csrc/chain.cu; group.cuh gives the layout and the phases).
 //
 // The same limbs as lh::mont_core (mont.cuh), step for step.  Each of the
 // three schoolbooks (a * b, t * P' for m, m * P) is cut into G tiles of
@@ -28,7 +29,8 @@
 // from the column sums, so the product takes six phases.
 //
 // Every rank runs the same instructions: the tile and the block are
-// compile-time shapes at a rank-dependent offset, the operands in registers.
+// compile-time shapes at a rank-dependent offset, the operands in registers
+// (the square's t phase has two such paths, see sq_tile).
 // Operand arrays are padded with zeros to 28 limbs so that every tile has
 // the same shape.
 //
@@ -65,6 +67,23 @@ struct Lane {
   uint32_t* p;
   int lanes;
   __device__ __forceinline__ uint32_t& operator()(int k) const { return p[k * lanes]; }
+};
+
+// Word k of one lane's (26, n) limb plane in global memory.
+struct Plane {
+  uint32_t* p;
+  int n, lane;
+  __device__ __forceinline__ uint32_t& operator()(int k) const {
+    return p[static_cast<size_t>(k) * n + lane];
+  }
+};
+
+// The shared words one product works in besides its operands: the column
+// sums of t = a * b, of t * P' and of m * P (NC words each), the carry maps
+// (G words) and s = t + u (NW words; may alias the operands where they are
+// dead by the tail, as in mont_group).
+struct Work {
+  Lane tsums, msums, usums, cmap, s;
 };
 
 // Rank r's tile of the 28 x 28 padded schoolbook: rows [i0, i0 + TI),
@@ -187,10 +206,11 @@ __device__ __forceinline__ void tail_sums(int r, Lane tsums, Lane usums, Lane ds
 }
 
 // The carry into rank r's block from the maps of the ranks below, then the
-// block's part of the 52-step carry; columns 26..51 are the output limbs.
-template <int G>
-__device__ __forceinline__ void tail_carry(int r, Lane s, Lane cmap, uint32_t* __restrict__ out,
-                                           int n, int lane, bool live) {
+// block's part of the 52-step carry; columns 26..51 are the output limbs,
+// limb k stored as out(k) = v (a Plane in global memory or a Lane in shared
+// memory), by live lanes only.
+template <int G, class Out>
+__device__ __forceinline__ void tail_carry(int r, Lane s, Lane cmap, Out out, bool live) {
   constexpr int BW = Shape<G>::W;
   const int c0 = r * BW;
   if (c0 + BW <= NL || c0 >= NW) return;
@@ -201,8 +221,133 @@ __device__ __forceinline__ void tail_carry(int r, Lane s, Lane cmap, uint32_t* _
     if (c0 + k < NW) {
       const uint32_t v = s(c0 + k) + c;
       c = v >> 15;
-      if (c0 + k >= NL && live) out[static_cast<size_t>(c0 + k - NL) * n + lane] = v & MASK;
+      if (c0 + k >= NL && live) out(c0 + k - NL) = v & MASK;
     }
+  }
+}
+
+// t = a * a for the square (pallas_fp._wide_square): the j >= i triangle of
+// the 28 x 28 padded schoolbook, the diagonal products a_i * a_i split as
+// they are, a cross product (j > i) doubled before its split, as
+// a_i * (2 a_j) (the same 32-bit value, below 2^31.02).  With Shape<16>'s
+// 7 x 7 tiles, 4 tiles straddle the diagonal, 6 lie above it and 6 below
+// (skipped).  So that no rank forms more than 28 products (a full tile is
+// 49): ranks 0-3 take the triangle of diagonal tile r; ranks 4-15 take half
+// of an upper tile each, rows 0-3 or rows 3-6 with row 3 zeroed (the first
+// half holds it).  Ranks 0-3 run one code path, ranks 4-15 the other (one
+// shape at rank-dependent offsets); a warp holds 32 / L ranks in order, so
+// at L = 8 or more no warp diverges.
+//
+// Column sums stay exact: column k of the triangle holds at most 13 lo
+// halves (< 2^15) and 13 hi halves (a doubled product's <= 66,049), at most
+// 1,284,608 < 2^21 (tests/test_torch_chains.py computes it).
+template <int G>
+__device__ __forceinline__ void sq_tile(int r, Lane xa, Lane tsums) {
+  static_assert(G == 16, "the square's tiles are dealt for 16 ranks");
+  constexpr int T = Shape<G>::TI, H = 4;
+  static_assert(T == Shape<G>::TJ && 2 * H - 1 == T, "square 7 x 7 tiles, halved at row 3");
+  if (r < 4) {
+    const int o = r * T;
+    uint32_t xs[T], c[2 * T];
+#pragma unroll
+    for (int i = 0; i < T; ++i) xs[i] = xa(o + i);
+#pragma unroll
+    for (int k = 0; k < 2 * T; ++k) c[k] = 0;
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      const uint32_t d = xs[i] * xs[i];
+      c[2 * i] += d & MASK;
+      c[2 * i + 1] += d >> 15;
+      const uint32_t x2 = xs[i] + xs[i];
+#pragma unroll
+      for (int j = i + 1; j < T; ++j) {
+        const uint32_t p = x2 * xs[j];
+        c[i + j] += p & MASK;
+        c[i + j + 1] += p >> 15;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * T; ++k) atomicAdd(&tsums(2 * o + k), c[k]);
+  } else {
+    // upper tile u = (bi, bj): (0,1) (0,2) (0,3) (1,2) (1,3) (2,3); half h
+    const int u = (r - 4) >> 1, h = (r - 4) & 1;
+    const int bi = (u >= 3) + (u >= 5);
+    const int bj = u + 1 - 2 * (u >= 3) - (u >= 5);
+    const int i0 = bi * T + (H - 1) * h, j0 = bj * T;
+    uint32_t xs[H], ys[T];
+#pragma unroll
+    for (int i = 0; i < H; ++i) xs[i] = i == 0 && h ? 0u : xa(i0 + i);
+#pragma unroll
+    for (int j = 0; j < T; ++j) ys[j] = 2 * xa(j0 + j);
+    uint32_t c[H + T];
+#pragma unroll
+    for (int k = 0; k < H + T; ++k) c[k] = 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        const uint32_t p = xs[i] * ys[j];
+        c[i + j] += p & MASK;
+        c[i + j + 1] += p >> 15;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < H + T; ++k) atomicAdd(&tsums(i0 + j0 + k), c[k]);
+  }
+}
+
+// Rank r's share of clearing the column sums (before a product's t phase).
+template <int G>
+__device__ __forceinline__ void clear_sums(int r, const Work& w) {
+  for (int k = r; k < NC; k += G) w.tsums(k) = w.msums(k) = w.usums(k) = 0;
+}
+
+// The four phases after t's column sums: m, u = m * P, and the tail into
+// out.  `last(r)` runs in the last phase beside the tail, which reads only s
+// and the carry maps and writes only out: work that touches none of them
+// (clearing the sums for the next product, an Fp2 chain's linear ops).
+template <int G, int L, class Out, class Last>
+__device__ __forceinline__ void mont_group_reduce(const Work& w, const uint32_t* pp,
+                                                  const uint32_t* pl, Out out, bool live,
+                                                  Last last) {
+  LH_RANKS_OF(G, L, m_tile<G>(r, w.tsums, pp, w.msums))
+  LH_RANKS_OF(G, L, u_tile<G>(r, w.msums, pl, w.usums))
+  LH_RANKS_OF(G, L, tail_sums<G>(r, w.tsums, w.usums, w.s, w.cmap))
+  LH_RANKS_OF(G, L, tail_carry<G>(r, w.s, w.cmap, out, live); last(r))
+}
+
+// out = xa * xb * R^-1, the operands in shared memory (28 words each, zero
+// past limb 25), w's column sums zero on entry.  `first(r)` runs in the t
+// phase (work that reads no column sum and writes none of the operands),
+// `last(r)` as in mont_group_reduce.  out may alias xa or xb: the tail
+// reads neither.
+template <int G, int L, class Out, class First, class Last>
+__device__ __forceinline__ void mont_group_core(Lane xa, Lane xb, const Work& w,
+                                                const uint32_t* pp, const uint32_t* pl, Out out,
+                                                bool live, First first, Last last) {
+  LH_RANKS_OF(G, L, t_tile<G>(r, xa, xb, w.tsums); first(r))
+  mont_group_reduce<G, L>(w, pp, pl, out, live, last);
+}
+
+// out = xa * xa * R^-1 by the triangle square (pallas_fp._mont_sqr_core;
+// mont.cuh mont_sqr_core): only the t phase differs from mont_group_core.
+// Not mont_group_core(xa, xa), whose column sums are not the reference's
+// (tests/test_torch_chains.py pins the difference).
+template <int G, int L, class Out, class First, class Last>
+__device__ __forceinline__ void mont_group_sqr_core(Lane xa, const Work& w, const uint32_t* pp,
+                                                    const uint32_t* pl, Out out, bool live,
+                                                    First first, Last last) {
+  LH_RANKS_OF(G, L, sq_tile<G>(r, xa, w.tsums); first(r))
+  mont_group_reduce<G, L>(w, pp, pl, out, live, last);
+}
+
+// Fill a block's table of P' and P (28 words each, zero past limb 25): the
+// words dealt to the block's threads, rank r's share in its phase.
+template <int G, int L>
+__device__ __forceinline__ void fill_constants(int r, uint32_t* pp, uint32_t* pl) {
+  for (int i = r * kLanes<L> + group_slot<L>(); i < NP; i += G * kLanes<L>) {
+    pp[i] = i < NL ? kPPrime[i] : 0u;
+    pl[i] = i < NL ? kP[i] : 0u;
   }
 }
 
@@ -215,9 +360,10 @@ template <int G, int L>
 constexpr int kGroupShared = kGroupWords<G> * kLanes<L> + 2 * NP;
 
 // out = a * b * R^-1 (mod P) for lane `lane`, by the G threads of its group
-// in a block of L lanes; sm: the block's shared array of kGroupShared<G, L>
-// words.  Every thread of the block calls it (the phases end in block
-// barriers); only live lanes store.
+// in a block of L lanes, a and b read from and out written to (26, n) limb
+// planes in global memory; sm: the block's shared array of
+// kGroupShared<G, L> words.  Every thread of the block calls it (the phases
+// end in block barriers); only live lanes store.
 template <int G, int L>
 __device__ __forceinline__ void mont_group(const uint32_t* __restrict__ a,
                                            const uint32_t* __restrict__ b,
@@ -225,10 +371,10 @@ __device__ __forceinline__ void mont_group(const uint32_t* __restrict__ a,
                                            uint32_t* sm) {
   constexpr int S = kLanes<L>;
   uint32_t* base = sm + group_slot<L>();
-  const Lane xa{base, S}, xb{base + NP * S, S}, tsums{base + 2 * NP * S, S},
-      msums{base + (2 * NP + NC) * S, S}, usums{base + (2 * NP + 2 * NC) * S, S},
-      cmap{base + (2 * NP + 3 * NC) * S, S};
-  const Lane s = xa;  // a and b are dead once the sums of a * b are formed
+  const Lane xa{base, S}, xb{base + NP * S, S};
+  // s = xa: a and b are dead once the sums of a * b are formed
+  const Work w{{base + 2 * NP * S, S}, {base + (2 * NP + NC) * S, S},
+               {base + (2 * NP + 2 * NC) * S, S}, {base + (2 * NP + 3 * NC) * S, S}, xa};
   uint32_t* const pp = sm + kGroupWords<G> * S;  // P' then P, 28 words each
   uint32_t* const pl = pp + NP;
   // a and b into shared memory with zero padding, the column sums cleared,
@@ -236,16 +382,10 @@ __device__ __forceinline__ void mont_group(const uint32_t* __restrict__ a,
   LH_RANKS_OF(G, L, for (int i = r; i < NP; i += G) {
     xa(i) = i < NL ? a[static_cast<size_t>(i) * n + lane] : 0u;
     xb(i) = i < NL ? b[static_cast<size_t>(i) * n + lane] : 0u;
-  } for (int k = r; k < NC; k += G) tsums(k) = msums(k) = usums(k) = 0;
-  for (int i = r * S + group_slot<L>(); i < NP; i += G * S) {
-    pp[i] = i < NL ? kPPrime[i] : 0u;
-    pl[i] = i < NL ? kP[i] : 0u;
-  })
-  LH_RANKS_OF(G, L, t_tile<G>(r, xa, xb, tsums))
-  LH_RANKS_OF(G, L, m_tile<G>(r, tsums, pp, msums))
-  LH_RANKS_OF(G, L, u_tile<G>(r, msums, pl, usums))
-  LH_RANKS_OF(G, L, tail_sums<G>(r, tsums, usums, s, cmap))
-  LH_RANKS_OF(G, L, tail_carry<G>(r, s, cmap, out, n, lane, live))
+  } clear_sums<G>(r, w);
+  fill_constants<G, L>(r, pp, pl))
+  const auto none = [](int) {};
+  mont_group_core<G, L>(xa, xb, w, pp, pl, Plane{out, n, lane}, live, none, none);
 }
 
 }  // namespace coop

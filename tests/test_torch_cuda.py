@@ -8,8 +8,9 @@ so on a machine without jax run it as
 
 It covers all twelve entry points (mont_mul in every form of
 mont_kernel.FORMS, the Miller steps in their group forms: kernels 2, 3 and
-2m): mont_mul, miller_step_dbl, miller_step_add, fp_chain, fp2_chain,
-wsm_step_g1 and wsm_step_g2, and the
+2m, the Fp chain in every form of chain_kernel.FP_FORMS and the Fp2 chain
+in its one): mont_mul, miller_step_dbl, miller_step_add, fp_chain,
+fp2_chain, wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
 runs the same checks at the path's own widths and operands.
@@ -143,4 +144,30 @@ def test_cuda_group_forms_match_plain_versions():
             args = cut(w, *planes)
             got, ref = kern(*args), plain(*args)
             assert all(torch.equal(x, y) for x, y in zip(got, ref)), (name, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_group_chains_match_plain_versions():
+    """The 15-bit chains in the group form (kernel 4 in every form of
+    chain_kernel.FP_FORMS, kernel 5 in FP2_FORM) at 1, 2, G + 1, 257 and
+    4,097 lanes: the p-2 chain on strict and lazy (bound 4) bases, the
+    (p^2+7)/16 chain on reduced elements."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    rng = random.Random(37)
+    dev = torch.device("cuda")
+    wide = 4097
+    strict = _rand_planes(rng, 2, wide, 1).to(dev)
+    lazy = _rand_planes(rng, 1, wide, 4)[0].to(dev)
+    e = F.P_INT - 2
+    for w in (1, 2, CK.FP2_FORM[0] + 1, 257, wide):
+        x, y, z = (t[:, :w].contiguous() for t in (strict[0], strict[1], lazy))
+        for form in CK.FP_FORMS:
+            for base in (x, z):
+                assert torch.equal(CK.pow_chain(base, e, mxu=False, form=form),
+                                   CK.pow_chain_plain(base, e)), (form, w)
+        got = CK.fp2_pow_chain(x, y, h2c.SQRT_EXP_BITS, mxu=False)
+        ref = CK.fp2_pow_chain_plain(x, y, h2c.SQRT_EXP_BITS)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), w
     torch.cuda.synchronize()
