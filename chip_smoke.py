@@ -14,8 +14,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
    ptxas's registers, stack, spills and shared memory of the group forms of
-   kernels 1, 2, 3, 2m, 4 and 5, the one-thread kernels 3m, 4m and 5m, and
-   the device functions the Miller steps call.
+   kernels 1, 2, 3, 2m, 3m, 4, 5 and 5m (5m: mxu_coop.cuh's
+   mont_group_mxu_core), the one-thread kernel 4m, and the device functions
+   the Miller steps call.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
@@ -23,12 +24,13 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    every form of mont_mul (mont_kernel.FORMS) also at 1, 2, G - 1, G + 1,
    L - 1, L + 1, 31 and 33 lanes (G threads per lane, L lanes per block);
    the Miller steps and their MXU variants on live pairing steps (random
-   addition bits), and the group forms of kernels 2, 3 and 2m also at 1 and
-   G + 1 lanes (G threads per lane); the Fp chain
+   addition bits), and the group forms of kernels 2, 3, 2m and 3m also at 1
+   and G + 1 lanes (G threads per lane); the Fp chain
    and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
    its MXU variant at (p^2+7)/16; the 15-bit chains (the Fp chain in every
    form of chain_kernel.FP_FORMS, the Fp2 chain in FP2_FORM) also at 1, 2,
-   G + 1, L - 1, L + 1 and 257 lanes; one
+   G + 1, L - 1, L + 1 and 257 lanes, the MXU Fp2 chain (FP2_MXU_FORM) also
+   at 1 and 33; one
    G1 and one G2 WSM step on live points with random bits and infinity flags
    on either side.
 4. reference: the device map-to-G2 on a few messages against the host
@@ -299,7 +301,7 @@ def main() -> int:
         from lighthouse_tpu_torch.crypto.bls.hash_to_curve import (
             hash_to_field_fp2, hash_to_g2)
         from lighthouse_tpu_torch.crypto.bls.torch_backend import (
-            _build, backend, chain_kernel as CK, fp as F, h2c, miller_kernel as ML,
+            _build, backend, chain_kernel as CK, codegen, fp as F, h2c, miller_kernel as ML,
             mont_kernel as MK, mxu_kernel as X, points as P, tower as T, wsm_kernel as W)
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
@@ -321,19 +323,24 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(built["seconds"], 3), "built": built["built"],
           "dir": str(_build.build_dir().relative_to(_build.PKG_ROOT.parent)),
           "ptxas": built["ptxas"]})
-    # the group forms of kernels 1, 2, 3, 2m, 4 and 5, kernels 3m, 4m and 5m,
-    # and the device functions the Miller steps call
+    # the group forms of kernels 1, 2, 3, 2m, 3m, 4, 5 and 5m, kernel 4m,
+    # and the device functions the Miller steps and kernel 5m call (g_mul_mxu
+    # once per staging depth: 2m's and 3m's; mul13, mont_group_mxu_core's one
+    # copy)
     group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
                                for g, lanes in MK.FORMS if g > 1) + ("mont_mul_kernel",),
                  "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel",
                                  f"miller_step_add_g{ML.ADD_GROUP}_kernel",
                                  "g_mul", "g_add", "g_sub"),
                  "miller_step_mxu": (f"miller_step_dbl_mxu_g{ML.DBL_MXU_GROUP}_kernel",
-                                     "miller_step_add_mxu_kernel", "g_mul_mxu", "k_mul",
+                                     f"miller_step_add_mxu_g{ML.ADD_MXU_GROUP}_kernel",
+                                     *(f"g_mul_mxuILi{rows}E"
+                                       for rows in sorted(set(codegen.MXU_GROUP_ROWS.values()))),
                                      "g_add", "g_sub"),
                  "chain": tuple(f"fp_chain_group_kernelILi{lanes}E" for _, lanes in CK.FP_FORMS)
                  + (f"fp2_chain_group_kernelILi{CK.FP2_FORM[1]}E",
-                    "fp_chain_mxu_kernel", "fp2_chain_mxu_kernel")}
+                    f"fp2_chain_mxu_group_kernelILi{CK.FP2_MXU_FORM[0]}E",
+                    f"mul13ILi{CK.FP2_MXU_FORM[0]}E", "fp_chain_mxu_kernel")}
     emit({"phase": "ptxas", **{lib: ptxas_report((_build.build_dir() / f"{lib}.log").read_text(),
                                                  names) for lib, names in group_fns.items()}})
 
@@ -460,7 +467,8 @@ def main() -> int:
 
     for name, g, planes in (("miller_step_dbl", ML.DBL_GROUP, (f, tpt, xp, yp)),
                             ("miller_step_dbl_mxu", ML.DBL_MXU_GROUP, (f, tpt, xp, yp)),
-                            ("miller_step_add", ML.ADD_GROUP, (f, tpt, q, xp, yp, bit))):
+                            ("miller_step_add", ML.ADD_GROUP, (f, tpt, q, xp, yp, bit)),
+                            ("miller_step_add_mxu", ML.ADD_MXU_GROUP, (f, tpt, q, xp, yp, bit))):
         widths = [1, g + 1]
         eqs = [hold(name, cut(w, *planes))[0] for w in widths]
         emit({"phase": "kernel_check", "kernel": name, "group": g, "corpus": "pairing_steps",
@@ -495,6 +503,11 @@ def main() -> int:
                 lambda *x: CK.fp2_pow_chain(*x, mxu=False))[0] for w in ragged(CK.FP2_FORM)]
     emit({"phase": "kernel_check", "kernel": "fp2_chain", "form": CK.FP2_FORM,
           "corpora": ["strict"], "widths": ragged(CK.FP2_FORM), "equal": all(eqs)})
+    # the MXU Fp2 chain's group form at 1 lane and at a ragged block of 32
+    eqs = [hold("fp2_chain_mxu", (*cut(w, a.limbs, b.limbs), h2c.SQRT_EXP_BITS))[0]
+           for w in (1, 33)]
+    emit({"phase": "kernel_check", "kernel": "fp2_chain_mxu", "form": CK.FP2_MXU_FORM,
+          "corpora": ["strict"], "widths": [1, 33], "equal": all(eqs)})
 
     # One WSM step per curve on live points: the acc a reduced Jacobian
     # multiple of the generator, the base another lane's affine multiple;
@@ -766,7 +779,8 @@ def main() -> int:
                 def form(w, field=field):
                     return CK.form_for(w) if field == "fp" else CK.FP2_FORM
 
-                extra = ({"group": 1, "form": (1, 32)} if sfx else
+                mxu_form = (1, 32) if field == "fp" else CK.FP2_MXU_FORM
+                extra = ({"group": mxu_form[0], "form": mxu_form} if sfx else
                          {"group": form(n_ch)[0], "form": form(n_ch),
                           "ms": chain_ms[name][n_ch][form_key(form(n_ch))],
                           "by_width": [{"n": w, "calls": widths[w],

@@ -71,6 +71,9 @@ FP_FORMS = ((16, 8), (16, 16))
 FORM_MAX_WIDTH = (3072,)
 # The one form of the 15-bit Fp2 chain (csrc/chain.cu kFp2Lanes)
 FP2_FORM = (16, 16)
+# The one form of the MXU Fp2 chain: G ranks per lane, one per warp, in
+# blocks of 32 lanes (csrc/chain.cu kFp2MxuGroup)
+FP2_MXU_FORM = (8, 32)
 
 
 def window_digits(bitstr: str, w: int = CHAIN_WINDOW) -> list[int]:

@@ -8,10 +8,9 @@
   products side by side, in rounds scheduled by ``group_schedule``, their
   values in shared memory.
 * ``csrc/miller_step_mxu.cu``: their MXU variants, the same programs with
-  every product on the 13-bit plane (kernel 7's core): the doubling step in
-  the group form (``_kernel(..., mxu=True, group=G)``, one rank per warp),
-  the addition step one thread per lane, its values in a per-thread slot
-  array reused by liveness.
+  every product on the 13-bit plane (kernel 7's core), both in the group
+  form (``_kernel(..., mxu=True, group=G)``, one rank per warp, each warp's
+  DMMA products staged in MXU_GROUP_ROWS rows a pass).
 * ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed one
   thread per lane from the step programs of wsm_kernel.py.
 
@@ -208,22 +207,17 @@ using lh::NL;
 
 """
 
-_HEAD_MXU = """// Kernel 2m (the doubling step) runs in the group form of miller_step.cu
-// (csrc/group.cuh) with G = 8 threads per lane in blocks of 32 lanes, so
-// each warp is the 32 lanes of one rank: a phase's switch on the rank is
-// warp-uniform and every product's mma.sync (csrc/mxu.cuh) is made by a
-// whole warp, its N dimension the warp's 32 lanes as in the one-thread
-// form; the tail threads run lane n - 1 again and store nothing.  Each
-// warp stages its DMMA products in shared memory beside the block's slots:
-// the 64 rows of m * P in two passes of 32 (kMxuRows), so that 8 warps'
-// staging and the slots fit in one block (its launcher asserts the bytes).
-//
-// Kernel 3m (the addition step) runs one thread per lane, one warp per
-// block.  Its intermediates live in the slot array s (registers spilling to
-// local memory); every Montgomery product is one call of the non-inlined
-// k_mul on the 13-bit plane, which the whole warp makes together: the
-// program is straight-line, and the tail threads run lane n - 1's operands
-// again and store nothing.
+_HEAD_MXU = """// Both steps run in the group form of miller_step.cu (csrc/group.cuh) with
+// G = 8 threads per lane in blocks of 32 lanes (miller_kernel.DBL_MXU_GROUP,
+// ADD_MXU_GROUP), so each warp is the 32 lanes of one rank: a phase's switch
+// on the rank is warp-uniform and every product's mma.sync (csrc/mxu.cuh) is
+// made by a whole warp, its N dimension the warp's 32 lanes; the tail
+// threads run lane n - 1 again and store nothing.  Each warp stages its DMMA
+// products in shared memory beside the block's slots, in passes of ROWS rows
+// of C (g_mul_mxu<ROWS>, MxuShared<G, ROWS>): the doubling step the 64 rows
+// of m * P in two passes of 32, the addition step, whose 92 slots take more
+// room, in four of 16, so that 8 warps' staging and the slots fit in one
+// block (each launcher asserts the bytes).
 //
 // Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
 // neighbouring words and every load and store coalesces.
@@ -233,29 +227,12 @@ _HEAD_MXU = """// Kernel 2m (the doubling step) runs in the group form of miller
 namespace {
 
 using lh::NL;
-
-constexpr int kBlock = 32;  // kernel 3m: 4,097 lanes -> 129 blocks, one per SM
 """
 
-MXU_GROUP_ROWS = 32  # rows of C a group form's warp stages per pass (MxuShared)
+# Rows of C a group form's warp stages per pass (MxuShared), by program.
+MXU_GROUP_ROWS = {"miller_step_dbl": 32, "miller_step_add": 16}
 SHARED_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90 (227 KB)
-_HEAD_MXU += f"""constexpr int kMxuRows = {MXU_GROUP_ROWS};  // kernel 2m: rows of C staged per pass
 
-"""
-
-_K_MUL_MXU = """__device__ __noinline__ void k_mul(uint32_t* o, const uint32_t* a, const uint32_t* b,
-                                   const lh::MxuCtx& mx) {
-  uint32_t x[NL], y[NL], r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    x[i] = a[i];
-    y[i] = b[i];
-  }
-  lh::mont_core_mxu(x, y, r, mx);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = r[i];
-}
-"""
 
 _SQR_HELPERS = """
 __device__ __noinline__ void k_sqr(uint32_t* o, const uint32_t* a) {
@@ -380,13 +357,15 @@ __device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
 """
 
 # the group form's product on the 13-bit plane: warp-cooperative, so a
-# phase's products are made by whole warps (one rank each)
+# phase's products are made by whole warps (one rank each); ROWS: the rows
+# of C each warp stages per pass
 _GROUP_MUL_MXU = """
+template <int ROWS>
 __device__ __noinline__ void g_mul_mxu(uint16_t* s, int o, int a, int b, const lh::MxuCtx& mx) {
   uint32_t x[NL], y[NL], r[NL];
   g_get(s, a, x);
   g_get(s, b, y);
-  lh::mont_core_mxu<kMxuRows>(x, y, r, mx);
+  lh::mont_core_mxu<ROWS>(x, y, r, mx);
   g_put(s, o, r);
 }
 """
@@ -404,13 +383,11 @@ _SIGNATURES = {
 }
 
 
-def _body(prog: MK.Program, mxu: bool = False) -> tuple[list, int]:
+def _body(prog: MK.Program) -> tuple[list, int]:
     """C statements for a program, slots assigned by liveness: an output
     slot is taken before the op's dead inputs are released, so no op reads
     and writes one slot.  Flags live in named uint32 values, not slots;
-    the Miller addition bit is the bool ``take``.  With ``mxu`` every product
-    (a square too) is the 13-bit k_mul, and stores are kept to live lanes."""
-    guard = "if (live) " if mxu else ""
+    the Miller addition bit is the bool ``take``."""
     last = {}
     for idx, op in enumerate(prog.ops):
         for i in op.ins:
@@ -442,7 +419,7 @@ def _body(prog: MK.Program, mxu: bool = False) -> tuple[list, int]:
                              f"{s(op.ins[1])} : {s(op.ins[2])};")
             if op.out in stores:
                 buf, _ = stores[op.out]
-                lines.append(f"{guard}{buf}[lane] = {s(op.out)};")
+                lines.append(f"{buf}[lane] = {s(op.out)};")
             continue
         if free:
             slot[op.out] = free.pop()
@@ -457,10 +434,6 @@ def _body(prog: MK.Program, mxu: bool = False) -> tuple[list, int]:
             lines.append(f"k_one({o});")
         elif op.kind == "zero":
             lines.append(f"k_zero({o});")
-        elif op.kind == "mul" and mxu:
-            lines.append(f"k_mul({o}, {ins[0]}, {ins[1]}, mx);")
-        elif op.kind == "sqr" and mxu:
-            lines.append(f"k_mul({o}, {ins[0]}, {ins[0]}, mx);")
         elif op.kind == "mul":
             lines.append(f"k_mul({o}, {ins[0]}, {ins[1]});")
         elif op.kind == "sqr":
@@ -477,7 +450,7 @@ def _body(prog: MK.Program, mxu: bool = False) -> tuple[list, int]:
             raise AssertionError(op.kind)
         if op.out in stores:
             buf, plane = stores[op.out]
-            lines.append(f"{guard}k_store({buf}, {plane}, n, lane, {o});")
+            lines.append(f"k_store({buf}, {plane}, n, lane, {o});")
         dead = {i for i in op.ins if last[i] == idx and prog.ops[i].kind not in MK.FLAGS}
         if op.out not in last:
             dead.add(op.out)
@@ -620,30 +593,23 @@ def _signature(prog: MK.Program) -> dict:
 
 def _kernel(prog: MK.Program, mxu: bool = False, group: int | None = None) -> str:
     """A step program's kernel and its C launcher lh_<name>: one thread per
-    lane, or with ``group`` the group form (G threads per lane, launched as
-    lh_<name>_g<G>, or lh_<name>_mxu_g<G> with ``mxu``)."""
+    lane (15-bit only), or with ``group`` the group form (G threads per lane,
+    launched as lh_<name>_g<G>, or lh_<name>_mxu_g<G> with ``mxu``, its warps
+    staging MXU_GROUP_ROWS' rows of C a pass)."""
     if group is not None:
         return _group_kernel(prog, group, mxu)
-    lines, n_slots = _body(prog, mxu)
-    name = prog.name + "_mxu" if mxu else prog.name
+    assert not mxu, "the MXU steps are printed in the group form only"
+    lines, n_slots = _body(prog)
+    name = prog.name
     sig = _signature(prog)
     body = "\n".join("  " + ln for ln in lines)
     counts = sig["counts"]
-    if mxu:
-        counts += " on the 13-bit plane"
-        prologue = """  __shared__ lh::MxuShared<1> mxu_sm;
-  const lh::MxuCtx mx = lh::mxu_setup(mxu_sm);
-  const int gl = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = gl < n;
-  const int lane = live ? gl : n - 1;"""
-    else:
-        prologue = """  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;"""
     return f"""
 // {name}: {len(prog.ops)} limb ops, {counts}, {n_slots} slots.
 static __global__ void __launch_bounds__(kBlock)
 {name}_kernel({sig["params"]}) {{
-{prologue}
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
   uint32_t s[{n_slots}][NL];
 {body}
 }}
@@ -662,7 +628,7 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
 
 
 def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict,
-              mxu: bool) -> list:
+              rows: int | None) -> list:
     op = prog.ops[vid]
     o = sched.slot[vid]
     ins = [sched.slot.get(i) for i in op.ins]
@@ -671,8 +637,8 @@ def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict,
         line = f"g_load(s, {o}, {buf}, {plane}, n, lane);"
     elif op.kind in ("one", "zero"):
         line = f"g_{op.kind}(s, {o});"
-    elif op.kind in MK.PRODUCTS and mxu:  # a square too is the 13-bit product
-        line = f"g_mul_mxu(s, {o}, {ins[0]}, {ins[-1]}, mx);"
+    elif op.kind in MK.PRODUCTS and rows:  # a square too is the 13-bit product
+        line = f"g_mul_mxu<{rows}>(s, {o}, {ins[0]}, {ins[-1]}, mx);"
     elif op.kind in ("mul", "add"):
         line = f"g_{op.kind}(s, {o}, {ins[0]}, {ins[1]});"
     elif op.kind == "sqr":
@@ -694,10 +660,11 @@ def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict,
     return lines
 
 
-def _group_body(prog: MK.Program, sched: GroupSchedule, mxu: bool) -> list:
+def _group_body(prog: MK.Program, sched: GroupSchedule, rows: int | None) -> list:
     """C statements of the group form: the flag values, computed by every
     thread (they depend on flags only, and rank 0 stores the outputs among
-    them), then one LH_RANKS block per phase, a case per rank."""
+    them), then one LH_RANKS block per phase, a case per rank.  With ``rows``
+    the products are the 13-bit g_mul_mxu<rows>."""
     stores = {vid: (buf, plane) for buf, plane, vid in prog.outputs}
     lines = []
     for op in prog.ops:
@@ -731,7 +698,7 @@ def _group_body(prog: MK.Program, sched: GroupSchedule, mxu: bool) -> list:
                 continue
             lines.append(f"  case {r}:")
             for vid in vids:
-                lines.extend("    " + ln for ln in _group_op(prog, sched, vid, stores, mxu))
+                lines.extend("    " + ln for ln in _group_op(prog, sched, vid, stores, rows))
             lines.append("    break;")
         lines.append("  default:")
         lines.append("    break;")
@@ -739,26 +706,28 @@ def _group_body(prog: MK.Program, sched: GroupSchedule, mxu: bool) -> list:
     return lines
 
 
-def _group_kernel(prog: MK.Program, group: int, mxu: bool = False) -> str:
+def _group_kernel(prog: MK.Program, group: int, mxu: bool) -> str:
     """The group form of a step kernel: ``group`` threads per lane in
     rank-major blocks of 32 lanes (csrc/group.cuh), the program run in the
     phases of group_schedule, its values in 16-bit shared-memory slots.
-    With ``mxu`` every product is the 13-bit one (g_mul_mxu), each warp (one
-    rank) making its DMMA products together, staged beside the slots."""
+    With ``mxu`` every product is the 13-bit one (g_mul_mxu<rows>), each warp
+    (one rank) making its DMMA products together, staged beside the slots in
+    the program's MXU_GROUP_ROWS rows of C a pass."""
     sched = group_schedule(prog, group)
+    rows = MXU_GROUP_ROWS[prog.name] if mxu else None
     name = f"{prog.name}_mxu_g{group}" if mxu else f"{prog.name}_g{group}"
     sig = _signature(prog)
-    body = "\n".join("  " + ln for ln in _group_body(prog, sched, mxu))
+    body = "\n".join("  " + ln for ln in _group_body(prog, sched, rows))
     words = sched.n_slots * F.N
     shared = words * 2 * 32
     counts = sig["counts"] + (" on the 13-bit plane" if mxu else "")
     size = f"({shared:,} bytes of shared memory per block of 32 lanes)"
     if mxu:
         size = (f"({shared:,} bytes of shared memory per block of 32 lanes, and\n"
-                f"// sizeof(lh::MxuShared<{group}, kMxuRows>) of DMMA staging for its {group} warps)")
-        prologue = f"""  LH_MXU_GROUP_SHARED({group}, kMxuRows, mxu_sm, uint16_t, slots, {words});
+                f"// sizeof(lh::MxuShared<{group}, {rows}>) of DMMA staging for its {group} warps)")
+        prologue = f"""  LH_MXU_GROUP_SHARED({group}, {rows}, mxu_sm, uint16_t, slots, {words});
   const lh::MxuCtx mx = lh::mxu_setup(mxu_sm);"""
-        extra = f"static_cast<int>(sizeof(lh::MxuShared<{group}, kMxuRows>)) + "
+        extra = f"static_cast<int>(sizeof(lh::MxuShared<{group}, {rows}>)) + "
     else:
         prologue = f"  LH_GROUP_SHARED(uint16_t, slots, {words});"
         extra = ""
@@ -803,9 +772,9 @@ def miller_step_source() -> str:
 
 def miller_step_mxu_source() -> str:
     kernels = _kernel(MK.program("dbl"), mxu=True, group=MK.DBL_MXU_GROUP)
-    kernels += _kernel(MK.program("add"), mxu=True)
-    return (HEADER + _MILLER_MXU_DOC + _HEAD_MXU + _K_MUL_MXU + _GLUE + _GROUP_HELPERS
-            + _GROUP_MUL_MXU + _END_HELPERS + kernels)
+    kernels += _kernel(MK.program("add"), mxu=True, group=MK.ADD_MXU_GROUP)
+    return (HEADER + _MILLER_MXU_DOC + _HEAD_MXU + _GROUP_HELPERS + _GROUP_MUL_MXU
+            + _END_HELPERS + kernels)
 
 
 def wsm_step_source() -> str:

@@ -41,14 +41,14 @@ thread with the unchanged Montgomery core, the linear ops between rounds
 dealt to the threads, a barrier after each phase; the lane's values sit in
 16-bit shared-memory slots reassigned by the schedule.  The serial chain
 falls from 169 products to 11 rounds (dbl) and from 111 to 10 (add).
-The MXU doubling step runs in the same form at G = DBL_MXU_GROUP = 8, one
-rank per warp so that every product's mma.sync is made by a whole warp;
-8 warps' DMMA staging and the slots fill one block's shared memory.  The
-MXU addition step keeps the first design: one thread per lane, values in a
-per-thread slot array (registers spilling to local memory), each product a
-call of a non-inlined Montgomery routine.  Every form reads the step's f
-(12 planes), T (6), Q (4), xp and yp once and writes the 18 output planes
-once, coalesced by lane.
+The MXU steps run in the same form at G = DBL_MXU_GROUP = ADD_MXU_GROUP =
+8, one rank per warp so that every product's mma.sync is made by a whole
+warp; 8 warps' DMMA staging and the slots fill one block's shared memory
+(the addition step, with more slots, stages its products in 16 rows a
+pass, the doubling step in 32: codegen.MXU_GROUP_ROWS).  The serial chain
+of the MXU addition step falls from 111 products to 15 rounds.  Every form
+reads the step's f (12 planes), T (6), Q (4), xp and yp once and writes the
+18 output planes once, coalesced by lane.
 """
 
 from __future__ import annotations
@@ -547,6 +547,7 @@ def run_plain(prog: Program, bufs: dict, mxu: bool = False) -> dict:
 DBL_GROUP = 16  # threads per lane of kernel 2's group form
 ADD_GROUP = 16  # kernel 3's (G = 8 ran slower on the card, G = 32 spills)
 DBL_MXU_GROUP = 8  # kernel 2m's: the most warps whose staging fits beside the slots
+ADD_MXU_GROUP = 8  # kernel 3m's: the same, its staging in passes of 16 rows
 
 dbl_launches = 0  # kernel launches (plain-version calls do not count)
 add_launches = 0
@@ -572,19 +573,19 @@ def _check(named: dict) -> None:
         raise ValueError(f"Miller step has no path for device {f.device}")
 
 
-def group_of(step: str, mxu: bool) -> int | None:
-    """Threads per lane of the form the wrapper launches (None: one thread)."""
+def group_of(step: str, mxu: bool) -> int:
+    """Threads per lane of the form the wrapper launches."""
     if step == "dbl":
         return DBL_MXU_GROUP if mxu else DBL_GROUP
-    return None if mxu else ADD_GROUP
+    return ADD_MXU_GROUP if mxu else ADD_GROUP
 
 
 def _launch(step: str, mxu: bool, args: tuple):
     """Launch the ``"dbl"`` or ``"add"`` step's kernel in its form
-    (lh_miller_step_<step>[_mxu][_g<G>], G from group_of) on the wrapper's
+    (lh_miller_step_<step>[_mxu]_g<G>, G from group_of) on the wrapper's
     checked CUDA operands ``args``, on the current stream; returns (f', T')."""
     group = group_of(step, mxu)
-    name = f"lh_miller_step_{step}" + ("_mxu" if mxu else "") + (f"_g{group}" if group else "")
+    name = f"lh_miller_step_{step}" + ("_mxu" if mxu else "") + f"_g{group}"
     if args[0].device.type != "cuda":
         raise ValueError(f"{name} launches on CUDA tensors only")
     lib = _build.library("miller_step_mxu" if mxu else "miller_step")

@@ -29,30 +29,34 @@
 // limbs) are dealt to the ranks limb by limb, inside a product's first or
 // last phase where they touch nothing it reads or writes.
 //
-// The MXU variants (fp_chain_mxu_kernel, fp2_chain_mxu_kernel; the
-// reference's chain kernels built with mxu=True) run every product on the
-// 13-bit plane (kernel 7's core, mxu.cuh), the Fp chain's square as the full
-// product mont(a, a) (pallas_fp._core_pair), one thread per lane.  The core
-// is warp-cooperative: the digit tape is the same for every lane, so every
-// call is warp-uniform, and the tail threads run lane n - 1's operands
-// again and store nothing.
+// The MXU variants (the reference's chain kernels built with mxu=True) run
+// every product on the 13-bit plane.  The Fp2 chain (fp2_chain_mxu_group_
+// kernel) runs the 15-bit Fp2 chain's group form with its products on
+// mxu_coop.cuh's mont_group_mxu_core: G ranks per lane, one rank per warp,
+// in blocks of 32 lanes, so every mma.sync is warp-uniform.  The Fp chain
+// (fp_chain_mxu_kernel) runs kernel 7's core (mxu.cuh) one thread per lane,
+// its square the full product mont(a, a) (pallas_fp._core_pair); the core is
+// warp-cooperative: the digit tape is the same for every lane, so every call
+// is warp-uniform, and the tail threads run lane n - 1's operands again and
+// store nothing.
 //
 // What bounds it on the card: integer multiplies.  One Fp lane of the p-2
 // chain does 14 + 95 * 5 products (about 0.75M 32-bit multiplies) against
 // 208 bytes of traffic.  A lane's chain is a serial sequence of products, so
 // the group form puts 16 threads on each product (16 times the warps of one
 // thread per lane, each thread forming a tile of it) and keeps every operand
-// in shared memory; what is left is the five barrier phases per product.
-// The MXU variants, one thread per lane, run about one warp per SM at 4,096
-// lanes.
+// in shared memory; what is left is the five barrier phases per product
+// (eight on the 13-bit plane).  The MXU Fp chain, one thread per lane, runs
+// about one warp per SM at 4,096 lanes.
 #include "mont_coop.cuh"
 #include "mxu.cuh"
+#include "mxu_coop.cuh"
 
 namespace {
 
 using lh::NL;
 
-constexpr int kBlock = 32;  // the MXU variants: 4,096 lanes -> 128 blocks, one per SM
+constexpr int kBlock = 32;  // the MXU Fp chain: 4,096 lanes -> 128 blocks, one per SM
 constexpr int kWindow = 4;  // pallas_fp.CHAIN_WINDOW
 constexpr int kPowers = 1 << kWindow;
 constexpr int kBias2 = 0;   // row of 2P in lh::kBias (fp.BIAS_KS order)
@@ -82,61 +86,6 @@ struct Mxu {
   }
 };
 
-__device__ __forceinline__ void carry_store(uint32_t* o, uint32_t (&c)[NL]) {
-  lh::compress1(c);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = c[i];
-}
-
-// a + b, one carry pass
-__device__ __forceinline__ void c_add(uint32_t* o, const uint32_t* a, const uint32_t* b) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + b[i];
-  carry_store(o, c);
-}
-
-// a + kP - b, one carry pass (pallas_fp._sub_biased)
-__device__ __forceinline__ void c_sub(uint32_t* o, const uint32_t* a, const uint32_t* b,
-                                      int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + lh::kBias[kidx][i] - b[i];
-  carry_store(o, c);
-}
-
-// (r0, r1) = (a0 + a1 u)(b0 + b1 u), Karatsuba (pallas_fp._fp2_mul_core).
-// The outputs are written after every read of the inputs, so they may alias.
-template <class Core>
-__device__ __noinline__ void fp2_mul_core(const Core& core, uint32_t* r0, uint32_t* r1,
-                                          const uint32_t* a0, const uint32_t* a1,
-                                          const uint32_t* b0, const uint32_t* b1) {
-  uint32_t v0[NL], v1[NL], sa[NL], sb[NL], m[NL], t[NL];
-  core.mul(v0, a0, b0);
-  core.mul(v1, a1, b1);
-  c_add(sa, a0, a1);
-  c_add(sb, b0, b1);
-  core.mul(m, sa, sb);
-  c_sub(r0, v0, v1, kBias2);
-  c_sub(t, m, v0, kBias2);
-  c_sub(r1, t, v1, kBias2);
-}
-
-// (r0, r1) = (a0 + a1 u)^2: (a0 + a1)(a0 - a1 + 16P), 2 a0 a1
-// (pallas_fp._fp2_sqr_core).  May alias.
-template <class Core>
-__device__ __noinline__ void fp2_sqr_core(const Core& core, uint32_t* r0, uint32_t* r1,
-                                          const uint32_t* a0, const uint32_t* a1) {
-  uint32_t s[NL], d[NL], x0[NL], t[NL];
-  c_add(s, a0, a1);
-  c_sub(d, a0, a1, kBias16);
-  core.mul(x0, s, d);
-  core.mul(t, a0, a1);
-  c_add(r1, t, t);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r0[i] = x0[i];
-}
-
 __device__ __forceinline__ void load(uint32_t* o, const uint32_t* plane, int n, int lane) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) o[i] = plane[static_cast<size_t>(i) * n + lane];
@@ -152,7 +101,7 @@ __device__ __forceinline__ void copy(uint32_t* o, const uint32_t* a) {
   for (int i = 0; i < NL; ++i) o[i] = a[i];
 }
 
-// base^e of one lane into acc (the Fp chain's body, on either core).
+// base^e of one lane into acc (the MXU Fp chain's body).
 template <class Core>
 __device__ __forceinline__ void fp_chain_body(const Core& core, const int32_t* tape,
                                               int n_digits, const uint32_t* base, int n,
@@ -172,35 +121,6 @@ __device__ __forceinline__ void fp_chain_body(const Core& core, const int32_t* t
   }
 }
 
-// (a0 + a1 u)^e of one lane into (c0, c1) (the Fp2 chain's body).
-template <class Core>
-__device__ __forceinline__ void fp2_chain_body(const Core& core, const int32_t* tape,
-                                               int n_digits, const uint32_t* a0,
-                                               const uint32_t* a1, int n, int lane, uint32_t* c0,
-                                               uint32_t* c1) {
-  uint32_t pw0[kPowers][NL], pw1[kPowers][NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    pw0[0][i] = lh::kOne[i];
-    pw1[0][i] = 0;
-  }
-  load(pw0[1], a0, n, lane);
-  load(pw1[1], a1, n, lane);
-#pragma unroll 1
-  for (int k = 2; k < kPowers; ++k)
-    fp2_mul_core(core, pw0[k], pw1[k], pw0[k - 1], pw1[k - 1], pw0[1], pw1[1]);
-  const int first = tape[0];
-  copy(c0, pw0[first]);
-  copy(c1, pw1[first]);
-#pragma unroll 1
-  for (int d = 1; d < n_digits; ++d) {
-#pragma unroll 1
-    for (int s = 0; s < kWindow; ++s) fp2_sqr_core(core, c0, c1, c0, c1);
-    const int digit = tape[d];
-    fp2_mul_core(core, c0, c1, c0, c1, pw0[digit], pw1[digit]);
-  }
-}
-
 __global__ void __launch_bounds__(kBlock)
 fp_chain_mxu_kernel(const int32_t* __restrict__ tape, int n_digits,
                     const uint32_t* __restrict__ base, uint32_t* __restrict__ out, int n) {
@@ -213,23 +133,7 @@ fp_chain_mxu_kernel(const int32_t* __restrict__ tape, int n_digits,
   if (gl < n) store(out, n, lane, acc);
 }
 
-__global__ void __launch_bounds__(kBlock)
-fp2_chain_mxu_kernel(const int32_t* __restrict__ tape, int n_digits,
-                     const uint32_t* __restrict__ a0, const uint32_t* __restrict__ a1,
-                     uint32_t* __restrict__ o0, uint32_t* __restrict__ o1, int n) {
-  __shared__ lh::MxuShared<kBlock / 32> sm;
-  const Mxu core{lh::mxu_setup(sm)};
-  const int gl = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = gl < n ? gl : n - 1;
-  uint32_t c0[NL], c1[NL];
-  fp2_chain_body(core, tape, n_digits, a0, a1, n, lane, c0, c1);
-  if (gl < n) {
-    store(o0, n, lane, c0);
-    store(o1, n, lane, c1);
-  }
-}
-
-// -- the 15-bit chains in the group form ------------------------------------
+// -- the chains in the group form ----------------------------------------
 
 using lh::coop::Lane;
 using lh::coop::NC;
@@ -258,31 +162,75 @@ struct Arena {
 };
 
 // o = compress1(col) over 26 limbs, where col(k) is the column before the
-// pass (c_add, c_sub): limb k reads columns k and k - 1 only, so rank r
+// pass (add, sub): limb k reads columns k and k - 1 only, so rank r of G
 // writes limbs r, r + G, ...; o must not be an array that col reads.
-template <class Col>
+template <int G, class Col>
 __device__ __forceinline__ void g_pass(int r, Lane o, Col col) {
-  for (int k = r; k < NL; k += kG) o(k) = (col(k) & lh::MASK) + (k ? col(k - 1) >> 15 : 0u);
+#pragma unroll
+  for (int i = 0; i < (NL + G - 1) / G; ++i) {
+    const int k = r + i * G;
+    if (k < NL) o(k) = (col(k) & lh::MASK) + (k ? col(k - 1) >> 15 : 0u);
+  }
 }
 
 // a + b, one carry pass
+template <int G>
 __device__ __forceinline__ void g_add(int r, Lane o, Lane a, Lane b) {
-  g_pass(r, o, [&](int k) { return a(k) + b(k); });
+  g_pass<G>(r, o, [&](int k) { return a(k) + b(k); });
 }
 
 // a + kP - b, one carry pass (pallas_fp._sub_biased)
+template <int G>
 __device__ __forceinline__ void g_sub(int r, Lane o, Lane a, Lane b, int kidx) {
-  g_pass(r, o, [&](int k) { return a(k) + lh::kBias[kidx][k] - b(k); });
+  g_pass<G>(r, o, [&](int k) { return a(k) + lh::kBias[kidx][k] - b(k); });
 }
 
+template <int G>
 __device__ __forceinline__ void g_copy(int r, Lane o, Lane a) {
-  for (int k = r; k < NL; k += kG) o(k) = a(k);
+  for (int k = r; k < NL; k += G) o(k) = a(k);
 }
 
-// A lane's group in a block of L lanes: its shared arrays and one product's
-// work; every thread of the block runs every phase.
+// out = a (26, n) limb plane, live lanes only: rank r of G stores limbs r,
+// r + G, ...
+template <int G, int L>
+__device__ __forceinline__ void g_store(uint32_t* out, int n, int lane, bool live, Lane a) {
+  LH_RANKS_OF(G, L, for (int k = r; k < NL; k += G) {
+    if (live) out[static_cast<size_t>(k) * n + lane] = a(k);
+  })
+}
+
+// A linear op beside a product (the Fp2 cores' sums and biased differences),
+// packed in 32 bits so that it passes as a value: bits 0-1 the kind (0 none,
+// 1 add: o = a + b, 2 sub: o = a + kBias[bias] - b, one carry pass), bits
+// 2-3 the bias row, bits 8-15, 16-23, 24-31 the arrays o, a, b by index.
+__device__ __forceinline__ uint32_t lin_add(int o, int a, int b) {
+  return 1u | static_cast<uint32_t>(o) << 8 | static_cast<uint32_t>(a) << 16 |
+         static_cast<uint32_t>(b) << 24;
+}
+__device__ __forceinline__ uint32_t lin_sub(int o, int a, int b, int bias) {
+  return 2u | static_cast<uint32_t>(bias) << 2 | static_cast<uint32_t>(o) << 8 |
+         static_cast<uint32_t>(a) << 16 | static_cast<uint32_t>(b) << 24;
+}
+
+// Rank r of G's share of the linear op `op` on a lane's arrays.
+template <int G, int L>
+__device__ __forceinline__ void run_lin(int r, const Arena<L>& ar, uint32_t op) {
+  const uint32_t kind = op & 3u;
+  if (kind == 0) return;
+  const Lane o = ar.arr((op >> 8) & 255u), a = ar.arr((op >> 16) & 255u), b = ar.arr(op >> 24);
+  if (kind == 1) {
+    g_add<G>(r, o, a, b);
+  } else {
+    g_sub<G>(r, o, a, b, (op >> 2) & 3u);
+  }
+}
+
+// A lane's group of kG ranks in a block of L lanes on the 15-bit plane: its
+// shared arrays and one product's work; every thread of the block runs every
+// phase.
 template <int L>
 struct Group {
+  static constexpr int kRanks = kG, kL = L;
   Arena<L> ar;
   Work w;
   uint32_t* pp;  // the block's P' and P, 28 words each
@@ -305,8 +253,17 @@ struct Group {
     lh::coop::mont_group_core<kG, L>(a, b, w, pp, pl, o, true, first,
                                      [&](int r) { lh::coop::clear_sums<kG>(r, w); last(r); });
   }
-  __device__ __forceinline__ void mul(Lane o, Lane a, Lane b) const {
-    mul(o, a, b, [](int) {}, [](int) {});
+  // The same on arrays by index, the linear ops f0, f1 in the t phase and l0,
+  // l1 in the last (packed, lin_add / lin_sub; 0 for none).
+  __device__ __forceinline__ void mul(int o, int a, int b, uint32_t f0 = 0, uint32_t f1 = 0,
+                                      uint32_t l0 = 0, uint32_t l1 = 0) const {
+    mul(ar.arr(o), ar.arr(a), ar.arr(b), [&](int r) {
+      run_lin<kG>(r, ar, f0);
+      run_lin<kG>(r, ar, f1);
+    }, [&](int r) {
+      run_lin<kG>(r, ar, l0);
+      run_lin<kG>(r, ar, l1);
+    });
   }
 
   // o = a * a * R^-1 by the triangle square; o may alias a
@@ -314,12 +271,49 @@ struct Group {
     lh::coop::mont_group_sqr_core<kG, L>(a, w, pp, pl, o, true, [](int) {},
                                          [&](int r) { lh::coop::clear_sums<kG>(r, w); });
   }
+};
 
-  // out = a (26, n) limb plane, live lanes only
-  __device__ __forceinline__ void store(uint32_t* out, int n, int lane, bool live, Lane a) const {
-    LH_RANKS_OF(kG, L, for (int k = r; k < NL; k += kG) {
-      if (live) out[static_cast<size_t>(k) * n + lane] = a(k);
-    })
+// Array o = array a * array b * R^-1 on the 13-bit plane for a lane whose
+// arrays start at `base` (an Arena<32>), with the block's work rows and
+// tables: mont_group_mxu_core, the linear ops f0, f1 in its to13 phase and
+// l0, l1 in its to15 phase.  Not inlined: the Fp2 chain's five products per
+// Karatsuba multiplication and square share one copy of the core's code.
+template <int G>
+__device__ __noinline__ void mul13(uint32_t* base, uint32_t* work, double* tab, int o, int a,
+                                   int b, uint32_t f0, uint32_t f1, uint32_t l0, uint32_t l1) {
+  const Arena<32> ar{base};
+  lh::coop13::mont_group_mxu_core<G>(ar.arr(a), ar.arr(b), lh::coop13::Work{work}, tab,
+                                     ar.arr(o), true, [&](int r) {
+    run_lin<G>(r, ar, f0);
+    run_lin<G>(r, ar, f1);
+  }, [&](int r) {
+    run_lin<G>(r, ar, l0);
+    run_lin<G>(r, ar, l1);
+  });
+}
+
+// A lane's group of G ranks (one per warp) in a block of 32 lanes on the
+// 13-bit plane: its shared arrays, the block's work rows and Toeplitz tables
+// (mxu_coop.cuh).
+template <int G>
+struct GroupMxu {
+  static constexpr int kRanks = G, kL = 32;
+  Arena<32> ar;
+  lh::coop13::Work w;
+  double* tab;
+
+  // the first phase: clear the column sums, fill the tables, and `load(r)`
+  template <class Load>
+  __device__ __forceinline__ void setup(int, Load load) const {
+    LH_RANKS(G, lh::coop13::clear_sums<G>(r, w); lh::coop13::fill_tables<G>(r, tab); load(r))
+  }
+
+  // array o = array a * array b * R^-1 on the 13-bit plane; o may alias a
+  // or b.  The linear ops f0, f1 run in the to13 phase, l0, l1 in the to15
+  // phase.
+  __device__ __forceinline__ void mul(int o, int a, int b, uint32_t f0 = 0, uint32_t f1 = 0,
+                                      uint32_t l0 = 0, uint32_t l1 = 0) const {
+    mul13<G>(ar.base, w.p, tab, o, a, b, f0, f1, l0, l1);
   }
 };
 
@@ -353,20 +347,21 @@ fp_chain_group_kernel(const int32_t* __restrict__ tape, int n_digits,
     }
   });
 #pragma unroll 1
-  for (int k = 2; k < kPowers; ++k) g.mul(ar.arr(k), ar.arr(k - 1), ar.arr(1));
+  for (int k = 2; k < kPowers; ++k) g.mul(k, k - 1, 1);
   const int first = tape[0];
-  LH_RANKS_OF(kG, L, g_copy(r, acc, ar.arr(first)))
+  LH_RANKS_OF(kG, L, g_copy<kG>(r, acc, ar.arr(first)))
 #pragma unroll 1
   for (int d = 1; d < n_digits; ++d) {
 #pragma unroll 1
     for (int s = 0; s < kWindow; ++s) g.sqr(acc, acc);
-    g.mul(acc, acc, ar.arr(tape[d]));
+    g.mul(kFpAcc, kFpAcc, tape[d]);
   }
-  g.store(out, n, lane, live, acc);
+  g_store<kG, L>(out, n, lane, live, acc);
 }
 
 // Per-lane arrays of the Fp2 chain: powers[0..15] of c0, of c1, the
-// accumulator (c0, c1), five temporaries; then one product's work.
+// accumulator (c0, c1), five temporaries; then (15-bit plane) one product's
+// work.
 constexpr int kFp2Pw1 = kPowers;
 constexpr int kFp2C0 = 2 * kPowers, kFp2C1 = kFp2C0 + 1;
 constexpr int kFp2Tmp = kFp2C1 + 1;
@@ -378,38 +373,80 @@ constexpr int kFp2ChainShared = kFp2ChainWords * lh::kLanes<L> + 2 * NP;
 // launches the Fp2 chain at 4,096 lanes only, where blocks of 16 lanes beat
 // blocks of 8 (PERF.md).
 constexpr int kFp2Lanes = 16;
+// Ranks per lane of the MXU Fp2 chain's one form (chain_kernel.FP2_MXU_FORM,
+// blocks of 32 lanes), the faster of G = 8 and G = 16 at 4,096 lanes
+// (PERF.md).
+constexpr int kFp2MxuGroup = 8;
+// The MXU Fp2 chain's shared words per block: the Toeplitz tables, the work
+// rows, the arrays
+template <int G>
+constexpr int kFp2MxuShared =
+    lh::coop13::kTabWords + lh::coop13::kWorkWords<G> + kFp2Arrays * NP * lh::kGroupLanes;
 
-// (r0, r1) = (a0 + a1 u)(b0 + b1 u), Karatsuba (pallas_fp._fp2_mul_core):
-// v0 = a0 b0 beside sa = a0 + a1, sb = b0 + b1; m = sa sb; v1 = a1 b1 beside
-// tm = m - v0 + 2P; then r0 = v0 - v1 + 2P, r1 = tm - v1 + 2P.  16 phases;
-// (r0, r1) may alias (a0, a1), not (b0, b1).
-template <int L>
-__device__ __forceinline__ void fp2_mul_group(const Group<L>& g, Lane r0, Lane r1, Lane a0,
-                                              Lane a1, Lane b0, Lane b1) {
-  const Lane sa = g.ar.arr(kFp2Tmp), sb = g.ar.arr(kFp2Tmp + 1), v0 = g.ar.arr(kFp2Tmp + 2),
-             m = g.ar.arr(kFp2Tmp + 3), tm = g.ar.arr(kFp2Tmp + 4);
-  const Lane v1 = sa;  // sa is dead once m's tiles are formed
-  g.mul(v0, a0, b0, [&](int r) {
-    g_add(r, sa, a0, a1);
-    g_add(r, sb, b0, b1);
-  }, [](int) {});
+// (r0, r1) = (a0 + a1 u)(b0 + b1 u), Karatsuba (pallas_fp._fp2_mul_core), on
+// arrays by index: v0 = a0 b0 beside sa = a0 + a1, sb = b0 + b1; m = sa sb;
+// v1 = a1 b1 beside tm = m - v0 + 2P; then r0 = v0 - v1 + 2P, r1 = tm - v1 +
+// 2P.  Three products and one phase (16 phases on the 15-bit plane, 25 on
+// the 13-bit); (r0, r1) may alias (a0, a1), not (b0, b1).
+template <class Grp>
+__device__ __forceinline__ void fp2_mul_group(const Grp& g, int r0, int r1, int a0, int a1,
+                                              int b0, int b1) {
+  constexpr int G = Grp::kRanks;
+  constexpr int sa = kFp2Tmp, sb = kFp2Tmp + 1, v0 = kFp2Tmp + 2, m = kFp2Tmp + 3,
+                tm = kFp2Tmp + 4;
+  constexpr int v1 = sa;  // sa is dead once m's product has read it
+  g.mul(v0, a0, b0, lin_add(sa, a0, a1), lin_add(sb, b0, b1));
   g.mul(m, sa, sb);
-  g.mul(v1, a1, b1, [&](int r) { g_sub(r, tm, m, v0, kBias2); }, [](int) {});
-  LH_RANKS_OF(kG, L, g_sub(r, r0, v0, v1, kBias2); g_sub(r, r1, tm, v1, kBias2))
+  g.mul(v1, a1, b1, lin_sub(tm, m, v0, kBias2));
+  const auto& ar = g.ar;
+  LH_RANKS_OF(G, Grp::kL, g_sub<G>(r, ar.arr(r0), ar.arr(v0), ar.arr(v1), kBias2);
+              g_sub<G>(r, ar.arr(r1), ar.arr(tm), ar.arr(v1), kBias2))
 }
 
 // (r0, r1) = (a0 + a1 u)^2 = ((a0 + a1)(a0 - a1 + 16P), 2 a0 a1)
-// (pallas_fp._fp2_sqr_core): t = a0 a1 beside s = a0 + a1 and
-// d = a0 - a1 + 16P; then r0 = s d, beside r1 = t + t.  10 phases; may alias.
-template <int L>
-__device__ __forceinline__ void fp2_sqr_group(const Group<L>& g, Lane r0, Lane r1, Lane a0,
-                                              Lane a1) {
-  const Lane s = g.ar.arr(kFp2Tmp), d = g.ar.arr(kFp2Tmp + 1), t = g.ar.arr(kFp2Tmp + 2);
-  g.mul(t, a0, a1, [&](int r) {
-    g_add(r, s, a0, a1);
-    g_sub(r, d, a0, a1, kBias16);
-  }, [](int) {});
-  g.mul(r0, s, d, [](int) {}, [&](int r) { g_add(r, r1, t, t); });
+// (pallas_fp._fp2_sqr_core), on arrays by index: t = a0 a1 beside s = a0 +
+// a1 and d = a0 - a1 + 16P; then r0 = s d, beside r1 = t + t.  Two products
+// (10 phases on the 15-bit plane, 16 on the 13-bit); may alias.
+template <class Grp>
+__device__ __forceinline__ void fp2_sqr_group(const Grp& g, int r0, int r1, int a0, int a1) {
+  constexpr int s = kFp2Tmp, d = kFp2Tmp + 1, t = kFp2Tmp + 2;
+  g.mul(t, a0, a1, lin_add(s, a0, a1), lin_sub(d, a0, a1, kBias16));
+  g.mul(r0, s, d, 0, 0, lin_add(r1, t, t));
+}
+
+// (a0 + a1 u)^e for lane `lane` by its group g (either plane): the power
+// table, then four squares and a multiply per digit.
+template <class Grp>
+__device__ __forceinline__ void fp2_chain_group(const Grp& g, const int32_t* tape, int n_digits,
+                                                const uint32_t* a0, const uint32_t* a1,
+                                                uint32_t* o0, uint32_t* o1, int n, int lane,
+                                                bool live) {
+  constexpr int G = Grp::kRanks, L = Grp::kL;
+  const auto& ar = g.ar;
+  // powers[k] = (array k, array kFp2Pw1 + k): [0] = (the one, 0), [1] = (a0, a1)
+  g.setup(kFp2Arrays, [&](int r) {
+    for (int i = r; i < NL; i += G) {
+      ar.arr(0)(i) = lh::kOne[i];
+      ar.arr(kFp2Pw1)(i) = 0;
+      ar.arr(1)(i) = a0[static_cast<size_t>(i) * n + lane];
+      ar.arr(kFp2Pw1 + 1)(i) = a1[static_cast<size_t>(i) * n + lane];
+    }
+  });
+#pragma unroll 1
+  for (int k = 2; k < kPowers; ++k)
+    fp2_mul_group(g, k, kFp2Pw1 + k, k - 1, kFp2Pw1 + k - 1, 1, kFp2Pw1 + 1);
+  const int first = tape[0];
+  LH_RANKS_OF(G, L, g_copy<G>(r, ar.arr(kFp2C0), ar.arr(first));
+              g_copy<G>(r, ar.arr(kFp2C1), ar.arr(kFp2Pw1 + first)))
+#pragma unroll 1
+  for (int d = 1; d < n_digits; ++d) {
+#pragma unroll 1
+    for (int s = 0; s < kWindow; ++s) fp2_sqr_group(g, kFp2C0, kFp2C1, kFp2C0, kFp2C1);
+    const int digit = tape[d];
+    fp2_mul_group(g, kFp2C0, kFp2C1, kFp2C0, kFp2C1, digit, kFp2Pw1 + digit);
+  }
+  g_store<G, L>(o0, n, lane, live, ar.arr(kFp2C0));
+  g_store<G, L>(o1, n, lane, live, ar.arr(kFp2C1));
 }
 
 // (a0 + a1 u)^e for lane `lane`, by the 16 threads of its group in a block
@@ -422,49 +459,41 @@ fp2_chain_group_kernel(const int32_t* __restrict__ tape, int n_digits,
   LH_GROUP_SHARED(uint32_t, sm, kFp2ChainShared<L>);
   const int gl = lh::group_lane<L>();
   const bool live = gl < n;
-  const int lane = live ? gl : n - 1;
   const Arena<L> ar{sm + lh::group_slot<L>()};
   uint32_t* const pp = sm + kFp2ChainWords * lh::kLanes<L>;
   const Group<L> g{ar, ar.work(kFp2Arrays * NP), pp, pp + NP};
-  const auto pw0 = [&](int k) { return ar.arr(k); };
-  const auto pw1 = [&](int k) { return ar.arr(kFp2Pw1 + k); };
-  const Lane c0 = ar.arr(kFp2C0), c1 = ar.arr(kFp2C1);
-  // powers[0] = (the one, 0), powers[1] = (a0, a1)
-  g.setup(kFp2Arrays, [&](int r) {
-    for (int i = r; i < NL; i += kG) {
-      pw0(0)(i) = lh::kOne[i];
-      pw1(0)(i) = 0;
-      pw0(1)(i) = a0[static_cast<size_t>(i) * n + lane];
-      pw1(1)(i) = a1[static_cast<size_t>(i) * n + lane];
-    }
-  });
-#pragma unroll 1
-  for (int k = 2; k < kPowers; ++k)
-    fp2_mul_group(g, pw0(k), pw1(k), pw0(k - 1), pw1(k - 1), pw0(1), pw1(1));
-  const int first = tape[0];
-  LH_RANKS_OF(kG, L, g_copy(r, c0, pw0(first)); g_copy(r, c1, pw1(first)))
-#pragma unroll 1
-  for (int d = 1; d < n_digits; ++d) {
-#pragma unroll 1
-    for (int s = 0; s < kWindow; ++s) fp2_sqr_group(g, c0, c1, c0, c1);
-    const int digit = tape[d];
-    fp2_mul_group(g, c0, c1, c0, c1, pw0(digit), pw1(digit));
-  }
-  g.store(o0, n, lane, live, c0);
-  g.store(o1, n, lane, live, c1);
+  fp2_chain_group(g, tape, n_digits, a0, a1, o0, o1, n, live ? gl : n - 1, live);
+}
+
+// The same on the 13-bit plane, by the G ranks (warps) of its group in a
+// block of 32 lanes; shared memory: the Toeplitz tables, the work rows, the
+// arrays.
+template <int G>
+__global__ void __launch_bounds__(G * 32)
+fp2_chain_mxu_group_kernel(const int32_t* __restrict__ tape, int n_digits,
+                           const uint32_t* __restrict__ a0, const uint32_t* __restrict__ a1,
+                           uint32_t* __restrict__ o0, uint32_t* __restrict__ o1, int n) {
+  LH_COOP13_SHARED(sm, kFp2MxuShared<G>);
+  const int gl = lh::group_lane();
+  const bool live = gl < n;
+  uint32_t* const work = sm + lh::coop13::kTabWords;
+  const Arena<32> ar{work + lh::coop13::kWorkWords<G> + lh::group_slot()};
+  const GroupMxu<G> g{ar, {work}, reinterpret_cast<double*>(sm)};
+  fp2_chain_group(g, tape, n_digits, a0, a1, o0, o1, n, live ? gl : n - 1, live);
 }
 
 #ifdef __CUDACC__
-// Launch a group chain kernel with `words` of dynamic shared memory per
-// block (the attribute set once per kernel).
-template <int L, int Words, class Kernel, class... Args>
+// Launch a group chain kernel of G threads per lane in blocks of L lanes with
+// `words` of dynamic shared memory per block (the attribute set once per
+// kernel).
+template <int G, int L, int Words, class Kernel, class... Args>
 int launch_group(Kernel kernel, int n, cudaStream_t stream, Args... args) {
   constexpr int kShared = Words * 4;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<(n + L - 1) / L, kG * L, kShared, stream>>>(args..., n);
+  kernel<<<(n + L - 1) / L, G * L, kShared, stream>>>(args..., n);
   return static_cast<int>(cudaGetLastError());
 }
 #endif
@@ -485,10 +514,11 @@ extern "C" int lh_fp_chain(const void* tape, int n_digits, const void* base, voi
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   switch (lanes) {
     case 8:
-      return launch_group<8, kFpChainShared<8>>(fp_chain_group_kernel<8>, n, s, tp, n_digits, b, o);
+      return launch_group<kG, 8, kFpChainShared<8>>(fp_chain_group_kernel<8>, n, s, tp, n_digits,
+                                                     b, o);
     case 16:
-      return launch_group<16, kFpChainShared<16>>(fp_chain_group_kernel<16>, n, s, tp, n_digits, b,
-                                                  o);
+      return launch_group<kG, 16, kFpChainShared<16>>(fp_chain_group_kernel<16>, n, s, tp,
+                                                       n_digits, b, o);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -499,7 +529,7 @@ extern "C" int lh_fp_chain(const void* tape, int n_digits, const void* base, voi
 extern "C" int lh_fp2_chain(const void* tape, int n_digits, const void* a0, const void* a1,
                             void* o0, void* o1, int n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  return launch_group<kFp2Lanes, kFp2ChainShared<kFp2Lanes>>(
+  return launch_group<kG, kFp2Lanes, kFp2ChainShared<kFp2Lanes>>(
       fp2_chain_group_kernel<kFp2Lanes>, n, static_cast<cudaStream_t>(stream),
       static_cast<const int32_t*>(tape), n_digits, static_cast<const uint32_t*>(a0),
       static_cast<const uint32_t*>(a1), static_cast<uint32_t*>(o0), static_cast<uint32_t*>(o1));
@@ -517,15 +547,13 @@ extern "C" int lh_fp_chain_mxu(const void* tape, int n_digits, const void* base,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As lh_fp2_chain, on the 13-bit plane.
+// As lh_fp2_chain, on the 13-bit plane.  One form: kFp2MxuGroup ranks per
+// lane (one per warp) in blocks of 32 lanes.
 extern "C" int lh_fp2_chain_mxu(const void* tape, int n_digits, const void* a0, const void* a1,
                                 void* o0, void* o1, int n, void* stream) {
-  if (n > 0) {
-    fp2_chain_mxu_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(tape), n_digits, static_cast<const uint32_t*>(a0),
-        static_cast<const uint32_t*>(a1), static_cast<uint32_t*>(o0),
-        static_cast<uint32_t*>(o1), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_group<kFp2MxuGroup, 32, kFp2MxuShared<kFp2MxuGroup>>(
+      fp2_chain_mxu_group_kernel<kFp2MxuGroup>, n, static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(tape), n_digits, static_cast<const uint32_t*>(a0),
+      static_cast<const uint32_t*>(a1), static_cast<uint32_t*>(o0), static_cast<uint32_t*>(o1));
 }

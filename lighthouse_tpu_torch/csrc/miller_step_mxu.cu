@@ -6,22 +6,17 @@
 // from the same step programs as miller_step.cu; the plain PyTorch version
 // runs them over mxu_kernel.mont_mul_mxu_plain.
 //
-// Kernel 2m (the doubling step) runs in the group form of miller_step.cu
-// (csrc/group.cuh) with G = 8 threads per lane in blocks of 32 lanes, so
-// each warp is the 32 lanes of one rank: a phase's switch on the rank is
-// warp-uniform and every product's mma.sync (csrc/mxu.cuh) is made by a
-// whole warp, its N dimension the warp's 32 lanes as in the one-thread
-// form; the tail threads run lane n - 1 again and store nothing.  Each
-// warp stages its DMMA products in shared memory beside the block's slots:
-// the 64 rows of m * P in two passes of 32 (kMxuRows), so that 8 warps'
-// staging and the slots fit in one block (its launcher asserts the bytes).
-//
-// Kernel 3m (the addition step) runs one thread per lane, one warp per
-// block.  Its intermediates live in the slot array s (registers spilling to
-// local memory); every Montgomery product is one call of the non-inlined
-// k_mul on the 13-bit plane, which the whole warp makes together: the
-// program is straight-line, and the tail threads run lane n - 1's operands
-// again and store nothing.
+// Both steps run in the group form of miller_step.cu (csrc/group.cuh) with
+// G = 8 threads per lane in blocks of 32 lanes (miller_kernel.DBL_MXU_GROUP,
+// ADD_MXU_GROUP), so each warp is the 32 lanes of one rank: a phase's switch
+// on the rank is warp-uniform and every product's mma.sync (csrc/mxu.cuh) is
+// made by a whole warp, its N dimension the warp's 32 lanes; the tail
+// threads run lane n - 1 again and store nothing.  Each warp stages its DMMA
+// products in shared memory beside the block's slots, in passes of ROWS rows
+// of C (g_mul_mxu<ROWS>, MxuShared<G, ROWS>): the doubling step the 64 rows
+// of m * P in two passes of 32, the addition step, whose 92 slots take more
+// room, in four of 16, so that 8 warps' staging and the slots fit in one
+// block (each launcher asserts the bytes).
 //
 // Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
 // neighbouring words and every load and store coalesces.
@@ -31,75 +26,6 @@
 namespace {
 
 using lh::NL;
-
-constexpr int kBlock = 32;  // kernel 3m: 4,097 lanes -> 129 blocks, one per SM
-constexpr int kMxuRows = 32;  // kernel 2m: rows of C staged per pass
-
-__device__ __noinline__ void k_mul(uint32_t* o, const uint32_t* a, const uint32_t* b,
-                                   const lh::MxuCtx& mx) {
-  uint32_t x[NL], y[NL], r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    x[i] = a[i];
-    y[i] = b[i];
-  }
-  lh::mont_core_mxu(x, y, r, mx);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = r[i];
-}
-
-__device__ __forceinline__ void carry_store(uint32_t* o, uint32_t (&c)[NL]) {
-  lh::compress1(c);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = c[i];
-}
-
-// a + b, one carry pass
-__device__ __noinline__ void k_add(uint32_t* o, const uint32_t* a, const uint32_t* b) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + b[i];
-  carry_store(o, c);
-}
-
-// a + kP - b, one carry pass (the bias dominates b limb by limb)
-__device__ __noinline__ void k_sub(uint32_t* o, const uint32_t* a, const uint32_t* b, int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + lh::kBias[kidx][i] - b[i];
-  carry_store(o, c);
-}
-
-// kP - a, one carry pass
-__device__ __noinline__ void k_neg(uint32_t* o, const uint32_t* a, int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = lh::kBias[kidx][i] - a[i];
-  carry_store(o, c);
-}
-
-__device__ __forceinline__ void k_sel(uint32_t* o, bool take, const uint32_t* a,
-                                      const uint32_t* b) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = take ? a[i] : b[i];
-}
-
-__device__ __forceinline__ void k_one(uint32_t* o) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = lh::kOne[i];
-}
-
-__device__ __forceinline__ void k_load(uint32_t* o, const uint32_t* base, int plane, int n,
-                                       int lane) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = base[(static_cast<size_t>(plane) * NL + i) * n + lane];
-}
-
-__device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int lane,
-                                        const uint32_t* v) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i];
-}
 
 // The group form (csrc/group.cuh): G threads per lane, the lane's values in
 // shared memory, slot k limb i of the lane at s[(k * NL + i) * kGroupLanes].
@@ -188,11 +114,12 @@ __device__ __forceinline__ void g_store(uint32_t* base, int plane, int n, int la
   for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i * kGroupLanes];
 }
 
+template <int ROWS>
 __device__ __noinline__ void g_mul_mxu(uint16_t* s, int o, int a, int b, const lh::MxuCtx& mx) {
   uint32_t x[NL], y[NL], r[NL];
   g_get(s, a, x);
   g_get(s, b, y);
-  lh::mont_core_mxu<kMxuRows>(x, y, r, mx);
+  lh::mont_core_mxu<ROWS>(x, y, r, mx);
   g_put(s, o, r);
 }
 
@@ -201,10 +128,10 @@ __device__ __noinline__ void g_mul_mxu(uint16_t* s, int o, int a, int b, const l
 // miller_step_dbl_mxu_g8: 565 limb ops, 169 Montgomery products on the 13-bit plane;
 // 8 threads per lane, 22 rounds of products in 88 phases, 78 slots
 // (129,792 bytes of shared memory per block of 32 lanes, and
-// sizeof(lh::MxuShared<8, kMxuRows>) of DMMA staging for its 8 warps).
+// sizeof(lh::MxuShared<8, 32>) of DMMA staging for its 8 warps).
 static __global__ void __launch_bounds__(8 * lh::kGroupLanes)
 miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
-  LH_MXU_GROUP_SHARED(8, kMxuRows, mxu_sm, uint16_t, slots, 2028);
+  LH_MXU_GROUP_SHARED(8, 32, mxu_sm, uint16_t, slots, 2028);
   const lh::MxuCtx mx = lh::mxu_setup(mxu_sm);
   const int gl = lh::group_lane();
   const bool live = gl < n;
@@ -310,28 +237,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 5: round 1 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 31, 17, 18, mx);
+      g_mul_mxu<32>(s, 31, 17, 18, mx);
       break;
     case 1:
-      g_mul_mxu(s, 32, 13, 14, mx);
+      g_mul_mxu<32>(s, 32, 13, 14, mx);
       break;
     case 2:
-      g_mul_mxu(s, 33, 19, 20, mx);
+      g_mul_mxu<32>(s, 33, 19, 20, mx);
       break;
     case 3:
-      g_mul_mxu(s, 34, 15, 16, mx);
+      g_mul_mxu<32>(s, 34, 15, 16, mx);
       break;
     case 4:
-      g_mul_mxu(s, 35, 21, 0, mx);
+      g_mul_mxu<32>(s, 35, 21, 0, mx);
       break;
     case 5:
-      g_mul_mxu(s, 36, 22, 0, mx);
+      g_mul_mxu<32>(s, 36, 22, 0, mx);
       break;
     case 6:
-      g_mul_mxu(s, 37, 29, 0, mx);
+      g_mul_mxu<32>(s, 37, 29, 0, mx);
       break;
     case 7:
-      g_mul_mxu(s, 38, 30, 0, mx);
+      g_mul_mxu<32>(s, 38, 30, 0, mx);
       break;
     default:
       break;
@@ -379,28 +306,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 8: round 2 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 39, 32, 34, mx);
+      g_mul_mxu<32>(s, 39, 32, 34, mx);
       break;
     case 1:
-      g_mul_mxu(s, 40, 17, 18, mx);
+      g_mul_mxu<32>(s, 40, 17, 18, mx);
       break;
     case 2:
-      g_mul_mxu(s, 41, 33, 15, mx);
+      g_mul_mxu<32>(s, 41, 33, 15, mx);
       break;
     case 3:
-      g_mul_mxu(s, 42, 20, 16, mx);
+      g_mul_mxu<32>(s, 42, 20, 16, mx);
       break;
     case 4:
-      g_mul_mxu(s, 43, 22, 21, mx);
+      g_mul_mxu<32>(s, 43, 22, 21, mx);
       break;
     case 5:
-      g_mul_mxu(s, 44, 31, 33, mx);
+      g_mul_mxu<32>(s, 44, 31, 33, mx);
       break;
     case 6:
-      g_mul_mxu(s, 45, 19, 20, mx);
+      g_mul_mxu<32>(s, 45, 19, 20, mx);
       break;
     case 7:
-      g_mul_mxu(s, 46, 29, 30, mx);
+      g_mul_mxu<32>(s, 46, 29, 30, mx);
       break;
     default:
       break;
@@ -444,28 +371,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 12: round 3 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 43, 17, 20, mx);
+      g_mul_mxu<32>(s, 43, 17, 20, mx);
       break;
     case 1:
-      g_mul_mxu(s, 42, 18, 41, mx);
+      g_mul_mxu<32>(s, 42, 18, 41, mx);
       break;
     case 2:
-      g_mul_mxu(s, 32, 22, 21, mx);
+      g_mul_mxu<32>(s, 32, 22, 21, mx);
       break;
     case 3:
-      g_mul_mxu(s, 33, 1, 7, mx);
+      g_mul_mxu<32>(s, 33, 1, 7, mx);
       break;
     case 4:
-      g_mul_mxu(s, 34, 2, 8, mx);
+      g_mul_mxu<32>(s, 34, 2, 8, mx);
       break;
     case 5:
-      g_mul_mxu(s, 47, 29, 30, mx);
+      g_mul_mxu<32>(s, 47, 29, 30, mx);
       break;
     case 6:
-      g_mul_mxu(s, 48, 3, 9, mx);
+      g_mul_mxu<32>(s, 48, 3, 9, mx);
       break;
     case 7:
-      g_mul_mxu(s, 49, 4, 10, mx);
+      g_mul_mxu<32>(s, 49, 4, 10, mx);
       break;
     default:
       break;
@@ -515,28 +442,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 15: round 4 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 56, 20, 21, mx);
+      g_mul_mxu<32>(s, 56, 20, 21, mx);
       break;
     case 1:
-      g_mul_mxu(s, 57, 5, 11, mx);
+      g_mul_mxu<32>(s, 57, 5, 11, mx);
       break;
     case 2:
-      g_mul_mxu(s, 58, 6, 12, mx);
+      g_mul_mxu<32>(s, 58, 6, 12, mx);
       break;
     case 3:
-      g_mul_mxu(s, 59, 22, 29, mx);
+      g_mul_mxu<32>(s, 59, 22, 29, mx);
       break;
     case 4:
-      g_mul_mxu(s, 60, 30, 50, mx);
+      g_mul_mxu<32>(s, 60, 30, 50, mx);
       break;
     case 5:
-      g_mul_mxu(s, 61, 41, 51, mx);
+      g_mul_mxu<32>(s, 61, 41, 51, mx);
       break;
     case 6:
-      g_mul_mxu(s, 62, 54, 55, mx);
+      g_mul_mxu<32>(s, 62, 54, 55, mx);
       break;
     case 7:
-      g_mul_mxu(s, 63, 52, 53, mx);
+      g_mul_mxu<32>(s, 63, 52, 53, mx);
       break;
     default:
       break;
@@ -594,28 +521,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 18: round 5 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 52, 20, 21, mx);
+      g_mul_mxu<32>(s, 52, 20, 21, mx);
       break;
     case 1:
-      g_mul_mxu(s, 53, 1, 2, mx);
+      g_mul_mxu<32>(s, 53, 1, 2, mx);
       break;
     case 2:
-      g_mul_mxu(s, 64, 22, 30, mx);
+      g_mul_mxu<32>(s, 64, 22, 30, mx);
       break;
     case 3:
-      g_mul_mxu(s, 65, 29, 41, mx);
+      g_mul_mxu<32>(s, 65, 29, 41, mx);
       break;
     case 4:
-      g_mul_mxu(s, 66, 7, 8, mx);
+      g_mul_mxu<32>(s, 66, 7, 8, mx);
       break;
     case 5:
-      g_mul_mxu(s, 67, 50, 27, mx);
+      g_mul_mxu<32>(s, 67, 50, 27, mx);
       break;
     case 6:
-      g_mul_mxu(s, 68, 51, 28, mx);
+      g_mul_mxu<32>(s, 68, 51, 28, mx);
       break;
     case 7:
-      g_mul_mxu(s, 69, 55, 54, mx);
+      g_mul_mxu<32>(s, 69, 55, 54, mx);
       break;
     default:
       break;
@@ -669,28 +596,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 21: round 6 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 9, 1, 23, mx);
+      g_mul_mxu<32>(s, 9, 1, 23, mx);
       break;
     case 1:
-      g_mul_mxu(s, 10, 2, 24, mx);
+      g_mul_mxu<32>(s, 10, 2, 24, mx);
       break;
     case 2:
-      g_mul_mxu(s, 11, 3, 20, mx);
+      g_mul_mxu<32>(s, 11, 3, 20, mx);
       break;
     case 3:
-      g_mul_mxu(s, 12, 7, 25, mx);
+      g_mul_mxu<32>(s, 12, 7, 25, mx);
       break;
     case 4:
-      g_mul_mxu(s, 28, 8, 26, mx);
+      g_mul_mxu<32>(s, 28, 8, 26, mx);
       break;
     case 5:
-      g_mul_mxu(s, 29, 4, 21, mx);
+      g_mul_mxu<32>(s, 29, 4, 21, mx);
       break;
     case 6:
-      g_mul_mxu(s, 30, 5, 22, mx);
+      g_mul_mxu<32>(s, 30, 5, 22, mx);
       break;
     case 7:
-      g_mul_mxu(s, 41, 6, 27, mx);
+      g_mul_mxu<32>(s, 41, 6, 27, mx);
       break;
     default:
       break;
@@ -738,28 +665,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 24: round 7 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 5, 31, 13, mx);
+      g_mul_mxu<32>(s, 5, 31, 13, mx);
       break;
     case 1:
-      g_mul_mxu(s, 6, 3, 4, mx);
+      g_mul_mxu<32>(s, 6, 3, 4, mx);
       break;
     case 2:
-      g_mul_mxu(s, 7, 20, 35, mx);
+      g_mul_mxu<32>(s, 7, 20, 35, mx);
       break;
     case 3:
-      g_mul_mxu(s, 8, 21, 36, mx);
+      g_mul_mxu<32>(s, 8, 21, 36, mx);
       break;
     case 4:
-      g_mul_mxu(s, 22, 1, 23, mx);
+      g_mul_mxu<32>(s, 22, 1, 23, mx);
       break;
     case 5:
-      g_mul_mxu(s, 27, 24, 37, mx);
+      g_mul_mxu<32>(s, 27, 24, 37, mx);
       break;
     case 6:
-      g_mul_mxu(s, 50, 25, 38, mx);
+      g_mul_mxu<32>(s, 50, 25, 38, mx);
       break;
     case 7:
-      g_mul_mxu(s, 51, 2, 26, mx);
+      g_mul_mxu<32>(s, 51, 2, 26, mx);
       break;
     default:
       break;
@@ -827,28 +754,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 28: round 8 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 36, 19, 14, mx);
+      g_mul_mxu<32>(s, 36, 19, 14, mx);
       break;
     case 1:
-      g_mul_mxu(s, 37, 20, 21, mx);
+      g_mul_mxu<32>(s, 37, 20, 21, mx);
       break;
     case 2:
-      g_mul_mxu(s, 38, 24, 25, mx);
+      g_mul_mxu<32>(s, 38, 24, 25, mx);
       break;
     case 3:
-      g_mul_mxu(s, 54, 39, 1, mx);
+      g_mul_mxu<32>(s, 54, 39, 1, mx);
       break;
     case 4:
-      g_mul_mxu(s, 55, 2, 3, mx);
+      g_mul_mxu<32>(s, 55, 2, 3, mx);
       break;
     case 5:
-      g_mul_mxu(s, 70, 4, 23, mx);
+      g_mul_mxu<32>(s, 70, 4, 23, mx);
       break;
     case 6:
-      g_mul_mxu(s, 71, 26, 35, mx);
+      g_mul_mxu<32>(s, 71, 26, 35, mx);
       break;
     case 7:
-      g_mul_mxu(s, 72, 13, 40, mx);
+      g_mul_mxu<32>(s, 72, 13, 40, mx);
       break;
     default:
       break;
@@ -1003,28 +930,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 35: round 9 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 21, 34, 2, mx);
+      g_mul_mxu<32>(s, 21, 34, 2, mx);
       break;
     case 1:
-      g_mul_mxu(s, 24, 20, 2, mx);
+      g_mul_mxu<32>(s, 24, 20, 2, mx);
       break;
     case 2:
-      g_mul_mxu(s, 43, 42, 3, mx);
+      g_mul_mxu<32>(s, 43, 42, 3, mx);
       break;
     case 3:
-      g_mul_mxu(s, 49, 14, 3, mx);
+      g_mul_mxu<32>(s, 49, 14, 3, mx);
       break;
     case 4:
-      g_mul_mxu(s, 53, 4, 0, mx);
+      g_mul_mxu<32>(s, 53, 4, 0, mx);
       break;
     case 5:
-      g_mul_mxu(s, 33, 26, 0, mx);
+      g_mul_mxu<32>(s, 33, 26, 0, mx);
       break;
     case 6:
-      g_mul_mxu(s, 46, 52, 0, mx);
+      g_mul_mxu<32>(s, 46, 52, 0, mx);
       break;
     case 7:
-      g_mul_mxu(s, 47, 32, 0, mx);
+      g_mul_mxu<32>(s, 47, 32, 0, mx);
       break;
     default:
       break;
@@ -1187,28 +1114,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 42: round 10 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 3, 8, 0, mx);
+      g_mul_mxu<32>(s, 3, 8, 0, mx);
       break;
     case 1:
-      g_mul_mxu(s, 4, 2, 0, mx);
+      g_mul_mxu<32>(s, 4, 2, 0, mx);
       break;
     case 2:
-      g_mul_mxu(s, 6, 7, 0, mx);
+      g_mul_mxu<32>(s, 6, 7, 0, mx);
       break;
     case 3:
-      g_mul_mxu(s, 9, 10, 0, mx);
+      g_mul_mxu<32>(s, 9, 10, 0, mx);
       break;
     case 4:
-      g_mul_mxu(s, 11, 32, 0, mx);
+      g_mul_mxu<32>(s, 11, 32, 0, mx);
       break;
     case 5:
-      g_mul_mxu(s, 27, 12, 0, mx);
+      g_mul_mxu<32>(s, 27, 12, 0, mx);
       break;
     case 6:
-      g_mul_mxu(s, 28, 35, 0, mx);
+      g_mul_mxu<32>(s, 28, 35, 0, mx);
       break;
     case 7:
-      g_mul_mxu(s, 30, 14, 0, mx);
+      g_mul_mxu<32>(s, 30, 14, 0, mx);
       break;
     default:
       break;
@@ -1329,28 +1256,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 50: round 11 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 31, 32, 0, mx);
+      g_mul_mxu<32>(s, 31, 32, 0, mx);
       break;
     case 1:
-      g_mul_mxu(s, 12, 7, 0, mx);
+      g_mul_mxu<32>(s, 12, 7, 0, mx);
       break;
     case 2:
-      g_mul_mxu(s, 35, 5, 0, mx);
+      g_mul_mxu<32>(s, 35, 5, 0, mx);
       break;
     case 3:
-      g_mul_mxu(s, 36, 1, 0, mx);
+      g_mul_mxu<32>(s, 36, 1, 0, mx);
       break;
     case 4:
-      g_mul_mxu(s, 71, 21, 0, mx);
+      g_mul_mxu<32>(s, 71, 21, 0, mx);
       break;
     case 5:
-      g_mul_mxu(s, 14, 24, 0, mx);
+      g_mul_mxu<32>(s, 14, 24, 0, mx);
       break;
     case 6:
-      g_mul_mxu(s, 19, 43, 0, mx);
+      g_mul_mxu<32>(s, 19, 43, 0, mx);
       break;
     case 7:
-      g_mul_mxu(s, 37, 49, 0, mx);
+      g_mul_mxu<32>(s, 37, 49, 0, mx);
       break;
     default:
       break;
@@ -1412,28 +1339,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 53: round 12 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 1, 6, 0, mx);
+      g_mul_mxu<32>(s, 1, 6, 0, mx);
       break;
     case 1:
-      g_mul_mxu(s, 5, 9, 0, mx);
+      g_mul_mxu<32>(s, 5, 9, 0, mx);
       break;
     case 2:
-      g_mul_mxu(s, 7, 11, 0, mx);
+      g_mul_mxu<32>(s, 7, 11, 0, mx);
       break;
     case 3:
-      g_mul_mxu(s, 21, 27, 0, mx);
+      g_mul_mxu<32>(s, 21, 27, 0, mx);
       break;
     case 4:
-      g_mul_mxu(s, 24, 28, 0, mx);
+      g_mul_mxu<32>(s, 24, 28, 0, mx);
       break;
     case 5:
-      g_mul_mxu(s, 32, 30, 0, mx);
+      g_mul_mxu<32>(s, 32, 30, 0, mx);
       break;
     case 6:
-      g_mul_mxu(s, 33, 39, 0, mx);
+      g_mul_mxu<32>(s, 33, 39, 0, mx);
       break;
     case 7:
-      g_mul_mxu(s, 43, 54, 0, mx);
+      g_mul_mxu<32>(s, 43, 54, 0, mx);
       break;
     default:
       break;
@@ -1464,28 +1391,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 55: round 13 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 3, 17, 15, mx);
+      g_mul_mxu<32>(s, 3, 17, 15, mx);
       break;
     case 1:
-      g_mul_mxu(s, 4, 18, 16, mx);
+      g_mul_mxu<32>(s, 4, 18, 16, mx);
       break;
     case 2:
-      g_mul_mxu(s, 46, 6, 9, mx);
+      g_mul_mxu<32>(s, 46, 6, 9, mx);
       break;
     case 3:
-      g_mul_mxu(s, 47, 13, 31, mx);
+      g_mul_mxu<32>(s, 47, 13, 31, mx);
       break;
     case 4:
-      g_mul_mxu(s, 39, 11, 0, mx);
+      g_mul_mxu<32>(s, 39, 11, 0, mx);
       break;
     case 5:
-      g_mul_mxu(s, 54, 27, 0, mx);
+      g_mul_mxu<32>(s, 54, 27, 0, mx);
       break;
     case 6:
-      g_mul_mxu(s, 49, 28, 0, mx);
+      g_mul_mxu<32>(s, 49, 28, 0, mx);
       break;
     case 7:
-      g_mul_mxu(s, 53, 30, 0, mx);
+      g_mul_mxu<32>(s, 53, 30, 0, mx);
       break;
     default:
       break;
@@ -1516,28 +1443,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 57: round 14 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 13, 40, 12, mx);
+      g_mul_mxu<32>(s, 13, 40, 12, mx);
       break;
     case 1:
-      g_mul_mxu(s, 31, 6, 9, mx);
+      g_mul_mxu<32>(s, 31, 6, 9, mx);
       break;
     case 2:
-      g_mul_mxu(s, 18, 1, 35, mx);
+      g_mul_mxu<32>(s, 18, 1, 35, mx);
       break;
     case 3:
-      g_mul_mxu(s, 27, 5, 36, mx);
+      g_mul_mxu<32>(s, 27, 5, 36, mx);
       break;
     case 4:
-      g_mul_mxu(s, 28, 11, 15, mx);
+      g_mul_mxu<32>(s, 28, 11, 15, mx);
       break;
     case 5:
-      g_mul_mxu(s, 30, 24, 71, mx);
+      g_mul_mxu<32>(s, 30, 24, 71, mx);
       break;
     case 6:
-      g_mul_mxu(s, 55, 32, 14, mx);
+      g_mul_mxu<32>(s, 55, 32, 14, mx);
       break;
     case 7:
-      g_mul_mxu(s, 70, 16, 17, mx);
+      g_mul_mxu<32>(s, 70, 16, 17, mx);
       break;
     default:
       break;
@@ -1562,28 +1489,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 59: round 15 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 15, 1, 71, mx);
+      g_mul_mxu<32>(s, 15, 1, 71, mx);
       break;
     case 1:
-      g_mul_mxu(s, 16, 5, 14, mx);
+      g_mul_mxu<32>(s, 16, 5, 14, mx);
       break;
     case 2:
-      g_mul_mxu(s, 17, 6, 9, mx);
+      g_mul_mxu<32>(s, 17, 6, 9, mx);
       break;
     case 3:
-      g_mul_mxu(s, 40, 7, 35, mx);
+      g_mul_mxu<32>(s, 40, 7, 35, mx);
       break;
     case 4:
-      g_mul_mxu(s, 72, 21, 36, mx);
+      g_mul_mxu<32>(s, 72, 21, 36, mx);
       break;
     case 5:
-      g_mul_mxu(s, 34, 11, 12, mx);
+      g_mul_mxu<32>(s, 34, 11, 12, mx);
       break;
     case 6:
-      g_mul_mxu(s, 45, 7, 71, mx);
+      g_mul_mxu<32>(s, 45, 7, 71, mx);
       break;
     case 7:
-      g_mul_mxu(s, 20, 21, 14, mx);
+      g_mul_mxu<32>(s, 20, 21, 14, mx);
       break;
     default:
       break;
@@ -1614,28 +1541,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 61: round 16 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 25, 6, 9, mx);
+      g_mul_mxu<32>(s, 25, 6, 9, mx);
       break;
     case 1:
-      g_mul_mxu(s, 26, 24, 35, mx);
+      g_mul_mxu<32>(s, 26, 24, 35, mx);
       break;
     case 2:
-      g_mul_mxu(s, 29, 32, 36, mx);
+      g_mul_mxu<32>(s, 29, 32, 36, mx);
       break;
     case 3:
-      g_mul_mxu(s, 48, 11, 12, mx);
+      g_mul_mxu<32>(s, 48, 11, 12, mx);
       break;
     case 4:
-      g_mul_mxu(s, 41, 49, 19, mx);
+      g_mul_mxu<32>(s, 41, 49, 19, mx);
       break;
     case 5:
-      g_mul_mxu(s, 44, 53, 37, mx);
+      g_mul_mxu<32>(s, 44, 53, 37, mx);
       break;
     case 6:
-      g_mul_mxu(s, 50, 22, 23, mx);
+      g_mul_mxu<32>(s, 50, 22, 23, mx);
       break;
     case 7:
-      g_mul_mxu(s, 64, 33, 19, mx);
+      g_mul_mxu<32>(s, 64, 33, 19, mx);
       break;
     default:
       break;
@@ -1677,28 +1604,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 64: round 17 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 5, 43, 37, mx);
+      g_mul_mxu<32>(s, 5, 43, 37, mx);
       break;
     case 1:
-      g_mul_mxu(s, 33, 11, 12, mx);
+      g_mul_mxu<32>(s, 33, 11, 12, mx);
       break;
     case 2:
-      g_mul_mxu(s, 51, 39, 19, mx);
+      g_mul_mxu<32>(s, 51, 39, 19, mx);
       break;
     case 3:
-      g_mul_mxu(s, 52, 54, 37, mx);
+      g_mul_mxu<32>(s, 52, 54, 37, mx);
       break;
     case 4:
-      g_mul_mxu(s, 56, 22, 23, mx);
+      g_mul_mxu<32>(s, 56, 22, 23, mx);
       break;
     case 5:
-      g_mul_mxu(s, 57, 6, 35, mx);
+      g_mul_mxu<32>(s, 57, 6, 35, mx);
       break;
     case 6:
-      g_mul_mxu(s, 58, 9, 36, mx);
+      g_mul_mxu<32>(s, 58, 9, 36, mx);
       break;
     case 7:
-      g_mul_mxu(s, 59, 1, 42, mx);
+      g_mul_mxu<32>(s, 59, 1, 42, mx);
       break;
     default:
       break;
@@ -1746,28 +1673,28 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 67: round 18 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 21, 12, 23, mx);
+      g_mul_mxu<32>(s, 21, 12, 23, mx);
       break;
     case 1:
-      g_mul_mxu(s, 24, 22, 42, mx);
+      g_mul_mxu<32>(s, 24, 22, 42, mx);
       break;
     case 2:
-      g_mul_mxu(s, 32, 7, 14, mx);
+      g_mul_mxu<32>(s, 32, 7, 14, mx);
       break;
     case 3:
-      g_mul_mxu(s, 37, 6, 23, mx);
+      g_mul_mxu<32>(s, 37, 6, 23, mx);
       break;
     case 4:
-      g_mul_mxu(s, 39, 9, 42, mx);
+      g_mul_mxu<32>(s, 39, 9, 42, mx);
       break;
     case 5:
-      g_mul_mxu(s, 49, 43, 19, mx);
+      g_mul_mxu<32>(s, 49, 43, 19, mx);
       break;
     case 6:
-      g_mul_mxu(s, 53, 1, 35, mx);
+      g_mul_mxu<32>(s, 53, 1, 35, mx);
       break;
     case 7:
-      g_mul_mxu(s, 54, 11, 36, mx);
+      g_mul_mxu<32>(s, 54, 11, 36, mx);
       break;
     default:
       break;
@@ -1798,29 +1725,29 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 69: round 19 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 71, 10, 0, mx);
+      g_mul_mxu<32>(s, 71, 10, 0, mx);
       if (live) g_store(t_out, 0, n, lane, s, 71);
       break;
     case 1:
-      g_mul_mxu(s, 66, 6, 7, mx);
+      g_mul_mxu<32>(s, 66, 6, 7, mx);
       break;
     case 2:
-      g_mul_mxu(s, 69, 1, 23, mx);
+      g_mul_mxu<32>(s, 69, 1, 23, mx);
       break;
     case 3:
-      g_mul_mxu(s, 65, 11, 42, mx);
+      g_mul_mxu<32>(s, 65, 11, 42, mx);
       break;
     case 4:
-      g_mul_mxu(s, 67, 9, 14, mx);
+      g_mul_mxu<32>(s, 67, 9, 14, mx);
       break;
     case 5:
-      g_mul_mxu(s, 68, 12, 35, mx);
+      g_mul_mxu<32>(s, 68, 12, 35, mx);
       break;
     case 6:
-      g_mul_mxu(s, 62, 22, 36, mx);
+      g_mul_mxu<32>(s, 62, 22, 36, mx);
       break;
     case 7:
-      g_mul_mxu(s, 73, 19, 43, mx);
+      g_mul_mxu<32>(s, 73, 19, 43, mx);
       break;
     default:
       break;
@@ -1956,35 +1883,35 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 75: round 20 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 22, 2, 0, mx);
+      g_mul_mxu<32>(s, 22, 2, 0, mx);
       if (live) g_store(t_out, 1, n, lane, s, 22);
       break;
     case 1:
-      g_mul_mxu(s, 23, 3, 0, mx);
+      g_mul_mxu<32>(s, 23, 3, 0, mx);
       if (live) g_store(t_out, 2, n, lane, s, 23);
       break;
     case 2:
-      g_mul_mxu(s, 6, 8, 0, mx);
+      g_mul_mxu<32>(s, 6, 8, 0, mx);
       if (live) g_store(t_out, 3, n, lane, s, 6);
       break;
     case 3:
-      g_mul_mxu(s, 7, 18, 0, mx);
+      g_mul_mxu<32>(s, 7, 18, 0, mx);
       if (live) g_store(t_out, 4, n, lane, s, 7);
       break;
     case 4:
-      g_mul_mxu(s, 10, 9, 0, mx);
+      g_mul_mxu<32>(s, 10, 9, 0, mx);
       if (live) g_store(t_out, 5, n, lane, s, 10);
       break;
     case 5:
-      g_mul_mxu(s, 11, 1, 0, mx);
+      g_mul_mxu<32>(s, 11, 1, 0, mx);
       if (live) g_store(f_out, 0, n, lane, s, 11);
       break;
     case 6:
-      g_mul_mxu(s, 12, 4, 0, mx);
+      g_mul_mxu<32>(s, 12, 4, 0, mx);
       if (live) g_store(f_out, 1, n, lane, s, 12);
       break;
     case 7:
-      g_mul_mxu(s, 27, 30, 0, mx);
+      g_mul_mxu<32>(s, 27, 30, 0, mx);
       if (live) g_store(f_out, 2, n, lane, s, 27);
       break;
     default:
@@ -2146,35 +2073,35 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 82: round 21 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 1, 15, 0, mx);
+      g_mul_mxu<32>(s, 1, 15, 0, mx);
       if (live) g_store(f_out, 3, n, lane, s, 1);
       break;
     case 1:
-      g_mul_mxu(s, 3, 7, 0, mx);
+      g_mul_mxu<32>(s, 3, 7, 0, mx);
       if (live) g_store(f_out, 4, n, lane, s, 3);
       break;
     case 2:
-      g_mul_mxu(s, 14, 16, 0, mx);
+      g_mul_mxu<32>(s, 14, 16, 0, mx);
       if (live) g_store(f_out, 5, n, lane, s, 14);
       break;
     case 3:
-      g_mul_mxu(s, 35, 5, 0, mx);
+      g_mul_mxu<32>(s, 35, 5, 0, mx);
       if (live) g_store(f_out, 6, n, lane, s, 35);
       break;
     case 4:
-      g_mul_mxu(s, 13, 12, 0, mx);
+      g_mul_mxu<32>(s, 13, 12, 0, mx);
       if (live) g_store(f_out, 7, n, lane, s, 13);
       break;
     case 5:
-      g_mul_mxu(s, 19, 26, 0, mx);
+      g_mul_mxu<32>(s, 19, 26, 0, mx);
       if (live) g_store(f_out, 8, n, lane, s, 19);
       break;
     case 6:
-      g_mul_mxu(s, 20, 4, 0, mx);
+      g_mul_mxu<32>(s, 20, 4, 0, mx);
       if (live) g_store(f_out, 9, n, lane, s, 20);
       break;
     case 7:
-      g_mul_mxu(s, 21, 29, 0, mx);
+      g_mul_mxu<32>(s, 21, 29, 0, mx);
       if (live) g_store(f_out, 10, n, lane, s, 21);
       break;
     default:
@@ -2229,7 +2156,7 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
   // phase 88: round 22 of products
   LH_RANKS(8, switch (r) {
     case 0:
-      g_mul_mxu(s, 41, 1, 0, mx);
+      g_mul_mxu<32>(s, 41, 1, 0, mx);
       if (live) g_store(f_out, 11, n, lane, s, 41);
       break;
     default:
@@ -2239,7 +2166,7 @@ miller_step_dbl_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __
 
 extern "C" int lh_miller_step_dbl_mxu_g8(const void* f, const void* t, const void* xp, const void* yp, void* f_out, void* t_out, int n,
                               void* stream) {
-  constexpr int kShared = static_cast<int>(sizeof(lh::MxuShared<8, kMxuRows>)) + 2028 * 2 * lh::kGroupLanes;
+  constexpr int kShared = static_cast<int>(sizeof(lh::MxuShared<8, 32>)) + 2028 * 2 * lh::kGroupLanes;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
   static const cudaError_t attr = cudaFuncSetAttribute(
       miller_step_dbl_mxu_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
@@ -2253,393 +2180,1324 @@ extern "C" int lh_miller_step_dbl_mxu_g8(const void* f, const void* t, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// miller_step_add_mxu: 353 limb ops, 111 Montgomery products on the 13-bit plane, 62 slots.
-static __global__ void __launch_bounds__(kBlock)
-miller_step_add_mxu_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ q, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, const int32_t* __restrict__ bit, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
-  __shared__ lh::MxuShared<1> mxu_sm;
+// miller_step_add_mxu_g8: 353 limb ops, 111 Montgomery products on the 13-bit plane;
+// 8 threads per lane, 15 rounds of products in 59 phases, 92 slots
+// (153,088 bytes of shared memory per block of 32 lanes, and
+// sizeof(lh::MxuShared<8, 16>) of DMMA staging for its 8 warps).
+static __global__ void __launch_bounds__(8 * lh::kGroupLanes)
+miller_step_add_mxu_g8_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ t, const uint32_t* __restrict__ q, const uint32_t* __restrict__ xp, const uint32_t* __restrict__ yp, const int32_t* __restrict__ bit, uint32_t* __restrict__ f_out, uint32_t* __restrict__ t_out, int n) {
+  LH_MXU_GROUP_SHARED(8, 16, mxu_sm, uint16_t, slots, 2392);
   const lh::MxuCtx mx = lh::mxu_setup(mxu_sm);
-  const int gl = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gl = lh::group_lane();
   const bool live = gl < n;
   const int lane = live ? gl : n - 1;
-  uint32_t s[62][NL];
-  k_one(s[0]);
-  k_load(s[1], f, 0, n, lane);
-  k_load(s[2], f, 1, n, lane);
-  k_load(s[3], f, 2, n, lane);
-  k_load(s[4], f, 3, n, lane);
-  k_load(s[5], f, 4, n, lane);
-  k_load(s[6], f, 5, n, lane);
-  k_load(s[7], f, 6, n, lane);
-  k_load(s[8], f, 7, n, lane);
-  k_load(s[9], f, 8, n, lane);
-  k_load(s[10], f, 9, n, lane);
-  k_load(s[11], f, 10, n, lane);
-  k_load(s[12], f, 11, n, lane);
-  k_load(s[13], t, 0, n, lane);
-  k_load(s[14], t, 1, n, lane);
-  k_load(s[15], t, 2, n, lane);
-  k_load(s[16], t, 3, n, lane);
-  k_load(s[17], t, 4, n, lane);
-  k_load(s[18], t, 5, n, lane);
-  k_load(s[19], q, 0, n, lane);
-  k_load(s[20], q, 1, n, lane);
-  k_load(s[21], q, 2, n, lane);
-  k_load(s[22], q, 3, n, lane);
-  k_load(s[23], xp, 0, n, lane);
-  k_load(s[24], yp, 0, n, lane);
+  uint16_t* const s = slots + lh::group_slot();
   const bool take = bit[lane] != 0;
-  k_sub(s[25], s[17], s[18], 1);  // k=4
-  k_add(s[26], s[17], s[18]);
-  k_mul(s[27], s[25], s[26], mx);
-  k_mul(s[26], s[17], s[18], mx);
-  k_add(s[25], s[26], s[26]);
-  k_add(s[26], s[27], s[25]);
-  k_add(s[28], s[17], s[18]);
-  k_mul(s[29], s[27], s[17], mx);
-  k_mul(s[30], s[25], s[18], mx);
-  k_mul(s[31], s[26], s[28], mx);
-  k_sub(s[28], s[29], s[30], 0);  // k=2
-  k_add(s[26], s[29], s[30]);
-  k_sub(s[30], s[31], s[26], 1);  // k=4
-  k_add(s[31], s[19], s[20]);
-  k_add(s[26], s[27], s[25]);
-  k_mul(s[29], s[19], s[27], mx);
-  k_mul(s[27], s[20], s[25], mx);
-  k_mul(s[25], s[31], s[26], mx);
-  k_sub(s[31], s[29], s[27], 0);  // k=2
-  k_add(s[26], s[29], s[27]);
-  k_sub(s[29], s[25], s[26], 1);  // k=4
-  k_sub(s[26], s[31], s[13], 1);  // k=4
-  k_sub(s[31], s[29], s[14], 1);  // k=4
-  k_add(s[29], s[21], s[22]);
-  k_add(s[25], s[28], s[30]);
-  k_mul(s[27], s[21], s[28], mx);
-  k_mul(s[28], s[22], s[30], mx);
-  k_mul(s[30], s[29], s[25], mx);
-  k_sub(s[29], s[27], s[28], 0);  // k=2
-  k_add(s[25], s[27], s[28]);
-  k_sub(s[28], s[30], s[25], 1);  // k=4
-  k_add(s[30], s[17], s[18]);
-  k_add(s[25], s[26], s[31]);
-  k_mul(s[27], s[17], s[26], mx);
-  k_mul(s[32], s[18], s[31], mx);
-  k_mul(s[33], s[30], s[25], mx);
-  k_sub(s[30], s[27], s[32], 0);  // k=2
-  k_add(s[25], s[27], s[32]);
-  k_sub(s[32], s[33], s[25], 1);  // k=4
-  k_sub(s[33], s[26], s[31], 3);  // k=16
-  k_add(s[25], s[26], s[31]);
-  k_mul(s[27], s[33], s[25], mx);
-  k_mul(s[33], s[26], s[31], mx);
-  k_add(s[25], s[33], s[33]);
-  k_sub(s[33], s[29], s[15], 1);  // k=4
-  k_sub(s[29], s[28], s[16], 1);  // k=4
-  k_add(s[28], s[33], s[29]);
-  k_add(s[34], s[19], s[20]);
-  k_mul(s[35], s[33], s[19], mx);
-  k_mul(s[19], s[29], s[20], mx);
-  k_mul(s[20], s[28], s[34], mx);
-  k_sub(s[34], s[35], s[19], 0);  // k=2
-  k_add(s[28], s[35], s[19]);
-  k_sub(s[35], s[20], s[28], 1);  // k=4
-  k_add(s[28], s[21], s[22]);
-  k_add(s[20], s[30], s[32]);
-  k_mul(s[19], s[21], s[30], mx);
-  k_mul(s[21], s[22], s[32], mx);
-  k_mul(s[22], s[28], s[20], mx);
-  k_sub(s[28], s[19], s[21], 0);  // k=2
-  k_add(s[20], s[19], s[21]);
-  k_sub(s[21], s[22], s[20], 1);  // k=4
-  k_sub(s[22], s[33], s[29], 3);  // k=16
-  k_add(s[20], s[33], s[29]);
-  k_mul(s[19], s[22], s[20], mx);
-  k_mul(s[22], s[33], s[29], mx);
-  k_add(s[20], s[22], s[22]);
-  k_add(s[22], s[26], s[31]);
-  k_add(s[36], s[27], s[25]);
-  k_mul(s[37], s[26], s[27], mx);
-  k_mul(s[26], s[31], s[25], mx);
-  k_mul(s[31], s[22], s[36], mx);
-  k_sub(s[36], s[37], s[26], 0);  // k=2
-  k_add(s[22], s[37], s[26]);
-  k_sub(s[37], s[31], s[22], 1);  // k=4
-  k_add(s[31], s[13], s[14]);
-  k_add(s[22], s[27], s[25]);
-  k_mul(s[26], s[13], s[27], mx);
-  k_mul(s[27], s[14], s[25], mx);
-  k_mul(s[25], s[31], s[22], mx);
-  k_sub(s[31], s[26], s[27], 0);  // k=2
-  k_add(s[22], s[26], s[27]);
-  k_sub(s[27], s[25], s[22], 1);  // k=4
-  k_sub(s[25], s[34], s[28], 1);  // k=4
-  k_sub(s[34], s[35], s[21], 2);  // k=8
-  k_sub(s[35], s[19], s[36], 1);  // k=4
-  k_sub(s[19], s[20], s[37], 2);  // k=8
-  k_add(s[20], s[31], s[31]);
-  k_add(s[21], s[27], s[27]);
-  k_sub(s[28], s[35], s[20], 2);  // k=8
-  k_sub(s[35], s[19], s[21], 3);  // k=16
-  k_sub(s[21], s[31], s[28], 3);  // k=16
-  k_sub(s[31], s[27], s[35], 4);  // k=32
-  k_mul(s[27], s[21], s[0], mx);
-  k_mul(s[21], s[31], s[0], mx);
-  k_add(s[31], s[33], s[29]);
-  k_add(s[19], s[27], s[21]);
-  k_mul(s[20], s[33], s[27], mx);
-  k_mul(s[27], s[29], s[21], mx);
-  k_mul(s[21], s[31], s[19], mx);
-  k_sub(s[31], s[20], s[27], 0);  // k=2
-  k_add(s[19], s[20], s[27]);
-  k_sub(s[27], s[21], s[19], 1);  // k=4
-  k_add(s[21], s[15], s[16]);
-  k_add(s[19], s[36], s[37]);
-  k_mul(s[20], s[15], s[36], mx);
-  k_mul(s[36], s[16], s[37], mx);
-  k_mul(s[37], s[21], s[19], mx);
-  k_sub(s[21], s[20], s[36], 0);  // k=2
-  k_add(s[19], s[20], s[36]);
-  k_sub(s[36], s[37], s[19], 1);  // k=4
-  k_sub(s[37], s[31], s[21], 1);  // k=4
-  k_sub(s[31], s[27], s[36], 2);  // k=8
-  k_neg(s[36], s[33], 2);  // k=8
-  k_neg(s[33], s[29], 3);  // k=16
-  k_mul(s[29], s[36], s[23], mx);
-  k_mul(s[36], s[33], s[23], mx);
-  k_mul(s[33], s[30], s[24], mx);
-  k_mul(s[23], s[32], s[24], mx);
-  k_mul(s[24], s[25], s[0], mx);
-  k_mul(s[25], s[34], s[0], mx);
-  k_mul(s[34], s[29], s[0], mx);
-  k_mul(s[29], s[36], s[0], mx);
-  k_mul(s[36], s[33], s[0], mx);
-  k_mul(s[33], s[23], s[0], mx);
-  k_mul(s[23], s[28], s[0], mx);
-  k_mul(s[28], s[35], s[0], mx);
-  k_mul(s[35], s[37], s[0], mx);
-  k_mul(s[37], s[31], s[0], mx);
-  k_mul(s[31], s[30], s[0], mx);
-  k_mul(s[30], s[32], s[0], mx);
-  k_add(s[32], s[1], s[7]);
-  k_add(s[27], s[2], s[8]);
-  k_add(s[21], s[3], s[9]);
-  k_add(s[19], s[4], s[10]);
-  k_add(s[20], s[5], s[11]);
-  k_add(s[22], s[6], s[12]);
-  k_add(s[26], s[34], s[36]);
-  k_add(s[38], s[29], s[33]);
-  k_add(s[39], s[1], s[2]);
-  k_add(s[40], s[24], s[25]);
-  k_mul(s[41], s[1], s[24], mx);
-  k_mul(s[42], s[2], s[25], mx);
-  k_mul(s[43], s[39], s[40], mx);
-  k_sub(s[40], s[41], s[42], 0);  // k=2
-  k_add(s[39], s[41], s[42]);
-  k_sub(s[42], s[43], s[39], 1);  // k=4
-  k_add(s[43], s[5], s[6]);
-  k_add(s[39], s[34], s[29]);
-  k_mul(s[41], s[5], s[34], mx);
-  k_mul(s[44], s[6], s[29], mx);
-  k_mul(s[45], s[43], s[39], mx);
-  k_sub(s[43], s[41], s[44], 0);  // k=2
-  k_add(s[39], s[41], s[44]);
-  k_sub(s[44], s[45], s[39], 1);  // k=4
-  k_add(s[45], s[1], s[2]);
-  k_add(s[39], s[34], s[29]);
-  k_mul(s[41], s[1], s[34], mx);
-  k_mul(s[46], s[2], s[29], mx);
-  k_mul(s[47], s[45], s[39], mx);
-  k_sub(s[45], s[41], s[46], 0);  // k=2
-  k_add(s[39], s[41], s[46]);
-  k_sub(s[46], s[47], s[39], 1);  // k=4
-  k_add(s[47], s[3], s[4]);
-  k_add(s[39], s[24], s[25]);
-  k_mul(s[41], s[3], s[24], mx);
-  k_mul(s[48], s[4], s[25], mx);
-  k_mul(s[49], s[47], s[39], mx);
-  k_sub(s[47], s[41], s[48], 0);  // k=2
-  k_add(s[39], s[41], s[48]);
-  k_sub(s[48], s[49], s[39], 1);  // k=4
-  k_add(s[49], s[3], s[4]);
-  k_add(s[39], s[34], s[29]);
-  k_mul(s[41], s[3], s[34], mx);
-  k_mul(s[34], s[4], s[29], mx);
-  k_mul(s[29], s[49], s[39], mx);
-  k_sub(s[49], s[41], s[34], 0);  // k=2
-  k_add(s[39], s[41], s[34]);
-  k_sub(s[41], s[29], s[39], 1);  // k=4
-  k_add(s[39], s[5], s[6]);
-  k_add(s[29], s[24], s[25]);
-  k_mul(s[34], s[5], s[24], mx);
-  k_mul(s[50], s[6], s[25], mx);
-  k_mul(s[51], s[39], s[29], mx);
-  k_sub(s[39], s[34], s[50], 0);  // k=2
-  k_add(s[29], s[34], s[50]);
-  k_sub(s[50], s[51], s[29], 1);  // k=4
-  k_add(s[51], s[11], s[12]);
-  k_add(s[29], s[36], s[33]);
-  k_mul(s[34], s[11], s[36], mx);
-  k_mul(s[52], s[12], s[33], mx);
-  k_mul(s[53], s[51], s[29], mx);
-  k_sub(s[51], s[34], s[52], 0);  // k=2
-  k_add(s[29], s[34], s[52]);
-  k_sub(s[52], s[53], s[29], 1);  // k=4
-  k_add(s[53], s[7], s[8]);
-  k_add(s[29], s[36], s[33]);
-  k_mul(s[34], s[7], s[36], mx);
-  k_mul(s[54], s[8], s[33], mx);
-  k_mul(s[55], s[53], s[29], mx);
-  k_sub(s[53], s[34], s[54], 0);  // k=2
-  k_add(s[29], s[34], s[54]);
-  k_sub(s[54], s[55], s[29], 1);  // k=4
-  k_add(s[55], s[9], s[10]);
-  k_add(s[29], s[36], s[33]);
-  k_mul(s[34], s[9], s[36], mx);
-  k_mul(s[36], s[10], s[33], mx);
-  k_mul(s[33], s[55], s[29], mx);
-  k_sub(s[55], s[34], s[36], 0);  // k=2
-  k_add(s[29], s[34], s[36]);
-  k_sub(s[36], s[33], s[29], 1);  // k=4
-  k_add(s[33], s[32], s[27]);
-  k_add(s[29], s[24], s[25]);
-  k_mul(s[34], s[32], s[24], mx);
-  k_mul(s[56], s[27], s[25], mx);
-  k_mul(s[57], s[33], s[29], mx);
-  k_sub(s[33], s[34], s[56], 0);  // k=2
-  k_add(s[29], s[34], s[56]);
-  k_sub(s[56], s[57], s[29], 1);  // k=4
-  k_add(s[57], s[20], s[22]);
-  k_add(s[29], s[26], s[38]);
-  k_mul(s[34], s[20], s[26], mx);
-  k_mul(s[58], s[22], s[38], mx);
-  k_mul(s[59], s[57], s[29], mx);
-  k_sub(s[57], s[34], s[58], 0);  // k=2
-  k_add(s[29], s[34], s[58]);
-  k_sub(s[58], s[59], s[29], 1);  // k=4
-  k_add(s[59], s[32], s[27]);
-  k_add(s[29], s[26], s[38]);
-  k_mul(s[34], s[32], s[26], mx);
-  k_mul(s[32], s[27], s[38], mx);
-  k_mul(s[27], s[59], s[29], mx);
-  k_sub(s[59], s[34], s[32], 0);  // k=2
-  k_add(s[29], s[34], s[32]);
-  k_sub(s[34], s[27], s[29], 1);  // k=4
-  k_add(s[29], s[21], s[19]);
-  k_add(s[27], s[24], s[25]);
-  k_mul(s[32], s[21], s[24], mx);
-  k_mul(s[60], s[19], s[25], mx);
-  k_mul(s[61], s[29], s[27], mx);
-  k_sub(s[29], s[32], s[60], 0);  // k=2
-  k_add(s[27], s[32], s[60]);
-  k_sub(s[60], s[61], s[27], 1);  // k=4
-  k_add(s[61], s[21], s[19]);
-  k_add(s[27], s[26], s[38]);
-  k_mul(s[32], s[21], s[26], mx);
-  k_mul(s[26], s[19], s[38], mx);
-  k_mul(s[38], s[61], s[27], mx);
-  k_sub(s[61], s[32], s[26], 0);  // k=2
-  k_add(s[27], s[32], s[26]);
-  k_sub(s[32], s[38], s[27], 1);  // k=4
-  k_add(s[38], s[20], s[22]);
-  k_add(s[27], s[24], s[25]);
-  k_mul(s[26], s[20], s[24], mx);
-  k_mul(s[24], s[22], s[25], mx);
-  k_mul(s[25], s[38], s[27], mx);
-  k_sub(s[38], s[26], s[24], 0);  // k=2
-  k_add(s[27], s[26], s[24]);
-  k_sub(s[26], s[25], s[27], 1);  // k=4
-  k_sub(s[27], s[43], s[44], 2);  // k=8
-  k_add(s[25], s[43], s[44]);
-  k_add(s[44], s[40], s[27]);
-  k_add(s[40], s[42], s[25]);
-  k_add(s[42], s[45], s[47]);
-  k_add(s[47], s[46], s[48]);
-  k_add(s[48], s[49], s[39]);
-  k_add(s[49], s[41], s[50]);
-  k_sub(s[50], s[51], s[52], 2);  // k=8
-  k_add(s[41], s[51], s[52]);
-  k_sub(s[52], s[57], s[58], 2);  // k=8
-  k_add(s[51], s[57], s[58]);
-  k_add(s[58], s[33], s[52]);
-  k_add(s[52], s[56], s[51]);
-  k_add(s[56], s[59], s[29]);
-  k_add(s[59], s[34], s[60]);
-  k_add(s[60], s[61], s[38]);
-  k_add(s[61], s[32], s[26]);
-  k_sub(s[32], s[55], s[36], 2);  // k=8
-  k_add(s[26], s[55], s[36]);
-  k_add(s[38], s[44], s[32]);
-  k_add(s[32], s[40], s[26]);
-  k_add(s[26], s[42], s[50]);
-  k_add(s[34], s[47], s[41]);
-  k_add(s[29], s[48], s[53]);
-  k_add(s[51], s[49], s[54]);
-  k_sub(s[33], s[58], s[44], 3);  // k=16
-  k_sub(s[58], s[52], s[40], 3);  // k=16
-  k_sub(s[52], s[56], s[42], 2);  // k=8
-  k_sub(s[56], s[59], s[47], 3);  // k=16
-  k_sub(s[59], s[60], s[48], 2);  // k=8
-  k_sub(s[60], s[61], s[49], 3);  // k=16
-  k_sub(s[61], s[33], s[50], 3);  // k=16
-  k_sub(s[50], s[58], s[41], 3);  // k=16
-  k_sub(s[58], s[52], s[53], 1);  // k=4
-  k_sub(s[53], s[56], s[54], 2);  // k=8
-  k_sub(s[56], s[59], s[55], 1);  // k=4
-  k_sub(s[59], s[60], s[36], 2);  // k=8
-  k_mul(s[60], s[38], s[0], mx);
-  k_mul(s[38], s[32], s[0], mx);
-  k_mul(s[32], s[26], s[0], mx);
-  k_mul(s[26], s[34], s[0], mx);
-  k_mul(s[34], s[29], s[0], mx);
-  k_mul(s[29], s[51], s[0], mx);
-  k_mul(s[51], s[61], s[0], mx);
-  k_mul(s[61], s[50], s[0], mx);
-  k_mul(s[50], s[58], s[0], mx);
-  k_mul(s[58], s[53], s[0], mx);
-  k_mul(s[53], s[56], s[0], mx);
-  k_mul(s[56], s[59], s[0], mx);
-  k_sel(s[59], take, s[60], s[1]);
-  if (live) k_store(f_out, 0, n, lane, s[59]);
-  k_sel(s[60], take, s[38], s[2]);
-  if (live) k_store(f_out, 1, n, lane, s[60]);
-  k_sel(s[60], take, s[32], s[3]);
-  if (live) k_store(f_out, 2, n, lane, s[60]);
-  k_sel(s[60], take, s[26], s[4]);
-  if (live) k_store(f_out, 3, n, lane, s[60]);
-  k_sel(s[60], take, s[34], s[5]);
-  if (live) k_store(f_out, 4, n, lane, s[60]);
-  k_sel(s[60], take, s[29], s[6]);
-  if (live) k_store(f_out, 5, n, lane, s[60]);
-  k_sel(s[60], take, s[51], s[7]);
-  if (live) k_store(f_out, 6, n, lane, s[60]);
-  k_sel(s[60], take, s[61], s[8]);
-  if (live) k_store(f_out, 7, n, lane, s[60]);
-  k_sel(s[61], take, s[50], s[9]);
-  if (live) k_store(f_out, 8, n, lane, s[61]);
-  k_sel(s[61], take, s[58], s[10]);
-  if (live) k_store(f_out, 9, n, lane, s[61]);
-  k_sel(s[61], take, s[53], s[11]);
-  if (live) k_store(f_out, 10, n, lane, s[61]);
-  k_sel(s[61], take, s[56], s[12]);
-  if (live) k_store(f_out, 11, n, lane, s[61]);
-  k_sel(s[61], take, s[23], s[13]);
-  if (live) k_store(t_out, 0, n, lane, s[61]);
-  k_sel(s[61], take, s[28], s[14]);
-  if (live) k_store(t_out, 1, n, lane, s[61]);
-  k_sel(s[61], take, s[35], s[15]);
-  if (live) k_store(t_out, 2, n, lane, s[61]);
-  k_sel(s[61], take, s[37], s[16]);
-  if (live) k_store(t_out, 3, n, lane, s[61]);
-  k_sel(s[61], take, s[31], s[17]);
-  if (live) k_store(t_out, 4, n, lane, s[61]);
-  k_sel(s[61], take, s[30], s[18]);
-  if (live) k_store(t_out, 5, n, lane, s[61]);
+  // phase 1: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 0, t, 4, n, lane);
+      break;
+    case 1:
+      g_load(s, 1, t, 5, n, lane);
+      break;
+    default:
+      break;
+  })
+  // phase 2: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 2, 0, 1, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 3, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 3: round 1 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 4, 2, 3, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 5, 0, 1, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 4: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 2, q, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 3, q, 1, n, lane);
+      break;
+    case 2:
+      g_add(s, 6, 5, 5);
+      break;
+    case 3:
+      g_add(s, 7, 0, 1);
+      break;
+    default:
+      break;
+  })
+  // phase 5: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 5, 4, 6);
+      break;
+    case 1:
+      g_add(s, 8, 2, 3);
+      break;
+    case 2:
+      g_add(s, 9, 4, 6);
+      break;
+    default:
+      break;
+  })
+  // phase 6: round 2 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 10, 4, 0, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 11, 6, 1, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 12, 5, 7, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 13, 2, 4, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 14, 3, 6, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 15, 8, 9, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 7: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 4, t, 0, n, lane);
+      g_add(s, 18, 0, 1);
+      break;
+    case 1:
+      g_load(s, 5, t, 1, n, lane);
+      break;
+    case 2:
+      g_load(s, 6, q, 2, n, lane);
+      break;
+    case 3:
+      g_load(s, 7, q, 3, n, lane);
+      break;
+    case 4:
+      g_sub(s, 8, 10, 11, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 9, 10, 11);
+      break;
+    case 6:
+      g_sub(s, 16, 13, 14, 0);  // k=2
+      break;
+    case 7:
+      g_add(s, 17, 13, 14);
+      break;
+    default:
+      break;
+  })
+  // phase 8: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 10, 12, 9, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 11, 15, 17, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 13, 16, 4, 1);  // k=4
+      break;
+    case 3:
+      g_add(s, 14, 6, 7);
+      break;
+    default:
+      break;
+  })
+  // phase 9: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 9, 11, 5, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 12, 8, 10);
+      break;
+    default:
+      break;
+  })
+  // phase 10: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 11, 13, 9);
+      break;
+    case 1:
+      g_sub(s, 15, 13, 9, 3);  // k=16
+      break;
+    case 2:
+      g_add(s, 16, 13, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 11: round 3 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 17, 6, 8, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 19, 7, 10, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 20, 14, 12, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 21, 0, 13, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 22, 1, 9, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 23, 18, 11, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 24, 15, 16, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 25, 13, 9, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 12: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 8, t, 2, n, lane);
+      break;
+    case 1:
+      g_load(s, 10, t, 3, n, lane);
+      break;
+    case 2:
+      g_sub(s, 11, 17, 19, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 12, 17, 19);
+      break;
+    case 4:
+      g_sub(s, 14, 21, 22, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 15, 21, 22);
+      break;
+    case 6:
+      g_add(s, 16, 2, 3);
+      break;
+    case 7:
+      g_add(s, 18, 6, 7);
+      break;
+    default:
+      break;
+  })
+  // phase 13: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 17, 20, 12, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 19, 23, 15, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 21, 11, 8, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 14: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 11, 17, 10, 1);  // k=4
+      break;
+    case 1:
+      g_add(s, 12, 14, 19);
+      break;
+    default:
+      break;
+  })
+  // phase 15: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 17, 21, 11);
+      break;
+    case 1:
+      g_sub(s, 15, 21, 11, 3);  // k=16
+      break;
+    case 2:
+      g_add(s, 20, 21, 11);
+      break;
+    default:
+      break;
+  })
+  // phase 16: round 4 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 23, 21, 2, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 22, 11, 3, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 26, 17, 16, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 27, 6, 14, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 28, 7, 19, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 29, 18, 12, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 30, 15, 20, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 31, 21, 11, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 17: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 2, xp, 0, n, lane);
+      break;
+    case 1:
+      g_add(s, 3, 25, 25);
+      break;
+    case 2:
+      g_add(s, 6, 13, 9);
+      break;
+    case 3:
+      g_add(s, 7, 4, 5);
+      break;
+    case 4:
+      g_neg(s, 12, 21, 2);  // k=8
+      break;
+    case 5:
+      g_neg(s, 15, 11, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 18: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 25, 24, 3);
+      break;
+    case 1:
+      g_add(s, 16, 24, 3);
+      break;
+    default:
+      break;
+  })
+  // phase 19: round 5 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 17, 13, 24, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 18, 9, 3, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 20, 6, 25, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 32, 4, 24, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 33, 5, 3, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 34, 7, 16, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 35, 12, 2, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 36, 15, 2, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 20: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_one(s, 2);
+      g_add(s, 16, 17, 18);
+      break;
+    case 1:
+      g_load(s, 3, yp, 0, n, lane);
+      g_sub(s, 24, 32, 33, 0);  // k=2
+      break;
+    case 2:
+      g_sub(s, 6, 23, 22, 0);  // k=2
+      g_add(s, 25, 32, 33);
+      break;
+    case 3:
+      g_add(s, 7, 23, 22);
+      break;
+    case 4:
+      g_sub(s, 9, 27, 28, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 12, 27, 28);
+      break;
+    case 6:
+      g_add(s, 13, 31, 31);
+      break;
+    case 7:
+      g_sub(s, 15, 17, 18, 0);  // k=2
+      break;
+    default:
+      break;
+  })
+  // phase 21: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 17, 26, 7, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 18, 29, 12, 1);  // k=4
+      break;
+    case 2:
+      g_sub(s, 22, 20, 16, 1);  // k=4
+      break;
+    case 3:
+      g_sub(s, 23, 34, 25, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 27, 6, 9, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 28, 30, 15, 1);  // k=4
+      break;
+    case 6:
+      g_add(s, 31, 24, 24);
+      break;
+    default:
+      break;
+  })
+  // phase 22: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 6, 17, 18, 2);  // k=8
+      break;
+    case 1:
+      g_sub(s, 7, 13, 22, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 9, 23, 23);
+      break;
+    case 3:
+      g_sub(s, 12, 28, 31, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 23: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 13, 7, 9, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 17, 24, 12, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 24: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 7, 23, 13, 4);  // k=32
+      break;
+    default:
+      break;
+  })
+  // phase 25: round 6 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 23, 17, 2, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 9, 7, 2, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 24, 14, 3, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 18, 19, 3, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 28, 27, 2, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 31, 6, 2, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 16, 35, 2, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 20, 36, 2, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 26: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 3, 21, 11);
+      break;
+    case 1:
+      g_add(s, 6, 23, 9);
+      break;
+    case 2:
+      g_add(s, 7, 8, 10);
+      break;
+    case 3:
+      g_add(s, 17, 15, 22);
+      break;
+    default:
+      break;
+  })
+  // phase 27: round 7 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 27, 21, 23, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 35, 11, 9, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 36, 3, 6, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 25, 8, 15, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 26, 10, 22, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 29, 7, 17, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 30, 24, 2, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 34, 18, 2, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 28: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 3, f, 0, n, lane);
+      break;
+    case 1:
+      g_load(s, 6, f, 1, n, lane);
+      break;
+    case 2:
+      g_load(s, 7, f, 4, n, lane);
+      break;
+    case 3:
+      g_load(s, 9, f, 5, n, lane);
+      break;
+    case 4:
+      g_add(s, 11, 28, 31);
+      break;
+    case 5:
+      g_add(s, 15, 16, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 29: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 17, 3, 6);
+      break;
+    case 1:
+      g_add(s, 18, 7, 9);
+      break;
+    default:
+      break;
+  })
+  // phase 30: round 8 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 21, 3, 28, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 22, 6, 31, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 23, 17, 11, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 24, 7, 16, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 32, 9, 20, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 33, 18, 15, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 37, 3, 16, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 38, 6, 20, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 31: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 11, f, 2, n, lane);
+      break;
+    case 1:
+      g_load(s, 15, f, 3, n, lane);
+      break;
+    case 2:
+      g_add(s, 17, 3, 6);
+      break;
+    case 3:
+      g_add(s, 18, 16, 20);
+      break;
+    case 4:
+      g_add(s, 39, 28, 31);
+      break;
+    case 5:
+      g_add(s, 40, 16, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 32: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 41, 11, 15);
+      break;
+    case 1:
+      g_add(s, 42, 11, 15);
+      break;
+    default:
+      break;
+  })
+  // phase 33: round 9 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 43, 17, 18, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 44, 11, 28, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 45, 15, 31, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 46, 41, 39, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 47, 11, 16, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 48, 15, 20, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 49, 42, 40, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 50, 7, 28, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 34: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 17, f, 6, n, lane);
+      break;
+    case 1:
+      g_load(s, 18, f, 7, n, lane);
+      break;
+    case 2:
+      g_load(s, 39, f, 10, n, lane);
+      break;
+    case 3:
+      g_load(s, 40, f, 11, n, lane);
+      break;
+    case 4:
+      g_add(s, 41, 7, 9);
+      break;
+    case 5:
+      g_add(s, 42, 28, 31);
+      break;
+    case 6:
+      g_add(s, 51, 30, 34);
+      break;
+    case 7:
+      g_add(s, 52, 30, 34);
+      break;
+    default:
+      break;
+  })
+  // phase 35: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 53, 39, 40);
+      break;
+    case 1:
+      g_add(s, 54, 17, 18);
+      break;
+    default:
+      break;
+  })
+  // phase 36: round 10 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 55, 9, 31, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 56, 41, 42, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 57, 39, 30, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 58, 40, 34, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 59, 53, 51, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 60, 17, 30, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 61, 18, 34, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 62, 54, 52, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 37: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_load(s, 41, f, 8, n, lane);
+      g_add(s, 65, 30, 34);
+      break;
+    case 1:
+      g_load(s, 42, f, 9, n, lane);
+      g_add(s, 66, 28, 31);
+      break;
+    case 2:
+      g_add(s, 51, 3, 17);
+      break;
+    case 3:
+      g_add(s, 52, 6, 18);
+      break;
+    case 4:
+      g_add(s, 53, 7, 39);
+      break;
+    case 5:
+      g_add(s, 54, 9, 40);
+      break;
+    case 6:
+      g_add(s, 63, 16, 30);
+      break;
+    case 7:
+      g_add(s, 64, 20, 34);
+      break;
+    default:
+      break;
+  })
+  // phase 38: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 16, 41, 42);
+      break;
+    case 1:
+      g_add(s, 20, 51, 52);
+      break;
+    default:
+      break;
+  })
+  // phase 39: round 11 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 67, 41, 30, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 68, 42, 34, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 69, 16, 65, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 70, 51, 28, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 71, 52, 31, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 72, 20, 66, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 73, 53, 63, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 74, 54, 64, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 40: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 16, 11, 41);
+      break;
+    case 1:
+      g_add(s, 20, 15, 42);
+      break;
+    case 2:
+      g_add(s, 30, 53, 54);
+      break;
+    case 3:
+      g_add(s, 34, 63, 64);
+      break;
+    case 4:
+      g_add(s, 65, 51, 52);
+      break;
+    case 5:
+      g_add(s, 66, 63, 64);
+      break;
+    case 6:
+      g_add(s, 75, 28, 31);
+      break;
+    default:
+      break;
+  })
+  // phase 41: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 76, 16, 20);
+      break;
+    default:
+      break;
+  })
+  // phase 42: round 12 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 77, 30, 34, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 78, 51, 63, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 79, 52, 64, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 80, 65, 66, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 81, 16, 28, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 82, 20, 31, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 83, 76, 75, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 84, 16, 63, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 43: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 30, 27, 35, 0);  // k=2
+      break;
+    case 1:
+      g_sub(s, 34, 25, 26, 0);  // k=2
+      break;
+    case 2:
+      g_add(s, 51, 16, 20);
+      break;
+    case 3:
+      g_add(s, 52, 63, 64);
+      break;
+    case 4:
+      g_add(s, 65, 53, 54);
+      break;
+    case 5:
+      g_add(s, 66, 28, 31);
+      break;
+    default:
+      break;
+  })
+  // phase 44: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 16, 30, 34, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 45: round 13 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 30, 12, 2, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 34, 13, 2, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 63, 16, 2, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 75, 20, 64, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 76, 51, 52, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 85, 53, 28, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 86, 54, 31, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 87, 65, 66, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 46: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 12, 27, 35);
+      g_sub(s, 53, 44, 45, 0);  // k=2
+      g_add(s, 91, 67, 68);
+      break;
+    case 1:
+      g_add(s, 13, 25, 26);
+      g_add(s, 54, 44, 45);
+      break;
+    case 2:
+      g_sub(s, 16, 21, 22, 0);  // k=2
+      g_sub(s, 64, 47, 48, 0);  // k=2
+      break;
+    case 3:
+      g_add(s, 20, 21, 22);
+      g_sub(s, 65, 50, 55, 0);  // k=2
+      break;
+    case 4:
+      g_sub(s, 28, 24, 32, 0);  // k=2
+      g_sub(s, 66, 57, 58, 0);  // k=2
+      break;
+    case 5:
+      g_add(s, 31, 24, 32);
+      g_add(s, 88, 57, 58);
+      break;
+    case 6:
+      g_sub(s, 51, 37, 38, 0);  // k=2
+      g_sub(s, 89, 60, 61, 0);  // k=2
+      break;
+    case 7:
+      g_add(s, 52, 37, 38);
+      g_sub(s, 90, 67, 68, 0);  // k=2
+      break;
+    default:
+      break;
+  })
+  // phase 47: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 21, 36, 12, 1);  // k=4
+      g_add(s, 37, 51, 53);
+      break;
+    case 1:
+      g_sub(s, 22, 29, 13, 1);  // k=4
+      g_add(s, 38, 64, 65);
+      break;
+    case 2:
+      g_sub(s, 24, 23, 20, 1);  // k=4
+      break;
+    case 3:
+      g_sub(s, 25, 33, 31, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 26, 43, 52, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 27, 46, 54, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 32, 59, 88, 1);  // k=4
+      break;
+    case 7:
+      g_sub(s, 35, 69, 91, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 48: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 12, 21, 22, 2);  // k=8
+      g_add(s, 43, 38, 89);
+      break;
+    case 1:
+      g_sub(s, 13, 28, 25, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 20, 28, 25);
+      break;
+    case 3:
+      g_add(s, 23, 26, 27);
+      break;
+    case 4:
+      g_sub(s, 29, 66, 32, 2);  // k=8
+      break;
+    case 5:
+      g_add(s, 31, 66, 32);
+      break;
+    case 6:
+      g_sub(s, 33, 90, 35, 2);  // k=8
+      break;
+    case 7:
+      g_add(s, 36, 90, 35);
+      break;
+    default:
+      break;
+  })
+  // phase 49: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 21, 16, 13);
+      break;
+    case 1:
+      g_add(s, 22, 24, 20);
+      break;
+    case 2:
+      g_add(s, 25, 37, 29);
+      break;
+    case 3:
+      g_add(s, 26, 23, 31);
+      break;
+    default:
+      break;
+  })
+  // phase 50: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 13, 21, 33);
+      break;
+    case 1:
+      g_add(s, 16, 22, 36);
+      break;
+    default:
+      break;
+  })
+  // phase 51: round 14 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 33, 12, 2, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 36, 14, 2, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 20, 19, 2, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 24, 13, 2, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 27, 16, 2, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 28, 25, 2, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 32, 26, 2, mx);
+      break;
+    case 7:
+      g_mul_mxu<16>(s, 66, 43, 2, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 52: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 12, 47, 48);
+      g_add(s, 46, 78, 79);
+      break;
+    case 1:
+      g_add(s, 13, 50, 55);
+      g_sub(s, 51, 81, 82, 0);  // k=2
+      break;
+    case 2:
+      g_add(s, 14, 60, 61);
+      g_add(s, 52, 81, 82);
+      break;
+    case 3:
+      g_sub(s, 16, 70, 71, 0);  // k=2
+      g_sub(s, 53, 84, 75, 0);  // k=2
+      break;
+    case 4:
+      g_add(s, 19, 70, 71);
+      g_add(s, 54, 84, 75);
+      break;
+    case 5:
+      g_sub(s, 25, 73, 74, 0);  // k=2
+      g_sub(s, 59, 85, 86, 0);  // k=2
+      break;
+    case 6:
+      g_add(s, 26, 73, 74);
+      g_add(s, 64, 85, 86);
+      break;
+    case 7:
+      g_sub(s, 43, 78, 79, 0);  // k=2
+      break;
+    default:
+      break;
+  })
+  // phase 53: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 47, 49, 12, 1);  // k=4
+      g_sub(s, 73, 87, 64, 1);  // k=4
+      break;
+    case 1:
+      g_sub(s, 48, 56, 13, 1);  // k=4
+      g_add(s, 74, 43, 51);
+      break;
+    case 2:
+      g_sub(s, 50, 62, 14, 1);  // k=4
+      g_add(s, 75, 53, 59);
+      break;
+    case 3:
+      g_sub(s, 55, 72, 19, 1);  // k=4
+      break;
+    case 4:
+      g_sub(s, 60, 77, 26, 1);  // k=4
+      break;
+    case 5:
+      g_sub(s, 61, 80, 46, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 70, 83, 52, 1);  // k=4
+      break;
+    case 7:
+      g_sub(s, 71, 76, 54, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 54: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 12, 47, 48);
+      break;
+    case 1:
+      g_sub(s, 13, 25, 60, 2);  // k=8
+      break;
+    case 2:
+      g_add(s, 14, 25, 60);
+      break;
+    case 3:
+      g_add(s, 19, 61, 70);
+      break;
+    case 4:
+      g_add(s, 26, 71, 73);
+      break;
+    case 5:
+      g_sub(s, 43, 74, 37, 2);  // k=8
+      break;
+    case 6:
+      g_sub(s, 46, 75, 38, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 55: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_add(s, 25, 16, 13);
+      break;
+    case 1:
+      g_add(s, 37, 55, 14);
+      break;
+    case 2:
+      g_add(s, 38, 12, 50);
+      break;
+    case 3:
+      g_sub(s, 47, 19, 23, 3);  // k=16
+      break;
+    case 4:
+      g_sub(s, 48, 26, 12, 3);  // k=16
+      break;
+    case 5:
+      g_sub(s, 60, 43, 89, 1);  // k=4
+      break;
+    case 6:
+      g_sub(s, 61, 46, 90, 1);  // k=4
+      break;
+    default:
+      break;
+  })
+  // phase 56: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 12, 25, 21, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 13, 37, 22, 3);  // k=16
+      break;
+    case 2:
+      g_sub(s, 14, 47, 50, 2);  // k=8
+      break;
+    case 3:
+      g_sub(s, 16, 48, 35, 2);  // k=8
+      break;
+    default:
+      break;
+  })
+  // phase 57: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sub(s, 21, 12, 29, 3);  // k=16
+      break;
+    case 1:
+      g_sub(s, 22, 13, 31, 3);  // k=16
+      break;
+    default:
+      break;
+  })
+  // phase 58: round 15 of products
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_mul_mxu<16>(s, 12, 38, 2, mx);
+      break;
+    case 1:
+      g_mul_mxu<16>(s, 13, 21, 2, mx);
+      break;
+    case 2:
+      g_mul_mxu<16>(s, 29, 22, 2, mx);
+      break;
+    case 3:
+      g_mul_mxu<16>(s, 31, 60, 2, mx);
+      break;
+    case 4:
+      g_mul_mxu<16>(s, 25, 14, 2, mx);
+      break;
+    case 5:
+      g_mul_mxu<16>(s, 35, 61, 2, mx);
+      break;
+    case 6:
+      g_mul_mxu<16>(s, 37, 16, 2, mx);
+      break;
+    default:
+      break;
+  })
+  // phase 59: linear ops
+  LH_RANKS(8, switch (r) {
+    case 0:
+      g_sel(s, 2, take, 24, 3);
+      if (live) g_store(f_out, 0, n, lane, s, 2);
+      g_sel(s, 47, take, 31, 41);
+      if (live) g_store(f_out, 8, n, lane, s, 47);
+      g_sel(s, 55, take, 36, 0);
+      if (live) g_store(t_out, 4, n, lane, s, 55);
+      break;
+    case 1:
+      g_sel(s, 14, take, 27, 6);
+      if (live) g_store(f_out, 1, n, lane, s, 14);
+      g_sel(s, 48, take, 25, 42);
+      if (live) g_store(f_out, 9, n, lane, s, 48);
+      g_sel(s, 89, take, 20, 1);
+      if (live) g_store(t_out, 5, n, lane, s, 89);
+      break;
+    case 2:
+      g_sel(s, 16, take, 28, 11);
+      if (live) g_store(f_out, 2, n, lane, s, 16);
+      g_sel(s, 50, take, 35, 39);
+      if (live) g_store(f_out, 10, n, lane, s, 50);
+      break;
+    case 3:
+      g_sel(s, 21, take, 32, 15);
+      if (live) g_store(f_out, 3, n, lane, s, 21);
+      g_sel(s, 19, take, 37, 40);
+      if (live) g_store(f_out, 11, n, lane, s, 19);
+      break;
+    case 4:
+      g_sel(s, 22, take, 66, 7);
+      if (live) g_store(f_out, 4, n, lane, s, 22);
+      g_sel(s, 23, take, 30, 4);
+      if (live) g_store(t_out, 0, n, lane, s, 23);
+      break;
+    case 5:
+      g_sel(s, 38, take, 12, 9);
+      if (live) g_store(f_out, 5, n, lane, s, 38);
+      g_sel(s, 26, take, 34, 5);
+      if (live) g_store(t_out, 1, n, lane, s, 26);
+      break;
+    case 6:
+      g_sel(s, 60, take, 13, 17);
+      if (live) g_store(f_out, 6, n, lane, s, 60);
+      g_sel(s, 43, take, 63, 8);
+      if (live) g_store(t_out, 2, n, lane, s, 43);
+      break;
+    case 7:
+      g_sel(s, 61, take, 29, 18);
+      if (live) g_store(f_out, 7, n, lane, s, 61);
+      g_sel(s, 46, take, 33, 10);
+      if (live) g_store(t_out, 3, n, lane, s, 46);
+      break;
+    default:
+      break;
+  })
 }
 
-extern "C" int lh_miller_step_add_mxu(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
+extern "C" int lh_miller_step_add_mxu_g8(const void* f, const void* t, const void* q, const void* xp, const void* yp, const void* bit, void* f_out, void* t_out, int n,
                               void* stream) {
+  constexpr int kShared = static_cast<int>(sizeof(lh::MxuShared<8, 16>)) + 2392 * 2 * lh::kGroupLanes;
+  static_assert(kShared <= 232448, "one block's shared memory on sm_90");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      miller_step_add_mxu_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
-    miller_step_add_mxu_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    miller_step_add_mxu_g8_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 8 * lh::kGroupLanes,
+                          kShared, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(f), static_cast<const uint32_t*>(t), static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(xp), static_cast<const uint32_t*>(yp), static_cast<const int32_t*>(bit),
         static_cast<uint32_t*>(f_out), static_cast<uint32_t*>(t_out), n);
   }

@@ -125,13 +125,17 @@ __device__ __forceinline__ void mxu_finish(const uint32_t (&t)[NC13], const uint
 
 }  // namespace lh
 
-#ifdef __CUDACC__
-
 namespace lh {
 
 constexpr int kStride = 40;  // words per staging row: conflict-free B loads
 constexpr int kTabOff = 16;  // table entry of Toeplitz diagonal 0
 constexpr int kTab = 64;     // diagonals -16..47 (those reached are -10..40)
+
+}  // namespace lh
+
+#ifdef __CUDACC__
+
+namespace lh {
 
 // Where one warp's DMMA products stage their operands.
 struct MxuCtx {

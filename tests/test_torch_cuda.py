@@ -7,9 +7,9 @@ so on a machine without jax run it as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 It covers all twelve entry points (mont_mul in every form of
-mont_kernel.FORMS, the Miller steps in their group forms: kernels 2, 3 and
-2m, the Fp chain in every form of chain_kernel.FP_FORMS and the Fp2 chain
-in its one): mont_mul, miller_step_dbl, miller_step_add, fp_chain,
+mont_kernel.FORMS, the Miller steps in their group forms: kernels 2, 3, 2m
+and 3m, the Fp chain in every form of chain_kernel.FP_FORMS and the Fp2
+chain and its MXU variant in their one form each): mont_mul, miller_step_dbl, miller_step_add, fp_chain,
 fp2_chain, wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
@@ -110,9 +110,9 @@ def test_cuda_mxu_kernels_match_plain_versions():
 @pytest.mark.cuda
 def test_cuda_group_forms_match_plain_versions():
     """Every form of kernel 1 (mont_kernel.FORMS) and the group forms of the
-    Miller steps (kernels 2, 3 with random bits, and 2m), at widths that
-    leave ragged tails in their blocks, and the steps also at the Miller
-    loop's 4,097 lanes."""
+    Miller steps (kernels 2, 3 and 3m with random bits, and 2m), at widths
+    that leave ragged tails in their blocks, and the steps also at the
+    Miller loop's 4,097 lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
     rng = random.Random(31)
@@ -138,7 +138,9 @@ def test_cuda_group_forms_match_plain_versions():
              ("dbl_mxu", ML.DBL_MXU_GROUP, lambda *a: ML.miller_step_dbl(*a, mxu=True),
               lambda *a: ML.miller_step_dbl_plain(*a, mxu=True), (f, t, xp, yp)),
              ("add", ML.ADD_GROUP, lambda *a: ML.miller_step_add(*a, mxu=False),
-              ML.miller_step_add_plain, (f, t, qq, xp, yp, bit))]
+              ML.miller_step_add_plain, (f, t, qq, xp, yp, bit)),
+             ("add_mxu", ML.ADD_MXU_GROUP, lambda *a: ML.miller_step_add(*a, mxu=True),
+              lambda *a: ML.miller_step_add_plain(*a, mxu=True), (f, t, qq, xp, yp, bit))]
     for name, g, kern, plain, planes in steps:
         for w in (1, g + 1, n, wide):
             args = cut(w, *planes)
@@ -149,10 +151,11 @@ def test_cuda_group_forms_match_plain_versions():
 
 @pytest.mark.cuda
 def test_cuda_group_chains_match_plain_versions():
-    """The 15-bit chains in the group form (kernel 4 in every form of
+    """The chains in the group form (kernel 4 in every form of
     chain_kernel.FP_FORMS, kernel 5 in FP2_FORM) at 1, 2, G + 1, 257 and
     4,097 lanes: the p-2 chain on strict and lazy (bound 4) bases, the
-    (p^2+7)/16 chain on reduced elements."""
+    (p^2+7)/16 chain on reduced elements; kernel 5m (FP2_MXU_FORM, blocks of
+    32 lanes) at 1, G + 1, 33 and 4,097 lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
     rng = random.Random(37)
@@ -170,4 +173,9 @@ def test_cuda_group_chains_match_plain_versions():
         got = CK.fp2_pow_chain(x, y, h2c.SQRT_EXP_BITS, mxu=False)
         ref = CK.fp2_pow_chain_plain(x, y, h2c.SQRT_EXP_BITS)
         assert all(torch.equal(g, r) for g, r in zip(got, ref)), w
+    for w in (1, CK.FP2_MXU_FORM[0] + 1, 33, wide):
+        x, y = (t[:, :w].contiguous() for t in (strict[0], strict[1]))
+        got = CK.fp2_pow_chain(x, y, h2c.SQRT_EXP_BITS, mxu=True)
+        ref = CK.fp2_pow_chain_plain(x, y, h2c.SQRT_EXP_BITS, mxu=True)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), ("mxu", w)
     torch.cuda.synchronize()

@@ -271,14 +271,15 @@ def _run_schedule(prog, sched):
     pytest.param("dbl", ML.DBL_GROUP, False, id=str(ML.DBL_GROUP)),
     pytest.param("dbl", ML.DBL_MXU_GROUP, True, id=f"dbl-mxu-{ML.DBL_MXU_GROUP}"),
     pytest.param("add", 8, False, id="add-8"),
-    pytest.param("add", ML.ADD_GROUP, False, id=f"add-{ML.ADD_GROUP}")])
+    pytest.param("add", ML.ADD_GROUP, False, id=f"add-{ML.ADD_GROUP}"),
+    pytest.param("add", ML.ADD_MXU_GROUP, True, id=f"add-mxu-{ML.ADD_MXU_GROUP}")])
 def test_group_schedule_never_overwrites_a_live_slot(step, group, mxu):
-    """The group schedules of kernels 2, 2m and 3 on the recorded programs
-    (no compiler): each limb op runs once, after its operands, in a phase
-    that does not write what it reads; a round holds at most one product
-    per rank; the outputs are stored from their own slots; the slots fit in
-    one block's shared memory, and the printed launcher asserts that they
-    do with the MXU form's DMMA staging (nvcc checks it)."""
+    """The group schedules of kernels 2, 2m, 3 and 3m on the recorded
+    programs (no compiler): each limb op runs once, after its operands, in a
+    phase that does not write what it reads; a round holds at most one
+    product per rank; the outputs are stored from their own slots; the slots
+    fit in one block's shared memory, and the printed launcher asserts that
+    they do with the MXU form's DMMA staging (nvcc checks it)."""
     prog = ML.program(step)
     sched = codegen.group_schedule(prog, group)
     order = _run_schedule(prog, sched)

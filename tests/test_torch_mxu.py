@@ -16,10 +16,11 @@ Fast tier (byte equality unless stated):
   h2c.fp2_pow_static (chains on) reach the MXU plain versions; the WSM
   step does not;
 * csrc/mxu.cuh's per-lane parts, and the MXU kernels of mxu.cu, chain.cu
-  and miller_step_mxu.cu (the doubling step in its group form, ranks run
-  both ways), compiled with g++ and held against the plain versions lane by
-  lane (the two DMMA products come from the host stand-in in
-  torch_host_cuda.py);
+  and miller_step_mxu.cu (the Fp2 chain and both Miller steps in their
+  group forms, ranks run both ways), compiled with g++ and held against the
+  plain versions lane by lane (the DMMA products come from the host
+  stand-in in torch_host_cuda.py); mxu_coop.cuh's mont_group_mxu_core alone
+  at G = 8 and 16, and the bound behind its carry maps;
 * B=8 verify through TorchBackend(device="cpu") under chains + WSM + MXU
   equals the oracle, with the MXU variants on every product path (Miller
   63 + 63, Fp chain 12, Fp2 chain 4) and the 15-bit core for the WSM steps.
@@ -320,8 +321,38 @@ extern "C" void host_fp_chain_mxu(const int32_t* tape, int nd, const uint32_t* b
   EACH_LANE(fp_chain_mxu_kernel(tape, nd, b, o, n))
 }
 extern "C" void host_fp2_chain_mxu(const int32_t* tape, int nd, const uint32_t* a0,
-                                   const uint32_t* a1, uint32_t* o0, uint32_t* o1, int n) {
-  EACH_LANE(fp2_chain_mxu_kernel(tape, nd, a0, a1, o0, o1, n))
+                                   const uint32_t* a1, uint32_t* o0, uint32_t* o1, int n,
+                                   int down) {
+  lh::host_ranks_down = down;
+  EACH_LANE(fp2_chain_mxu_group_kernel<kFp2MxuGroup>(tape, nd, a0, a1, o0, o1, n))
+}
+// mont_group_mxu_core alone at G ranks: a and b into a lane's shared arrays,
+// the product stored to a (26, n) plane.
+template <int G>
+void core13(const uint32_t* a, const uint32_t* b, uint32_t* o, int n) {
+  namespace c13 = lh::coop13;
+  for (int l = 0; l < n; ++l) {
+    alignas(16) uint32_t sm[c13::kTabWords + c13::kWorkWords<G> + 2 * NP];
+    const c13::Work w{sm + c13::kTabWords};
+    const Lane xa{sm + c13::kTabWords + c13::kWorkWords<G>, 1}, xb{xa.p + NP, 1};
+    double* const tab = reinterpret_cast<double*>(sm);
+    LH_RANKS(G, c13::clear_sums<G>(r, w); c13::fill_tables<G>(r, tab);
+             for (int i = r; i < NL; i += G) {
+               xa(i) = a[i * n + l];
+               xb(i) = b[i * n + l];
+             })
+    const auto none = [](int) {};
+    c13::mont_group_mxu_core<G>(xa, xb, w, tab, lh::coop::Plane{o, n, l}, true, none, none);
+  }
+}
+extern "C" void host_core13(const uint32_t* a, const uint32_t* b, uint32_t* o, int n, int g,
+                            int down) {
+  lh::host_ranks_down = down;
+  if (g == 8) {
+    core13<8>(a, b, o, n);
+  } else {
+    core13<16>(a, b, o, n);
+  }
 }
 """
 
@@ -334,8 +365,9 @@ extern "C" void host_dbl(const uint32_t* f, const uint32_t* t, const uint32_t* x
 }}
 extern "C" void host_add(const uint32_t* f, const uint32_t* t, const uint32_t* q,
                          const uint32_t* xp, const uint32_t* yp, const int32_t* bit,
-                         uint32_t* fo, uint32_t* to, int n) {{
-  EACH_LANE(miller_step_add_mxu_kernel(f, t, q, xp, yp, bit, fo, to, n))
+                         uint32_t* fo, uint32_t* to, int n, int down) {{
+  lh::host_ranks_down = down;
+  EACH_LANE(miller_step_add_mxu_g{ML.ADD_MXU_GROUP}_kernel(f, t, q, xp, yp, bit, fo, to, n))
 }}
 """
 
@@ -379,30 +411,87 @@ def test_host_compiled_mxu_helpers_match_plain(host_mxu):
 
 
 def test_host_compiled_mxu_chains_match_plain(host_mxu):
+    """Kernel 4m (one thread per lane) on 3 lanes, and kernel 5m's group
+    form (mont_group_mxu_core, FP2_MXU_FORM) at 1 and G + 1 lanes with each
+    phase's ranks run up and down, on a short exponent with a 0 digit."""
     lib, ptr = host_mxu["chain"], host_cuda.ptr
     rng = random.Random(41)
-    a = F.lfp_encode([rng.randrange(P) for _ in range(3)], "cpu").limbs
-    b = F.lfp_encode([rng.randrange(P) for _ in range(3)], "cpu").limbs
+    n = CK.FP2_MXU_FORM[0] + 1
+    a = F.lfp_encode([rng.randrange(P) for _ in range(n)], "cpu").limbs
+    b = F.lfp_encode([rng.randrange(P) for _ in range(n)], "cpu").limbs
     e = 0x305
     tape = torch.tensor(CK.window_digits(bin(e)[2:]), dtype=torch.int32)
-    out = torch.empty_like(a)
-    lib.host_fp_chain_mxu(ptr(tape), len(tape), ptr(a), ptr(out), 3)
-    assert torch.equal(out, CK.pow_chain_plain(a, e, mxu=True))
+    x = a[:, :3].contiguous()
+    out = torch.empty_like(x)
+    lib.host_fp_chain_mxu(ptr(tape), len(tape), ptr(x), ptr(out), 3)
+    assert torch.equal(out, CK.pow_chain_plain(x, e, mxu=True))
     bits = [1, 0, 0, 0, 0, 0, 0, 1, 0, 1]
     tape = torch.tensor(CK.window_digits("".join(map(str, bits))), dtype=torch.int32)
-    o0, o1 = torch.empty_like(a), torch.empty_like(b)
-    lib.host_fp2_chain_mxu(ptr(tape), len(tape), ptr(a), ptr(b), ptr(o0), ptr(o1), 3)
-    r0, r1 = CK.fp2_pow_chain_plain(a, b, bits, mxu=True)
-    assert torch.equal(o0, r0) and torch.equal(o1, r1)
+    for w in (1, n):
+        x, y = a[:, :w].contiguous(), b[:, :w].contiguous()
+        r0, r1 = CK.fp2_pow_chain_plain(x, y, bits, mxu=True)
+        for down in (0, 1):
+            o0, o1 = torch.empty_like(x), torch.empty_like(y)
+            lib.host_fp2_chain_mxu(ptr(tape), len(tape), ptr(x), ptr(y), ptr(o0), ptr(o1), w,
+                                   down)
+            assert torch.equal(o0, r0) and torch.equal(o1, r1), (w, down)
+
+
+@pytest.mark.parametrize("group", [8, 16])
+def test_host_group_mxu_core_matches_plain(host_mxu, group):
+    """mont_group_mxu_core (csrc/mxu_coop.cuh) alone at G = 8 and 16 ranks,
+    each phase's ranks run up and down, its DMMA tile pairs from the host
+    stand-in's row-range form: byte-equal to mont_mul_mxu_plain on the
+    strict, lazy, all-QMAX and a * a lanes of _corpus and on the edge limbs
+    of _quasi15_corpus (boundary values, random quasi limbs, all-QMAX)
+    against their neighbours."""
+    lib, ptr = host_mxu["chain"], host_cuda.ptr
+    x, y, _ = _corpus()
+    edge = torch.as_tensor(_quasi15_corpus().astype(np.int32))
+    x = torch.cat([x, edge, edge], dim=1).contiguous()
+    y = torch.cat([y, edge, edge.roll(1, 1)], dim=1).contiguous()
+    want = X.mont_mul_mxu_plain(x, y)
+    for down in (0, 1):
+        out = torch.empty_like(x)
+        lib.host_core13(ptr(x), ptr(y), ptr(out), x.shape[1], group, down)
+        assert torch.equal(out, want), down
+
+
+def test_group_mxu_carry_ins_stay_below_three():
+    """The carry maps of mont_group_mxu_core's 61-step carry record carry-ins
+    0, 1 and 2 only.  From the bounds: a column of t = a13 * b13 sums at
+    most 31 products of to13 limbs (<= 8193), a column of u = m * P13 at
+    most 30 products of m's limbs after three passes and P13's limbs; three
+    13-bit passes take each below 2^13 + 1; the carry into column k + 1 is
+    (t_k + u_k + carry) >> 13, at most 2 if the carry into column k is."""
+    c13 = X.constants13()
+
+    def passes(bound):
+        for _ in range(3):
+            bound = X.M13 + (bound >> X.BITS13)
+        return bound
+
+    t_raw = X.NL13 * 8193 ** 2
+    t_max = passes(t_raw)
+    m_raw = X.NLOW * t_max * int(c13["PP13"].max())
+    m_max = passes(m_raw)
+    u_raw = X.NLOW * m_max * int(c13["P13"].max())
+    u_max = passes(u_raw)
+    assert max(t_raw, m_raw, u_raw) < 1 << 31  # exact in uint32 and in a double
+    assert t_max == m_max == u_max == 1 << X.BITS13
+    c_max = 0  # the largest carry into any column, by induction over the columns
+    while (t_max + u_max + c_max) >> X.BITS13 > c_max:
+        c_max = (t_max + u_max + c_max) >> X.BITS13
+    assert set(range(c_max + 1)) == {0, 1, 2}  # two bits per carry-in, three per map
 
 
 def test_host_compiled_mxu_miller_steps_match_plain(host_mxu):
-    """Kernel 2m's group form at 1 and G + 1 lanes, ranks run both ways, and
-    kernel 3m (one thread per lane) with random addition bits, byte for byte
-    against the plain versions with mxu=True."""
+    """The group forms of kernels 2m and 3m at 1 and G + 1 lanes, ranks run
+    both ways, kernel 3m with random addition bits, byte for byte against
+    the plain versions with mxu=True."""
     lib, ptr = host_mxu["miller_step_mxu"], host_cuda.ptr
     rng = random.Random(43)
-    n = ML.DBL_MXU_GROUP + 1
+    n = max(ML.DBL_MXU_GROUP, ML.ADD_MXU_GROUP) + 1
 
     def planes(k):
         return torch.stack([torch.as_tensor(F.ints_to_limbs(
@@ -418,10 +507,13 @@ def test_host_compiled_mxu_miller_steps_match_plain(host_mxu):
             lib.host_dbl(*map(ptr, args), ptr(fw), ptr(tw), w, down)
             assert torch.equal(fw, rf) and torch.equal(tw, rt), (w, down)
     bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32)
-    fo, to = torch.empty_like(f), torch.empty_like(t)
-    lib.host_add(*map(ptr, (f, t, q, xp, yp, bit, fo, to)), n)
-    rf, rt = ML.miller_step_add_plain(f, t, q, xp, yp, bit, mxu=True)
-    assert torch.equal(fo, rf) and torch.equal(to, rt)
+    for w in (1, n):
+        args = tuple(x[..., :w].contiguous() for x in (f, t, q, xp, yp, bit))
+        rf, rt = ML.miller_step_add_plain(*args, mxu=True)
+        for down in (0, 1):
+            fo, to = torch.empty_like(args[0]), torch.empty_like(args[1])
+            lib.host_add(*map(ptr, args), ptr(fo), ptr(to), w, down)
+            assert torch.equal(fo, rf) and torch.equal(to, rt), (w, down)
 
 
 def test_mxu_wrapper_checks_its_operands():

@@ -8,8 +8,9 @@ card and no nvcc.
 
 csrc/mxu.cuh's warp-cooperative part (the two products on the FP64 tensor
 cores) is device-only; for host builds ``mxu_host.h`` below supplies the
-same two products, y[k] = sum_i C[k - i] x[i], by a loop per lane (and an
-empty shared-memory setup; a group kernel's slots are a local array).  The
+same two products, y[k] = sum_i C[k - i] x[i], by a loop per lane, also in
+a row-range form for the tile pairs of csrc/mxu_coop.cuh (and an empty
+shared-memory setup; a group kernel's slots are a local array).  The
 rest of the MXU kernels (to13, the a * b columns, the carry passes, to15,
 the chains' control flow, the group form's phases) runs on the host as it
 does on the card.
@@ -68,6 +69,18 @@ inline void toeplitz_dot(int which, const uint32_t* x, uint32_t (&y)[NY], const 
   for (int k = 0; k < NY; ++k) {
     uint32_t acc = 0;
     for (int i = 0; i < NLOW; ++i)
+      if (k - i >= 0 && k - i < NL13) acc += c[k - i] * x[i];
+    y[k] = acc;
+  }
+}
+// The row-range form (csrc/mxu_coop.cuh's tile pairs): rows [row0, row0 + 8)
+// below ny of y = Toeplitz(C) @ x for one lane, x its 32 rows (consecutive
+// words on the host), as a DMMA row tile sums its eight k-tiles.
+inline void toeplitz_rows(int which, const uint32_t* x, uint32_t* y, int row0, int ny) {
+  const uint32_t* c = which == kMxuPPrime ? kPPrime13 : kP13;
+  for (int k = row0; k < row0 + 8 && k < ny; ++k) {
+    uint32_t acc = 0;
+    for (int i = 0; i < 32; ++i)
       if (k - i >= 0 && k - i < NL13) acc += c[k - i] * x[i];
     y[k] = acc;
   }
