@@ -14,23 +14,24 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 1. device: the card's name, power limit and max SM clock.
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
    ptxas's registers, stack, spills and shared memory of the group forms of
-   kernels 1, 2, 3, 2m, 3m, 4, 5 and 5m (5m: mxu_coop.cuh's
-   mont_group_mxu_core), the one-thread kernel 4m, and the device functions
-   the Miller steps call.
+   kernels 1, 2, 3, 2m, 3m, 4, 5, 7, 4m and 5m (7, 4m and 5m: mxu_coop.cuh's
+   mont_group_mxu_core, the chains' through mul13), the one-thread forms of
+   kernels 1 and 7, and the device functions the Miller steps call.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
    byte equality required: mont_mul and mont_mul_mxu on four corpora, and
    every form of mont_mul (mont_kernel.FORMS) also at 1, 2, G - 1, G + 1,
-   L - 1, L + 1, 31 and 33 lanes (G threads per lane, L lanes per block);
+   L - 1, L + 1, 31 and 33 lanes (G threads per lane, L lanes per block),
+   and every form of mont_mul_mxu (mxu_kernel.FORMS) at the same widths;
    the Miller steps and their MXU variants on live pairing steps (random
    addition bits), and the group forms of kernels 2, 3, 2m and 3m also at 1
    and G + 1 lanes (G threads per lane); the Fp chain
    and its MXU variant at p-2 on strict and lazy bases; the Fp2 chain and
    its MXU variant at (p^2+7)/16; the 15-bit chains (the Fp chain in every
    form of chain_kernel.FP_FORMS, the Fp2 chain in FP2_FORM) also at 1, 2,
-   G + 1, L - 1, L + 1 and 257 lanes, the MXU Fp2 chain (FP2_MXU_FORM) also
-   at 1 and 33; one
+   G + 1, L - 1, L + 1 and 257 lanes, the MXU chains (FP_MXU_FORM,
+   FP2_MXU_FORM) also at 1 and 33; one
    G1 and one G2 WSM step on live points with random bits and infinity flags
    on either side.
 4. reference: the device map-to-G2 on a few messages against the host
@@ -58,12 +59,14 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    (mont_widths: calls x ms, its device time there), every form of it at
    the three widths with the most device time and at wider calls
    (mont_groups), and in the kernels line at the most-launched width with
-   the three heaviest beside; mont_mul_mxu at the same width on the mxu
-   arm's operands; the 15-bit chains at every width their arm launches, the
-   Fp chain in every form and also at CHAIN_SWEEP widths between them
-   (chain_forms, whose readings the kernels line reuses); the MXU chains at
-   their arm's most-launched width; every other kernel on its arm's
-   operands.
+   the three heaviest beside; mont_mul_mxu in both forms at every width of
+   the mxu arm (mxu_widths: calls x ms, its device time there, and the
+   widths where form_for's form is not the faster), and in the kernels line
+   at mont_mul's width with its three heaviest beside; the 15-bit chains at
+   every width their arm launches, the Fp chain in every form and also at
+   CHAIN_SWEEP widths between them (chain_forms, whose readings the kernels
+   line reuses); the MXU chains at every width their arm launches (by_width
+   in the kernels line); every other kernel on its arm's operands.
 7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
    mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
@@ -323,10 +326,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(built["seconds"], 3), "built": built["built"],
           "dir": str(_build.build_dir().relative_to(_build.PKG_ROOT.parent)),
           "ptxas": built["ptxas"]})
-    # the group forms of kernels 1, 2, 3, 2m, 3m, 4, 5 and 5m, kernel 4m,
-    # and the device functions the Miller steps and kernel 5m call (g_mul_mxu
+    # the group forms of kernels 1, 2, 3, 2m, 3m, 4, 5, 7, 4m and 5m, the
+    # one-thread forms of kernels 1 and 7, and the device functions the Miller steps and kernels 4m and 5m call (g_mul_mxu
     # once per staging depth: 2m's and 3m's; mul13, mont_group_mxu_core's one
-    # copy)
+    # copy per G)
     group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
                                for g, lanes in MK.FORMS if g > 1) + ("mont_mul_kernel",),
                  "miller_step": (f"miller_step_dbl_g{ML.DBL_GROUP}_kernel",
@@ -339,8 +342,12 @@ def main() -> int:
                                      "g_add", "g_sub"),
                  "chain": tuple(f"fp_chain_group_kernelILi{lanes}E" for _, lanes in CK.FP_FORMS)
                  + (f"fp2_chain_group_kernelILi{CK.FP2_FORM[1]}E",
-                    f"fp2_chain_mxu_group_kernelILi{CK.FP2_MXU_FORM[0]}E",
-                    f"mul13ILi{CK.FP2_MXU_FORM[0]}E", "fp_chain_mxu_kernel")}
+                    f"fp_chain_mxu_group_kernelILi{CK.FP_MXU_FORM[0]}E",
+                    f"fp2_chain_mxu_group_kernelILi{CK.FP2_MXU_FORM[0]}E")
+                 + tuple(f"mul13ILi{g}E" for g in sorted({CK.FP_MXU_FORM[0],
+                                                          CK.FP2_MXU_FORM[0]})),
+                 "mxu": (f"mont_mul_mxu_group_kernelILi{X.MXU_FORM[0]}E",
+                         "mont_mul_mxu_kernel")}
     emit({"phase": "ptxas", **{lib: ptxas_report((_build.build_dir() / f"{lib}.log").read_text(),
                                                  names) for lib, names in group_fns.items()}})
 
@@ -424,6 +431,16 @@ def main() -> int:
                for w in widths for x, y in corpora.values()]
         emit({"phase": "kernel_check", "kernel": "mont_mul", "form": form,
               "corpora": len(corpora), "widths": widths, "equal": all(eqs)})
+    # every form of kernel 7 at widths around its group size and its block
+    # (ragged tails) and the check width
+    for form in X.FORMS:
+        g, lanes = form
+        widths = sorted({1, 2, max(g - 1, 1), g + 1, lanes - 1, lanes + 1, 31, 33, n})
+        eqs = [hold("mont_mul_mxu", (x[:, :w].contiguous(), y[:, :w].contiguous()),
+                    lambda x, y, form=form: [X.mont_mul_mxu(x, y, form=form)])[0]
+               for w in widths for x, y in corpora.values()]
+        emit({"phase": "kernel_check", "kernel": "mont_mul_mxu", "form": form,
+              "corpora": len(corpora), "widths": widths, "equal": all(eqs)})
 
     # Miller-step and WSM-step inputs from live points: n distinct
     # [r]G1 and [s]G2 made on the card, then two dbl+add Miller steps.
@@ -503,7 +520,11 @@ def main() -> int:
                 lambda *x: CK.fp2_pow_chain(*x, mxu=False))[0] for w in ragged(CK.FP2_FORM)]
     emit({"phase": "kernel_check", "kernel": "fp2_chain", "form": CK.FP2_FORM,
           "corpora": ["strict"], "widths": ragged(CK.FP2_FORM), "equal": all(eqs)})
-    # the MXU Fp2 chain's group form at 1 lane and at a ragged block of 32
+    # the MXU chains' group forms at 1 lane and at a ragged block of 32
+    eqs = [hold("fp_chain_mxu", (base[:, :w].contiguous(), F.P_INT - 2))[0]
+           for w in (1, 33) for base in (a.limbs, lazy.limbs)]
+    emit({"phase": "kernel_check", "kernel": "fp_chain_mxu", "form": CK.FP_MXU_FORM,
+          "corpora": ["strict", "lazy_bound4"], "widths": [1, 33], "equal": all(eqs)})
     eqs = [hold("fp2_chain_mxu", (*cut(w, a.limbs, b.limbs), h2c.SQRT_EXP_BITS))[0]
            for w in (1, 33)]
     emit({"phase": "kernel_check", "kernel": "fp2_chain_mxu", "form": CK.FP2_MXU_FORM,
@@ -680,6 +701,10 @@ def main() -> int:
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
 
         plane = F.N * 4  # bytes of one (26,) limb column
+
+        def form_key(form):
+            return "x".join(map(str, form))
+
         # mont_mul on the default path, width by width: calls x ms is its
         # device time there; the widths with the most are timed in every
         # form of kernel 1, and so are wider calls, where the one-thread
@@ -707,8 +732,7 @@ def main() -> int:
             for w, args in forms.items()}, "form_for": {w: MK.form_for(w) for w in forms}})
         del forms
         # mont_mul at the default path's most-launched width (the arm's is a
-        # 2-lane call), with its heaviest widths beside; mont_mul_mxu at the
-        # same width on the mxu arm's operands
+        # 2-lane call), with its heaviest widths beside
         n_mont = max(mont_widths, key=mont_widths.get)
         record("mont_mul", mont_ops[n_mont], "mont.cu",
                "pallas_fp.py:141", 3 * plane * n_mont, MK.IMAD_PER_LANE * n_mont, False,
@@ -716,18 +740,44 @@ def main() -> int:
                heaviest_widths=[{"n": w, "calls": mont_widths[w], "ms": sweep[w],
                                  "bound_ms": bound_ms(3 * plane * w, MK.IMAD_PER_LANE * w)[0],
                                  "form": MK.form_for(w)} for w in heavy])
+        # mont_mul_mxu on the mxu arm, width by width, in every form: calls x
+        # ms of form_for's form is its device time there; where another form
+        # is faster, form_for's crossover is off
+        mxu_widths = path_widths["mxu"]["mont_mul_mxu"]
         mxu_ops = path_ops["mxu"]["mont_mul_mxu"]
+
+        def mxu_bound(w):
+            return bound_ms(3 * plane * w, X.IMAD_PER_LANE * w, X.DMMA_FMA_PER_LANE * w)
+
+        mxu_forms = {w: {form_key(f): time_ms(
+            torch, lambda f=f, a=mxu_ops[w]: X.mont_mul_mxu(*a, form=f), KERNEL_LAUNCHES,
+            queue_first=True, windows=SWEEP_WINDOWS) for f in X.FORMS} for w in sorted(mxu_widths)}
+        mxu_sweep = {w: mxu_forms[w][form_key(X.form_for(w))] for w in mxu_widths}
+        mxu_by_time = sorted(mxu_widths, key=lambda w: -mxu_widths[w] * mxu_sweep[w])
+        emit({"phase": "mxu_widths", "arm": "mxu", "card": smi,
+              "calls": sum(mxu_widths.values()), "widths": len(mxu_widths),
+              "device_s": sum(c * mxu_sweep[w] for w, c in mxu_widths.items()) / 1e3,
+              "device_s_by_form": {form_key(f): sum(c * mxu_forms[w][form_key(f)] for w, c in
+                                                    mxu_widths.items()) / 1e3 for f in X.FORMS},
+              "slower_than_another_form": [w for w in sorted(mxu_widths) if mxu_sweep[w] > min(
+                  mxu_forms[w].values())],
+              "top": [{"n": w, "calls": mxu_widths[w], "ms": mxu_sweep[w],
+                       "device_s": mxu_widths[w] * mxu_sweep[w] / 1e3, "form": X.form_for(w),
+                       "bound_ms": mxu_bound(w)[0]} for w in mxu_by_time[:20]],
+              "ms_by_form": mxu_forms})
+        # in the kernels line at mont_mul's width, with its heaviest widths
         n_mxu = n_mont if n_mont in mxu_ops else max(mxu_ops)
         record("mont_mul_mxu", mxu_ops[n_mxu], "mxu.cu", "pallas_mxu.py:161",
                3 * plane * n_mxu, X.IMAD_PER_LANE * n_mxu, False,
-               dmma_fmas=X.DMMA_FMA_PER_LANE * n_mxu)
+               dmma_fmas=X.DMMA_FMA_PER_LANE * n_mxu, group=X.form_for(n_mxu)[0],
+               form=X.form_for(n_mxu),
+               heaviest_widths=[{"n": w, "calls": mxu_widths[w], "ms": mxu_sweep[w],
+                                 "bound_ms": mxu_bound(w)[0], "form": X.form_for(w)}
+                                for w in mxu_by_time[:MONT_HEAVY]])
         # the 15-bit chains at every width the arm launches: the Fp chain in
         # every form, there and at CHAIN_SWEEP widths cut from the arm's
         # widest operands (where form_for's crossover is read); the Fp2
         # chain in its one form
-        def form_key(form):
-            return "x".join(map(str, form))
-
         fp_ops = dict(path_ops["arm"]["fp_chain"])
         widest = fp_ops[max(fp_ops)]
         for w in CHAIN_SWEEP:
@@ -776,17 +826,21 @@ def main() -> int:
                             CK.imads_per_lane(field, nd, bool(sfx)) * w,
                             (c["mul"] + c["sqr"]) * X.DMMA_FMA_PER_LANE * w if sfx else 0)
 
-                def form(w, field=field):
+                def form(w, field=field, sfx=sfx):
+                    if sfx:
+                        return CK.FP_MXU_FORM if field == "fp" else CK.FP2_MXU_FORM
                     return CK.form_for(w) if field == "fp" else CK.FP2_FORM
 
-                mxu_form = (1, 32) if field == "fp" else CK.FP2_MXU_FORM
-                extra = ({"group": mxu_form[0], "form": mxu_form} if sfx else
-                         {"group": form(n_ch)[0], "form": form(n_ch),
-                          "ms": chain_ms[name][n_ch][form_key(form(n_ch))],
-                          "by_width": [{"n": w, "calls": widths[w],
-                                        "ms": chain_ms[name][w][form_key(form(w))],
-                                        "bound_ms": bound_ms(*work(w))[0],
-                                        "form": form(w)} for w in sorted(widths)]})
+                if sfx:  # the MXU chains at every width their arm launches
+                    chain_ms[name] = {w: {form_key(form(w)): time_ms(
+                        torch, lambda a=ops[name][w], k=funcs[name][0]: k(*a), LONG_LAUNCHES,
+                        queue_first=True)} for w in sorted(widths)}
+                extra = {"group": form(n_ch)[0], "form": form(n_ch),
+                         "ms": chain_ms[name][n_ch][form_key(form(n_ch))],
+                         "by_width": [{"n": w, "calls": widths[w],
+                                       "ms": chain_ms[name][w][form_key(form(w))],
+                                       "bound_ms": bound_ms(*work(w))[0],
+                                       "form": form(w)} for w in sorted(widths)]}
                 nbytes, imads, fmas = work(n_ch)
                 record(name, args, "chain.cu", f"pallas_fp.py:{line}", nbytes, imads, True,
                        dmma_fmas=fmas, digits=nd, **extra)

@@ -34,10 +34,13 @@ digit's table entry is a shared-memory offset.  The Fp2 chain's products
 run one after another on all 16 ranks, its linear ops dealt to the ranks
 limb by limb.  ``FP_FORMS`` lists the Fp chain's forms (threads per lane,
 lanes per block) and ``form_for`` picks one by width; the Fp2 chain has one
-form, ``FP2_FORM``, the path's only width being 4,096.  The MXU variants stay one
-thread per lane.  What bounds it on the card: integer multiplies (about
-0.75M per lane for the p-2 chain, 3.6M for the Fp2 square root) against a
-few hundred bytes per lane.  The digit tape sits in device memory, uploaded
+form, ``FP2_FORM``, the path's only width being 4,096.  The MXU variants
+run the same chain bodies in one group form each (``FP_MXU_FORM``,
+``FP2_MXU_FORM``: G ranks per lane, one per warp, blocks of 32 lanes) on
+the 13-bit core ``mont_group_mxu_core`` (csrc/mxu_coop.cuh), the Fp chain
+squaring with the full product.  What bounds it on the card: integer
+multiplies (about 0.75M per lane for the p-2 chain, 3.6M for the Fp2 square
+root) against a few hundred bytes per lane.  The digit tape sits in device memory, uploaded
 once per device and exponent.
 """
 
@@ -71,8 +74,9 @@ FP_FORMS = ((16, 8), (16, 16))
 FORM_MAX_WIDTH = (3072,)
 # The one form of the 15-bit Fp2 chain (csrc/chain.cu kFp2Lanes)
 FP2_FORM = (16, 16)
-# The one form of the MXU Fp2 chain: G ranks per lane, one per warp, in
-# blocks of 32 lanes (csrc/chain.cu kFp2MxuGroup)
+# The one form of each MXU chain: G ranks per lane, one per warp, in blocks
+# of 32 lanes (csrc/chain.cu kFpMxuGroup, kFp2MxuGroup)
+FP_MXU_FORM = (8, 32)
 FP2_MXU_FORM = (8, 32)
 
 

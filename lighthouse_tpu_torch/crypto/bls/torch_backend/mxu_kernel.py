@@ -29,17 +29,27 @@ form all 961 and slice).  The result may differ in bytes from the 15-bit
 core's (kernel 1) on a ~2^-13 sliver of inputs (pallas_mxu.py:27-32), by
 one P, never in value mod P.
 
-Hopper design (csrc/mxu.cuh, csrc/mxu.cu): one lane per thread.  a * b has
-two per-lane operands, so its 961 products are 32-bit multiply-adds.  The
-two other products have a lane-invariant right operand, so they are true
-matrix products, Toeplitz(P'13)[0:30, 0:30] @ t13 and Toeplitz(P13)[0:61,
-0:30] @ m13 with the lanes along N, and run on the FP64 tensor cores
-(``mma.sync.aligned.m8n8k4`` DMMA): every product is below 2^27 and every
-column sum below 2^31, exact in a 53-bit mantissa.  A warp stages its 32
-lanes' columns through shared memory as the B operand; the A fragments come
-from a per-block table of the constants.  What bounds it on the card: 961
-32-bit multiply-adds per lane on the integer pipes, and 465 + 900
-multiply-adds per lane of DMMA work; at the path's widths, launch latency.
+Hopper design (csrc/mxu.cu, csrc/mxu_coop.cuh, csrc/mxu.cuh): two forms,
+``FORMS``.  The group form ``MXU_FORM``: G ranks per lane, one rank per
+warp, in blocks of 32 lanes, running the cooperative core
+``mont_group_mxu_core`` that kernels 4m and 5m also run.  a * b has two
+per-lane operands, so its 961 products are 32-bit multiply-adds, cut into G
+tiles summed by shared-memory atomics.  The two other products have a
+lane-invariant right operand, so they are true matrix products,
+Toeplitz(P'13)[0:32, 0:32] @ t13 and Toeplitz(P13)[0:64, 0:32] @ m13 with
+the block's 32 lanes along N, and run on the FP64 tensor cores
+(``mma.sync.aligned.m8n8k4`` DMMA) as tile pairs dealt to the warps: every
+product is below 2^27 and every column sum below 2^31, exact in a 53-bit
+mantissa.  The carry passes and the 61-step carry are cut into blocks of
+columns, one per rank, the carry composed from per-rank carry maps.  The
+core's first phase reads the operands straight from their global planes;
+its last stores the strict limbs.  The one-thread form (blocks of 64, each
+warp staging its DMMA operands in shared memory) issues fewer instructions
+in all, and wins where the group form needs several waves of blocks, so
+``form_for`` picks the form from the width.  What bounds it on the card:
+the bytes (312 per lane) set a bound of some hundred nanoseconds at most of
+the path's widths; the group form takes the latency of eight barrier
+phases and a launch.
 """
 
 from __future__ import annotations
@@ -68,6 +78,17 @@ IMAD_PER_LANE = NL13 * NL13
 DMMA_FMA_PER_LANE = NLOW * (NLOW + 1) // 2 + NLOW * NLOW
 
 launches = 0  # kernel launches (plain-version calls do not count)
+
+# The compiled forms: (ranks per lane, lanes per block).  The group form, G
+# ranks, one per warp, in blocks of 32 lanes (csrc/mxu.cu kMontMxuGroup), and
+# the one-thread form in blocks of 64.
+MXU_FORM = (8, 32)
+FORMS = (MXU_FORM, (1, 64))
+# The widest n the group form is used for; wider calls take the one-thread
+# form.  chip_smoke.py's mxu_widths phase times both forms at every width of
+# the mxu arm: the group form wins up to 36,864 lanes, the one-thread form at
+# 49,152 and 73,728; the widths between are not launched.
+FORM_MAX_WIDTH = (36864,)
 
 # to13: 15-bit limb i sits at bit 15 i = 13 q + r, split into 13-bit chunks
 # at columns q, q + 1 and, where QMAX << r reaches bit 26, q + 2.
@@ -189,18 +210,30 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("mont_mul_mxu takes contiguous tensors")
 
 
+def form_for(n: int) -> tuple:
+    """The form of kernel 7 for an n-lane product."""
+    for form, widest in zip(FORMS, FORM_MAX_WIDTH):
+        if n <= widest:
+            return form
+    return FORMS[-1]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("mxu")
     if not lib.lh_mont_mul_mxu.argtypes:
-        lib.lh_mont_mul_mxu.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        lib.lh_mont_mul_mxu.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         lib.lh_mont_mul_mxu.restype = ctypes.c_int
     return lib
 
 
-def mont_mul_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mont_mul_mxu(a: torch.Tensor, b: torch.Tensor, form: tuple | None = None) -> torch.Tensor:
     """Batched Montgomery product on the 13-bit plane.  CUDA tensors launch
-    kernel 7 on the current stream; CPU tensors take the plain version."""
+    kernel 7 on the current stream, in ``form`` (one of FORMS; by default
+    ``form_for(n)``); CPU tensors take the plain version."""
     _check(a, b)
+    if form is not None and tuple(form) not in FORMS:
+        raise ValueError(f"mont_mul_mxu has no form {form}")
     if a.device.type == "cpu":
         return mont_mul_mxu_plain(a, b)
     if a.device.type != "cuda":
@@ -210,7 +243,8 @@ def mont_mul_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = _lib()
-    err = lib.lh_mont_mul_mxu(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+    group, lanes = form_for(n) if form is None else form
+    err = lib.lh_mont_mul_mxu(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, group, lanes,
                               torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, err, "mont_mul_mxu kernel")
     global launches

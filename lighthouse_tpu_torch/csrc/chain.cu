@@ -30,108 +30,35 @@
 // last phase where they touch nothing it reads or writes.
 //
 // The MXU variants (the reference's chain kernels built with mxu=True) run
-// every product on the 13-bit plane.  The Fp2 chain (fp2_chain_mxu_group_
-// kernel) runs the 15-bit Fp2 chain's group form with its products on
-// mxu_coop.cuh's mont_group_mxu_core: G ranks per lane, one rank per warp,
-// in blocks of 32 lanes, so every mma.sync is warp-uniform.  The Fp chain
-// (fp_chain_mxu_kernel) runs kernel 7's core (mxu.cuh) one thread per lane,
-// its square the full product mont(a, a) (pallas_fp._core_pair); the core is
-// warp-cooperative: the digit tape is the same for every lane, so every call
-// is warp-uniform, and the tail threads run lane n - 1's operands again and
-// store nothing.
+// the 15-bit chains' group forms with every product on the 13-bit plane:
+// mxu_coop.cuh's mont_group_mxu_core, G ranks per lane, one rank per warp,
+// in blocks of 32 lanes, so every mma.sync is warp-uniform (the digit tape is
+// the same for every lane, and the tail lanes run lane n - 1's operands
+// again and store nothing).  The Fp chain (fp_chain_mxu_group_kernel) squares
+// with the full product mont(a, a), as the reference does under MXU
+// (pallas_fp._core_pair); the Fp2 chain (fp2_chain_mxu_group_kernel) keeps
+// its cores.  Both call the core through one __noinline__ mul13<G>, so the
+// code holds one copy of it.  One chain body per field serves both planes
+// (fp_chain_group, fp2_chain_group over Group<L> or GroupMxu<G>).
 //
 // What bounds it on the card: integer multiplies.  One Fp lane of the p-2
 // chain does 14 + 95 * 5 products (about 0.75M 32-bit multiplies) against
 // 208 bytes of traffic.  A lane's chain is a serial sequence of products, so
-// the group form puts 16 threads on each product (16 times the warps of one
+// the group form puts G threads on each product (G times the warps of one
 // thread per lane, each thread forming a tile of it) and keeps every operand
 // in shared memory; what is left is the five barrier phases per product
-// (eight on the 13-bit plane).  The MXU Fp chain, one thread per lane, runs
-// about one warp per SM at 4,096 lanes.
+// (eight on the 13-bit plane).
 #include "mont_coop.cuh"
-#include "mxu.cuh"
 #include "mxu_coop.cuh"
 
 namespace {
 
 using lh::NL;
 
-constexpr int kBlock = 32;  // the MXU Fp chain: 4,096 lanes -> 128 blocks, one per SM
 constexpr int kWindow = 4;  // pallas_fp.CHAIN_WINDOW
 constexpr int kPowers = 1 << kWindow;
 constexpr int kBias2 = 0;   // row of 2P in lh::kBias (fp.BIAS_KS order)
 constexpr int kBias16 = 3;  // row of 16P
-
-// o = a * b * R^-1 on the 13-bit plane (warp-cooperative); o may alias.
-__device__ __noinline__ void c_mul_mxu(uint32_t* o, const uint32_t* a, const uint32_t* b,
-                                       const lh::MxuCtx& mx) {
-  uint32_t x[NL], y[NL], r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    x[i] = a[i];
-    y[i] = b[i];
-  }
-  lh::mont_core_mxu(x, y, r, mx);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = r[i];
-}
-
-struct Mxu {
-  lh::MxuCtx mx;
-  __device__ __forceinline__ void mul(uint32_t* o, const uint32_t* a, const uint32_t* b) const {
-    c_mul_mxu(o, a, b, mx);
-  }
-  __device__ __forceinline__ void sqr(uint32_t* o, const uint32_t* a) const {
-    c_mul_mxu(o, a, a, mx);
-  }
-};
-
-__device__ __forceinline__ void load(uint32_t* o, const uint32_t* plane, int n, int lane) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = plane[static_cast<size_t>(i) * n + lane];
-}
-
-__device__ __forceinline__ void store(uint32_t* plane, int n, int lane, const uint32_t* v) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) plane[static_cast<size_t>(i) * n + lane] = v[i];
-}
-
-__device__ __forceinline__ void copy(uint32_t* o, const uint32_t* a) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = a[i];
-}
-
-// base^e of one lane into acc (the MXU Fp chain's body).
-template <class Core>
-__device__ __forceinline__ void fp_chain_body(const Core& core, const int32_t* tape,
-                                              int n_digits, const uint32_t* base, int n,
-                                              int lane, uint32_t* acc) {
-  uint32_t pw[kPowers][NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) pw[0][i] = lh::kOne[i];
-  load(pw[1], base, n, lane);
-#pragma unroll 1
-  for (int k = 2; k < kPowers; ++k) core.mul(pw[k], pw[k - 1], pw[1]);
-  copy(acc, pw[tape[0]]);
-#pragma unroll 1
-  for (int d = 1; d < n_digits; ++d) {
-#pragma unroll 1
-    for (int s = 0; s < kWindow; ++s) core.sqr(acc, acc);
-    core.mul(acc, acc, pw[tape[d]]);
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-fp_chain_mxu_kernel(const int32_t* __restrict__ tape, int n_digits,
-                    const uint32_t* __restrict__ base, uint32_t* __restrict__ out, int n) {
-  __shared__ lh::MxuShared<kBlock / 32> sm;
-  const Mxu core{lh::mxu_setup(sm)};
-  const int gl = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = gl < n ? gl : n - 1;
-  uint32_t acc[NL];
-  fp_chain_body(core, tape, n_digits, base, n, lane, acc);
-  if (gl < n) store(out, n, lane, acc);
-}
 
 // -- the chains in the group form ----------------------------------------
 
@@ -271,6 +198,8 @@ struct Group {
     lh::coop::mont_group_sqr_core<kG, L>(a, w, pp, pl, o, true, [](int) {},
                                          [&](int r) { lh::coop::clear_sums<kG>(r, w); });
   }
+  // The same on arrays by index
+  __device__ __forceinline__ void sqr(int o, int a) const { sqr(ar.arr(o), ar.arr(a)); }
 };
 
 // Array o = array a * array b * R^-1 on the 13-bit plane for a lane whose
@@ -315,6 +244,9 @@ struct GroupMxu {
                                       uint32_t l0 = 0, uint32_t l1 = 0) const {
     mul13<G>(ar.base, w.p, tab, o, a, b, f0, f1, l0, l1);
   }
+  // array o = array a squared, as the full product (pallas_fp._core_pair
+  // under MXU squares with mont(a, a)); o may alias a
+  __device__ __forceinline__ void sqr(int o, int a) const { mul(o, a, a); }
 };
 
 // Per-lane arrays of the Fp chain: powers[0..15], the accumulator; then one
@@ -325,6 +257,34 @@ constexpr int kFpChainWords = kFpArrays * NP + kWorkWords;
 template <int L>
 constexpr int kFpChainShared = kFpChainWords * lh::kLanes<L> + 2 * NP;
 
+// base^e for lane `lane` by its group g (either plane): the power table,
+// then four squares and a multiply per digit.
+template <class Grp>
+__device__ __forceinline__ void fp_chain_group(const Grp& g, const int32_t* tape, int n_digits,
+                                               const uint32_t* base, uint32_t* out, int n,
+                                               int lane, bool live) {
+  constexpr int G = Grp::kRanks, L = Grp::kL;
+  const auto& ar = g.ar;
+  // powers[0] = the one, powers[1] = the base
+  g.setup(kFpArrays, [&](int r) {
+    for (int i = r; i < NL; i += G) {
+      ar.arr(0)(i) = lh::kOne[i];
+      ar.arr(1)(i) = base[static_cast<size_t>(i) * n + lane];
+    }
+  });
+#pragma unroll 1
+  for (int k = 2; k < kPowers; ++k) g.mul(k, k - 1, 1);
+  const int first = tape[0];
+  LH_RANKS_OF(G, L, g_copy<G>(r, ar.arr(kFpAcc), ar.arr(first)))
+#pragma unroll 1
+  for (int d = 1; d < n_digits; ++d) {
+#pragma unroll 1
+    for (int s = 0; s < kWindow; ++s) g.sqr(kFpAcc, kFpAcc);
+    g.mul(kFpAcc, kFpAcc, tape[d]);
+  }
+  g_store<G, L>(out, n, lane, live, ar.arr(kFpAcc));
+}
+
 // base^e for lane `lane`, by the 16 threads of its group in a block of L
 // lanes.
 template <int L>
@@ -334,29 +294,36 @@ fp_chain_group_kernel(const int32_t* __restrict__ tape, int n_digits,
   LH_GROUP_SHARED(uint32_t, sm, kFpChainShared<L>);
   const int gl = lh::group_lane<L>();
   const bool live = gl < n;
-  const int lane = live ? gl : n - 1;
   const Arena<L> ar{sm + lh::group_slot<L>()};
   uint32_t* const pp = sm + kFpChainWords * lh::kLanes<L>;
   const Group<L> g{ar, ar.work(kFpArrays * NP), pp, pp + NP};
-  const Lane acc = ar.arr(kFpAcc);
-  // powers[0] = the one, powers[1] = the base
-  g.setup(kFpArrays, [&](int r) {
-    for (int i = r; i < NL; i += kG) {
-      ar.arr(0)(i) = lh::kOne[i];
-      ar.arr(1)(i) = base[static_cast<size_t>(i) * n + lane];
-    }
-  });
-#pragma unroll 1
-  for (int k = 2; k < kPowers; ++k) g.mul(k, k - 1, 1);
-  const int first = tape[0];
-  LH_RANKS_OF(kG, L, g_copy<kG>(r, acc, ar.arr(first)))
-#pragma unroll 1
-  for (int d = 1; d < n_digits; ++d) {
-#pragma unroll 1
-    for (int s = 0; s < kWindow; ++s) g.sqr(acc, acc);
-    g.mul(kFpAcc, kFpAcc, tape[d]);
-  }
-  g_store<kG, L>(out, n, lane, live, acc);
+  fp_chain_group(g, tape, n_digits, base, out, n, live ? gl : n - 1, live);
+}
+
+// Ranks per lane of the MXU Fp chain's one form (chain_kernel.FP_MXU_FORM,
+// blocks of 32 lanes), the faster of G = 8 and G = 16 at 4,096 lanes
+// (PERF.md).
+constexpr int kFpMxuGroup = 8;
+// The MXU Fp chain's shared words per block: the Toeplitz tables, the work
+// rows, the arrays
+template <int G>
+constexpr int kFpMxuShared =
+    lh::coop13::kTabWords + lh::coop13::kWorkWords<G> + kFpArrays * NP * lh::kGroupLanes;
+
+// The same on the 13-bit plane, by the G ranks (warps) of its group in a
+// block of 32 lanes; shared memory: the Toeplitz tables, the work rows, the
+// arrays.
+template <int G>
+__global__ void __launch_bounds__(G * 32)
+fp_chain_mxu_group_kernel(const int32_t* __restrict__ tape, int n_digits,
+                          const uint32_t* __restrict__ base, uint32_t* __restrict__ out, int n) {
+  LH_COOP13_SHARED(sm, kFpMxuShared<G>);
+  const int gl = lh::group_lane();
+  const bool live = gl < n;
+  uint32_t* const work = sm + lh::coop13::kTabWords;
+  const Arena<32> ar{work + lh::coop13::kWorkWords<G> + lh::group_slot()};
+  const GroupMxu<G> g{ar, {work}, reinterpret_cast<double*>(sm)};
+  fp_chain_group(g, tape, n_digits, base, out, n, live ? gl : n - 1, live);
 }
 
 // Per-lane arrays of the Fp2 chain: powers[0..15] of c0, of c1, the
@@ -535,16 +502,15 @@ extern "C" int lh_fp2_chain(const void* tape, int n_digits, const void* a0, cons
       static_cast<const uint32_t*>(a1), static_cast<uint32_t*>(o0), static_cast<uint32_t*>(o1));
 }
 
-// As lh_fp_chain, on the 13-bit plane.
+// As lh_fp_chain, on the 13-bit plane.  One form: kFpMxuGroup ranks per
+// lane (one per warp) in blocks of 32 lanes.
 extern "C" int lh_fp_chain_mxu(const void* tape, int n_digits, const void* base, void* out,
                                int n, void* stream) {
-  if (n > 0) {
-    fp_chain_mxu_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(tape), n_digits, static_cast<const uint32_t*>(base),
-        static_cast<uint32_t*>(out), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_group<kFpMxuGroup, 32, kFpMxuShared<kFpMxuGroup>>(
+      fp_chain_mxu_group_kernel<kFpMxuGroup>, n, static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(tape), n_digits, static_cast<const uint32_t*>(base),
+      static_cast<uint32_t*>(out));
 }
 
 // As lh_fp2_chain, on the 13-bit plane.  One form: kFp2MxuGroup ranks per

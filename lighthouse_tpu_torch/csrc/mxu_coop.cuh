@@ -1,8 +1,9 @@
 // Montgomery product on the 31 x 13-bit plane by a group of G ranks per lane,
 // one rank per warp, in blocks of 32 lanes (group.cuh with L = kGroupLanes):
-// kernel 5m's core (csrc/chain.cu), the 13-bit twin of mont_coop.cuh's
-// mont_group_core.  Operands and result are shared-memory Lanes, so a kernel
-// is a load phase around it (as kernel 1 is around mont_group_core).
+// the core of kernels 7 (csrc/mxu.cu), 4m and 5m (csrc/chain.cu), the 13-bit
+// twin of mont_coop.cuh's mont_group_core.  The chains' operands and results
+// are shared-memory Lanes; kernel 7 reads its operands straight from their
+// global planes (PlaneIn) in phase 1, the only phase that reads them.
 //
 // The same limbs as lh::mont_core_mxu (mxu.cuh), step for step, in eight
 // barrier phases:
@@ -59,7 +60,8 @@
 //   kB (32 rows): to13(b) [1-2]; m after its passes [5-6]
 //   kC (64 rows): t's column sums [2-3]; u's raw columns [6-7]; zero again
 //                 after phase 8 (the caller zeroes them once before the
-//                 first product)
+//                 first product, at the latest in phase 1, which does not
+//                 touch them)
 //   kS (64 rows): t after its passes [3-7]; s = t + u [7-8]
 //   kMap (G rows): the carry maps [7-8]
 //
@@ -104,6 +106,16 @@ constexpr int kTabWords = 2 * kTab * 2;          // the two Toeplitz tables of d
 #define LH_COOP13_SHARED(name, words) alignas(16) uint32_t name[words]
 #endif
 
+// Word k of one lane's (26, n) limb plane in global memory, read only (the
+// operands of kernel 7).
+struct PlaneIn {
+  const uint32_t* p;
+  int n, lane;
+  __device__ __forceinline__ uint32_t operator()(int k) const {
+    return p[static_cast<size_t>(k) * n + lane];
+  }
+};
+
 // A block's work rows.
 struct Work {
   uint32_t* p;
@@ -139,8 +151,8 @@ __device__ __forceinline__ void clear_sums(int r, const Work& w) {
 // 13 q + rr and splits into 13-bit chunks at columns q, q + 1 and, where
 // QMAX15 << rr reaches bit 26, q + 2; the limbs need the raw columns K0 - 1
 // .. K0 + NK - 1, so only the 15-bit limbs that reach them are read.
-template <int K0, int NK>
-__device__ __forceinline__ void to13_block(Lane a, uint32_t (&o)[NK]) {
+template <int K0, int NK, class In>
+__device__ __forceinline__ void to13_block(In a, uint32_t (&o)[NK]) {
   uint32_t raw[NK + 1];  // raw column K0 - 1 + c
 #pragma unroll
   for (int c = 0; c < NK + 1; ++c) raw[c] = 0;
@@ -163,8 +175,8 @@ __device__ __forceinline__ void to13_block(Lane a, uint32_t (&o)[NK]) {
 
 // Block s of NK limbs of to13(a) (a warp-uniform choice among 32 / NK
 // compile-time blocks).
-template <int NK, int S = 0>
-__device__ __forceinline__ void to13_blocks(int s, Lane a, uint32_t (&o)[NK]) {
+template <int NK, int S = 0, class In>
+__device__ __forceinline__ void to13_blocks(int s, In a, uint32_t (&o)[NK]) {
   if constexpr (S < 32 / NK) {
     if (s == S) {
       to13_block<S * NK, NK>(a, o);
@@ -176,8 +188,8 @@ __device__ __forceinline__ void to13_blocks(int s, Lane a, uint32_t (&o)[NK]) {
 
 // Phase 1: rank r's block of to13 of the two operands: ranks 0 .. G/2 - 1
 // the limbs of a, the others those of b, 64 / G limbs each.
-template <int G>
-__device__ __forceinline__ void to13_limbs(int r, Lane xa, Lane xb, Lane a13, Lane b13) {
+template <int G, class In>
+__device__ __forceinline__ void to13_limbs(int r, In xa, In xb, Lane a13, Lane b13) {
   constexpr int NK = 64 / G;
   const int s = r % (G / 2);
   uint32_t o[NK];
@@ -408,16 +420,17 @@ __device__ __forceinline__ void tail_out_rank(int r, const Work& w, Out out, boo
   }
 }
 
-// out = xa * xb * R^-1 on the 13-bit plane, operands quasi-15 limbs in shared
-// memory (26 words each), output strict 15-bit limbs (a Plane in global
-// memory or a Lane in shared memory); w's column sums (region kC) zero on
-// entry and on exit; tab filled by fill_tables.  `first(r)` runs in phase 1
-// (work that writes neither operand and touches no work region), `last(r)`
-// in phase 8 (work that neither reads out nor touches a work region).  out
-// may alias xa or xb: only phase 1 reads them.  Every thread of the block
-// calls it.
-template <int G, class Out, class First, class Last>
-__device__ __forceinline__ void mont_group_mxu_core(Lane xa, Lane xb, const Work& w,
+// out = xa * xb * R^-1 on the 13-bit plane, operands quasi-15 limbs (26
+// words each: Lanes in shared memory or PlaneIns in global memory), output
+// strict 15-bit limbs (a Plane in global memory or a Lane in shared memory);
+// w's column sums (region kC) zero on entry to phase 2 and on exit; tab
+// filled by fill_tables before phase 4.  `first(r)` runs in phase 1 (work
+// that writes neither operand and touches no work region, except that it may
+// clear kC and fill tab, which phase 1 does not use), `last(r)` in phase 8
+// (work that neither reads out nor touches a work region).  out may alias xa
+// or xb: only phase 1 reads them.  Every thread of the block calls it.
+template <int G, class In, class Out, class First, class Last>
+__device__ __forceinline__ void mont_group_mxu_core(In xa, In xb, const Work& w,
                                                     const double* tab, Out out, bool live,
                                                     First first, Last last) {
   LH_RANKS(G, to13_limbs<G>(r, xa, xb, w.lane(kA), w.lane(kB)); first(r))

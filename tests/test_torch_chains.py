@@ -326,7 +326,8 @@ def test_group_chain_launcher_asserts_the_shared_limit():
     """The group chains' launcher checks each form's dynamic shared memory
     against the one limit the Miller launchers use (nvcc evaluates it), and
     launches only the forms chain_kernel lists: FP_FORMS for the Fp chain,
-    FP2_FORM for the Fp2 chain and FP2_MXU_FORM for its MXU variant."""
+    FP2_FORM for the Fp2 chain, FP_MXU_FORM and FP2_MXU_FORM for their MXU
+    variants."""
     from lighthouse_tpu_torch.crypto.bls.torch_backend import codegen
 
     src = (host_cuda._build.CSRC / "chain.cu").read_text()
@@ -335,9 +336,11 @@ def test_group_chain_launcher_asserts_the_shared_limit():
     assert sorted(int(x) for x in re.findall(r"case (\d+):", src)) == sorted(
         lanes for _, lanes in CK.FP_FORMS)
     assert f"constexpr int kFp2Lanes = {CK.FP2_FORM[1]};" in src
+    assert f"constexpr int kFpMxuGroup = {CK.FP_MXU_FORM[0]};" in src and CK.FP_MXU_FORM[1] == 32
     assert f"constexpr int kFp2MxuGroup = {CK.FP2_MXU_FORM[0]};" in src and CK.FP2_MXU_FORM[1] == 32
     assert re.findall(r"launch_group<(\w+), (\w+),", src) == [
-        ("kG", "8"), ("kG", "16"), ("kG", "kFp2Lanes"), ("kFp2MxuGroup", "32")]
+        ("kG", "8"), ("kG", "16"), ("kG", "kFp2Lanes"), ("kFpMxuGroup", "32"),
+        ("kFp2MxuGroup", "32")]
 
 
 def test_chain_counts_and_operand_checks():

@@ -7,9 +7,10 @@ so on a machine without jax run it as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 It covers all twelve entry points (mont_mul in every form of
-mont_kernel.FORMS, the Miller steps in their group forms: kernels 2, 3, 2m
-and 3m, the Fp chain in every form of chain_kernel.FP_FORMS and the Fp2
-chain and its MXU variant in their one form each): mont_mul, miller_step_dbl, miller_step_add, fp_chain,
+mont_kernel.FORMS and mont_mul_mxu in every form of mxu_kernel.FORMS, the
+Miller steps in their group forms: kernels 2, 3, 2m and 3m, the Fp chain in
+every form of chain_kernel.FP_FORMS, and the Fp2 chain and both MXU chains
+in their one form each): mont_mul, miller_step_dbl, miller_step_add, fp_chain,
 fp2_chain, wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
@@ -75,7 +76,9 @@ def test_cuda_kernels_match_plain_versions():
 @pytest.mark.cuda
 def test_cuda_mxu_kernels_match_plain_versions():
     """The MXU variants: every call is warp-cooperative, so the ragged
-    widths (1, 33, 257 lanes) also check the kept-alive tail threads."""
+    widths (1, 33, 257 lanes) also check the kept-alive tail threads;
+    kernels 7 (both forms) and 4m (group forms in blocks of 32 lanes) also
+    at 4,097."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
     rng = random.Random(29)
@@ -91,7 +94,9 @@ def test_cuda_mxu_kernels_match_plain_versions():
         xp, yp = planes(1)[0], planes(1)[0]
         q = torch.full((F.N, n), F.QMAX, dtype=torch.int32, device=dev)
         for a, b in ((xp, yp), (q, q)):
-            assert torch.equal(X.mont_mul_mxu(a, b), X.mont_mul_mxu_plain(a, b))
+            want = X.mont_mul_mxu_plain(a, b)
+            for form in X.FORMS:
+                assert torch.equal(X.mont_mul_mxu(a, b, form=form), want), (form, n)
         f, t, qq = planes(12), planes(6), planes(4)
         bit = torch.tensor([rng.randrange(2) for _ in range(n)], dtype=torch.int32, device=dev)
         assert same(ML.miller_step_dbl(f, t, xp, yp, mxu=True),
@@ -104,6 +109,16 @@ def test_cuda_mxu_kernels_match_plain_versions():
                                CK.pow_chain_plain(base, F.P_INT - 2, mxu=True))
         assert same(CK.fp2_pow_chain(xp, yp, h2c.SQRT_EXP_BITS, mxu=True),
                     CK.fp2_pow_chain_plain(xp, yp, h2c.SQRT_EXP_BITS, mxu=True))
+    wide = 4097
+    x, y, z = _rand_planes(rng, 3, wide).to(dev)
+    q = torch.full((F.N, wide), F.QMAX, dtype=torch.int32, device=dev)
+    for a, b in ((x, y), (q, q), (z, z)):
+        want = X.mont_mul_mxu_plain(a, b)
+        for form in X.FORMS:
+            assert torch.equal(X.mont_mul_mxu(a, b, form=form), want), form
+    for base in (x, _rand_planes(rng, 1, wide, 4)[0].to(dev)):
+        assert torch.equal(CK.pow_chain(base, F.P_INT - 2, mxu=True),
+                           CK.pow_chain_plain(base, F.P_INT - 2, mxu=True))
     torch.cuda.synchronize()
 
 

@@ -16,8 +16,9 @@ Fast tier (byte equality unless stated):
   h2c.fp2_pow_static (chains on) reach the MXU plain versions; the WSM
   step does not;
 * csrc/mxu.cuh's per-lane parts, and the MXU kernels of mxu.cu, chain.cu
-  and miller_step_mxu.cu (the Fp2 chain and both Miller steps in their
-  group forms, ranks run both ways), compiled with g++ and held against the
+  and miller_step_mxu.cu (kernel 7 in both forms, both chains and both
+  Miller steps in their group forms, ranks run both ways), compiled with
+  g++ and held against the
   plain versions lane by lane (the DMMA products come from the host
   stand-in in torch_host_cuda.py); mxu_coop.cuh's mont_group_mxu_core alone
   at G = 8 and 16, and the bound behind its carry maps;
@@ -310,15 +311,21 @@ extern "C" void host_finish(const uint32_t* in, const uint32_t* in2, uint32_t* o
     for (int i = 0; i < lh::NL; ++i) out[i * n + l] = o[i];
   }
 }
-extern "C" void host_mont_mxu(const uint32_t* a, const uint32_t* b, uint32_t* o, int n) {
+extern "C" void host_mont_mxu_thread(const uint32_t* a, const uint32_t* b, uint32_t* o, int n) {
   EACH_LANE(mont_mul_mxu_kernel(a, b, o, n))
+}
+extern "C" void host_mont_mxu(const uint32_t* a, const uint32_t* b, uint32_t* o, int n,
+                              int down) {
+  lh::host_ranks_down = down;
+  EACH_LANE(mont_mul_mxu_group_kernel<kMontMxuGroup>(a, b, o, n))
 }
 """
 
 _HARNESS_CHAIN = r"""
 extern "C" void host_fp_chain_mxu(const int32_t* tape, int nd, const uint32_t* b, uint32_t* o,
-                                  int n) {
-  EACH_LANE(fp_chain_mxu_kernel(tape, nd, b, o, n))
+                                  int n, int down) {
+  lh::host_ranks_down = down;
+  EACH_LANE(fp_chain_mxu_group_kernel<kFpMxuGroup>(tape, nd, b, o, n))
 }
 extern "C" void host_fp2_chain_mxu(const int32_t* tape, int nd, const uint32_t* a0,
                                    const uint32_t* a1, uint32_t* o0, uint32_t* o1, int n,
@@ -382,8 +389,9 @@ def host_mxu(tmp_path_factory):
 
 def test_host_compiled_mxu_helpers_match_plain(host_mxu):
     """to13, the a * b columns, a 13-bit carry pass, the 61-step carry with
-    to15, and to15 alone, lane by lane; then the whole core (its two DMMA
-    products from the host stand-in) against mont_mul_mxu_plain."""
+    to15, and to15 alone, lane by lane; then both forms of kernel 7 (the
+    one-thread form's DMMA products and the group form's tile pairs from the
+    host stand-in) against mont_mul_mxu_plain."""
     lib, ptr = host_mxu["mxu"], host_cuda.ptr
     x, y, _ = _corpus()
     n = x.shape[1]
@@ -407,27 +415,57 @@ def test_host_compiled_mxu_helpers_match_plain(host_mxu):
     assert torch.equal(run(lib.host_finish, 26, t, u), want)
     strict13 = X._strict13(u.long())[:31].int()
     assert torch.equal(run(lib.host_to15, 26, strict13), X.to15_plain(strict13).int())
-    assert torch.equal(run(lib.host_mont_mxu, 26, x, y), X.mont_mul_mxu_plain(x, y))
+    want = X.mont_mul_mxu_plain(x, y)
+    assert torch.equal(run(lib.host_mont_mxu_thread, 26, x, y), want)
+    out = torch.empty_like(x)
+    lib.host_mont_mxu(ptr(x), ptr(y), ptr(out), n, 0)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("corpus", ["lanes", "quasi15"])
+def test_host_compiled_mxu_group_product_matches_plain(host_mxu, corpus):
+    """Kernel 7's group form (X.MXU_FORM ranks, operands read from the
+    global planes in the core's first phase) at 1 and 33 lanes, each phase's
+    ranks run up and down: byte-equal to mont_mul_mxu_plain on _corpus's
+    strict, lazy, all-QMAX and a * a lanes, and on _quasi15_corpus's edge
+    limbs against themselves and their neighbours."""
+    lib, ptr = host_mxu["mxu"], host_cuda.ptr
+    if corpus == "lanes":
+        x, y, _ = _corpus()
+    else:
+        edge = torch.as_tensor(_quasi15_corpus().astype(np.int32))
+        x, y = torch.cat([edge, edge], dim=1), torch.cat([edge, edge.roll(1, 1)], dim=1)
+    for w in (1, 33):
+        a, b = x[:, :w].contiguous(), y[:, :w].contiguous()
+        want = X.mont_mul_mxu_plain(a, b)
+        for down in (0, 1):
+            out = torch.empty_like(a)
+            lib.host_mont_mxu(ptr(a), ptr(b), ptr(out), w, down)
+            assert torch.equal(out, want), (w, down)
 
 
 def test_host_compiled_mxu_chains_match_plain(host_mxu):
-    """Kernel 4m (one thread per lane) on 3 lanes, and kernel 5m's group
-    form (mont_group_mxu_core, FP2_MXU_FORM) at 1 and G + 1 lanes with each
-    phase's ranks run up and down, on a short exponent with a 0 digit."""
+    """The group forms of kernels 4m (FP_MXU_FORM, its squares full
+    products) and 5m (FP2_MXU_FORM), both on mont_group_mxu_core, at 1 and
+    G + 1 lanes with each phase's ranks run up and down, on short exponents
+    with a 0 digit."""
     lib, ptr = host_mxu["chain"], host_cuda.ptr
     rng = random.Random(41)
-    n = CK.FP2_MXU_FORM[0] + 1
+    n = max(CK.FP_MXU_FORM[0], CK.FP2_MXU_FORM[0]) + 1
     a = F.lfp_encode([rng.randrange(P) for _ in range(n)], "cpu").limbs
     b = F.lfp_encode([rng.randrange(P) for _ in range(n)], "cpu").limbs
     e = 0x305
     tape = torch.tensor(CK.window_digits(bin(e)[2:]), dtype=torch.int32)
-    x = a[:, :3].contiguous()
-    out = torch.empty_like(x)
-    lib.host_fp_chain_mxu(ptr(tape), len(tape), ptr(x), ptr(out), 3)
-    assert torch.equal(out, CK.pow_chain_plain(x, e, mxu=True))
+    for w in (1, CK.FP_MXU_FORM[0] + 1):
+        x = a[:, :w].contiguous()
+        want = CK.pow_chain_plain(x, e, mxu=True)
+        for down in (0, 1):
+            out = torch.empty_like(x)
+            lib.host_fp_chain_mxu(ptr(tape), len(tape), ptr(x), ptr(out), w, down)
+            assert torch.equal(out, want), (w, down)
     bits = [1, 0, 0, 0, 0, 0, 0, 1, 0, 1]
     tape = torch.tensor(CK.window_digits("".join(map(str, bits))), dtype=torch.int32)
-    for w in (1, n):
+    for w in (1, CK.FP2_MXU_FORM[0] + 1):
         x, y = a[:, :w].contiguous(), b[:, :w].contiguous()
         r0, r1 = CK.fp2_pow_chain_plain(x, y, bits, mxu=True)
         for down in (0, 1):
@@ -516,6 +554,23 @@ def test_host_compiled_mxu_miller_steps_match_plain(host_mxu):
             assert torch.equal(fo, rf) and torch.equal(to, rt), (w, down)
 
 
+def test_mxu_launcher_asserts_the_shared_limit():
+    """Kernel 7's launcher builds the forms mxu_kernel lists, the group form
+    MXU_FORM (G ranks, blocks of 32 lanes) and the one-thread form, and
+    checks the group form's dynamic shared memory (the Toeplitz tables and
+    the core's work rows) against the limit the other group launchers use;
+    form_for takes the group form up to its widest width."""
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import codegen
+
+    src = (host_cuda._build.CSRC / "mxu.cu").read_text()
+    assert f"static_assert(kShared <= {codegen.SHARED_LIMIT}," in src
+    assert f"constexpr int kMontMxuGroup = {X.MXU_FORM[0]};" in src and X.MXU_FORM[1] == 32
+    assert X.FORMS == (X.MXU_FORM, (1, 64)) and "constexpr int kBlock = 64;" in src
+    assert src.count("__global__") == 2
+    widest = X.FORM_MAX_WIDTH[0]
+    assert [X.form_for(n) for n in (1, 2, widest, widest + 1)] == [X.MXU_FORM] * 3 + [(1, 64)]
+
+
 def test_mxu_wrapper_checks_its_operands():
     z = torch.zeros((F.N, 3), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -524,6 +579,8 @@ def test_mxu_wrapper_checks_its_operands():
         X.mont_mul_mxu(z, z[:, :2].contiguous())
     with pytest.raises(ValueError):
         X.mont_mul_mxu(z.t().contiguous().t(), z)
+    with pytest.raises(ValueError):
+        X.mont_mul_mxu(z, z, form=(16, 32))
     assert X.launches == 0  # CPU calls take the plain version and count nothing
     X.mont_mul_mxu(z, z)
     assert X.launches == 0
