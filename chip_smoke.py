@@ -15,8 +15,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 2. build: nvcc compiles csrc/*.cu (in parallel) into lighthouse_tpu_torch/_build/;
    ptxas's registers, stack, spills and shared memory of the group forms of
    kernels 1, 2, 3, 2m, 3m, 4, 5, 7, 4m and 5m (7, 4m and 5m: mxu_coop.cuh's
-   mont_group_mxu_core, the chains' through mul13), the one-thread forms of
-   kernels 1 and 7, and the device functions the Miller steps call.
+   mont_group_mxu_core, the chains' through mul13), kernel 6's forms (G2's
+   group form, G1's cooperative form), the one-thread forms of kernels 1
+   and 7, and the device functions the Miller and WSM steps call.
 3. kernel checks: each hand-written kernel against its plain PyTorch version
    on the card, on seeded inputs at the Miller loop's width of 4,097 lanes
    (4,096 sets plus the (-G1, S) pair, a ragged edge for every block size),
@@ -33,7 +34,8 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    G + 1, L - 1, L + 1 and 257 lanes, the MXU chains (FP_MXU_FORM,
    FP2_MXU_FORM) also at 1 and 33; one
    G1 and one G2 WSM step on live points with random bits and infinity flags
-   on either side.
+   on either side, each curve's form (wsm_kernel.FORMS) also at 1, 17, 33
+   and 257 lanes.
 4. reference: the device map-to-G2 on a few messages against the host
    hash_to_g2; the chains' outputs (both planes) on a few lanes against
    host pow and the oracle's Fp2.pow.
@@ -66,7 +68,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    every width their arm launches, the Fp chain in every form and also at
    CHAIN_SWEEP widths between them (chain_forms, whose readings the kernels
    line reuses); the MXU chains at every width their arm launches (by_width
-   in the kernels line); every other kernel on its arm's operands.
+   in the kernels line); kernel 6 in each curve's form at the arm's 4,096
+   lanes and at 16,384 (wsm_forms: the captured operands tiled); every other
+   kernel on its arm's operands.
 7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
    mxu, arm, default), with marshal, dispatch and resolve times and peak
    memory for each arm.
@@ -113,6 +117,7 @@ SWEEP_WINDOWS = 3  # timing windows per width in the mont_mul width sweep
 # Fp-chain widths between the path's 1 and 4,096 where every form is timed
 # (chain_kernel.form_for's crossover)
 CHAIN_SWEEP = (16, 128, 512, 1024, 1536, 2048, 3072)
+WSM_WIDE = 4  # kernel 6 is also timed at this many times the arm's width
 # launches per verify of 4,096 sets, by arm: the wrappers' counts in all, and
 # the device kernels of the profiled verify
 WRAPPER_LAUNCHES = {"default": 25_925, "arm": 7_465, "mxu": 7_465}
@@ -326,8 +331,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(built["seconds"], 3), "built": built["built"],
           "dir": str(_build.build_dir().relative_to(_build.PKG_ROOT.parent)),
           "ptxas": built["ptxas"]})
-    # the group forms of kernels 1, 2, 3, 2m, 3m, 4, 5, 7, 4m and 5m, the
-    # one-thread forms of kernels 1 and 7, and the device functions the Miller steps and kernels 4m and 5m call (g_mul_mxu
+    # the group forms of kernels 1, 2, 3, 2m, 3m, 4, 5, 7, 4m and 5m, kernel
+    # 6's forms, the one-thread forms of kernels 1 and 7, and the device
+    # functions the Miller and WSM steps and kernels 4m and 5m call (g_mul_mxu
     # once per staging depth: 2m's and 3m's; mul13, mont_group_mxu_core's one
     # copy per G)
     group_fns = {"mont": tuple(f"mont_mul_group_kernelILi{g}ELi{lanes}E"
@@ -347,7 +353,9 @@ def main() -> int:
                  + tuple(f"mul13ILi{g}E" for g in sorted({CK.FP_MXU_FORM[0],
                                                           CK.FP2_MXU_FORM[0]})),
                  "mxu": (f"mont_mul_mxu_group_kernelILi{X.MXU_FORM[0]}E",
-                         "mont_mul_mxu_kernel")}
+                         "mont_mul_mxu_kernel"),
+                 "wsm_step": (*(W.launcher(nc)[3:] + "_kernel" for nc in (1, 2)),
+                              "g_mul", "g_add", "g_sub")}
     emit({"phase": "ptxas", **{lib: ptxas_report((_build.build_dir() / f"{lib}.log").read_text(),
                                                  names) for lib, names in group_fns.items()}})
 
@@ -546,6 +554,11 @@ def main() -> int:
         eq, _ = hold(name, args)
         emit({"phase": "kernel_check", "kernel": name, "corpus": "live_points_flags", "n": n,
               "equal": eq})
+        # the curve's form at ragged widths: blocks of 8 (G1) or 32 (G2) lanes
+        widths = [1, 17, 33, 257]
+        eqs = [hold(name, cut(w, *args))[0] for w in widths]
+        emit({"phase": "kernel_check", "kernel": name, "form": W.FORMS[int(name[-1])],
+              "corpus": "live_points_flags", "widths": widths, "equal": all(eqs)})
     if not all(c["equal"] for c in checked.values()):
         emit({"phase": "kernel_check", "error": "a kernel disagrees with its plain version"})
         return 1
@@ -844,16 +857,32 @@ def main() -> int:
                 nbytes, imads, fmas = work(n_ch)
                 record(name, args, "chain.cu", f"pallas_fp.py:{line}", nbytes, imads, True,
                        dmma_fmas=fmas, digits=nd, **extra)
+        # kernel 6 in each curve's form at the arm's width, and at WSM_WIDE
+        # times it (the captured operands tiled)
         ops = path_ops["arm"]
+        wsm_ms = {}
         for name, nc in (("wsm_step_g1", 1), ("wsm_step_g2", 2)):
             call = max(ops[name])
             args = ops[name][call]
             n_w = args[0].shape[-1]
             prog = W.program(nc)
-            record(name, args, "wsm_step.cu", "pallas_wsm.py:172",
-                   8 * nc * plane * n_w + 4 * 4 * n_w,
-                   (prog.n_mul * MK.IMAD_PER_LANE + prog.n_sqr * MK.SQR_IMAD_PER_LANE) * n_w,
-                   False, step=call)
+
+            def wsm_work(w, nc=nc, prog=prog):
+                """(bytes, 32-bit multiplies) of a w-lane step: acc and base
+                read, acc written, three flag planes read and one written"""
+                return (8 * nc * plane * w + 4 * 4 * w,
+                        (prog.n_mul * MK.IMAD_PER_LANE + prog.n_sqr * MK.SQR_IMAD_PER_LANE) * w)
+
+            wide = tuple(x.repeat(*([1] * (x.dim() - 1)), WSM_WIDE).contiguous() for x in args)
+            wsm_ms[name] = {w: {"ms": time_ms(torch, lambda a=a: funcs[name][0](*a),
+                                              KERNEL_LAUNCHES, queue_first=True),
+                                "bound_ms": bound_ms(*wsm_work(w))[0]}
+                            for w, a in ((n_w, args), (n_w * WSM_WIDE, wide))}
+            del wide
+            record(name, args, "wsm_step.cu", "pallas_wsm.py:172", *wsm_work(n_w), False,
+                   ms=wsm_ms[name][n_w]["ms"], step=call, form=W.FORMS[nc])
+        emit({"phase": "wsm_forms", "card": smi,
+              "forms": {name: W.FORMS[int(name[-1])] for name in wsm_ms}, "ms": wsm_ms})
     del path_ops, ops, mxu_ops
 
     # -- path timing, the arms interleaved ---------------------------------

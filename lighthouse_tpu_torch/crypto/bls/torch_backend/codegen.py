@@ -11,8 +11,12 @@
   every product on the 13-bit plane (kernel 7's core), both in the group
   form (``_kernel(..., mxu=True, group=G)``, one rank per warp, each warp's
   DMMA products staged in MXU_GROUP_ROWS rows a pass).
-* ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed one
-  thread per lane from the step programs of wsm_kernel.py.
+* ``csrc/wsm_step.cu``: kernel 6 (its G1 and G2 entry points), printed from
+  the step programs of wsm_kernel.py in the form of wsm_kernel.FORMS: G2 in
+  the group form, G1 in the cooperative form (``_coop_kernel``): 16 threads
+  per lane make each product together, one after another (kernel 4's
+  tiles), the linear ops riding in the products' phases
+  (``coop_schedule``), the step run from a table of phases.
 
 The files are committed; ``tests/test_torch_miller.py`` regenerates them and
 requires the text to be identical.  Regenerate after changing the formulas:
@@ -94,90 +98,33 @@ _WSM_DOC = """// Kernel 6: one double-and-always-add bit of the 64-bit weight sc
 //
 """
 
-_HEAD = """// One thread per lane.  Planes are (planes, 26, n) limb-major, so limb i of
-// neighbouring lanes are neighbouring words and every load and store
-// coalesces.  Intermediates live in the slot array s (registers spilling to
-// local memory); every Montgomery product is one call of the non-inlined
-// k_mul, which keeps the build short.
-#include "mont.cuh"
+_WSM_HEAD = """// One thread per lane ran a step's products one after another, each a
+// 1,703-multiply chain of one thread (1,378 for a square), with under one
+// warp per SM at the path's 4,096 lanes.  Each curve now has the form that
+// was the faster at that width (wsm_kernel.FORMS, PERF.md):
+// * G2 (68 products) in the group form of miller_step.cu: G = 16 threads per
+//   lane in blocks of 32 lanes run the products of a dependency level side
+//   by side, 10 rounds of at most 16 products, each the unchanged
+//   lh::mont_core of one thread; the linear ops between them are dealt to
+//   the ranks, the values in 16-bit shared-memory slots (group_schedule).
+// * G1 (17 products and 8 squares, in 8 rounds of at most 4: too few to
+//   keep a group busy) in the cooperative form of kernel 4: 16 threads per
+//   lane in blocks of 8 lanes make each product together, one after another
+//   (csrc/mont_coop.cuh's tiles; the squares by the group triangle square,
+//   as the reference squares G1 with _wide_square), the linear ops riding in
+//   the products' phases (coop_schedule).
+//
+// Planes are (planes, 26, n) limb-major, so limb i of neighbouring lanes are
+// neighbouring words and every load and store coalesces; each input plane
+// is read once and each output plane written once.
+#include "group.cuh"
+#include "mont_coop.cuh"
 
 namespace {
 
 using lh::NL;
 
-constexpr int kBlock = 32;  // 4,097 lanes -> 129 blocks, one per SM
-
 """
-
-_K_MUL = """__device__ __noinline__ void k_mul(uint32_t* o, const uint32_t* a, const uint32_t* b) {
-  uint32_t x[NL], y[NL], r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    x[i] = a[i];
-    y[i] = b[i];
-  }
-  lh::mont_core(x, y, r);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = r[i];
-}
-"""
-
-_GLUE = """
-__device__ __forceinline__ void carry_store(uint32_t* o, uint32_t (&c)[NL]) {
-  lh::compress1(c);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = c[i];
-}
-
-// a + b, one carry pass
-__device__ __noinline__ void k_add(uint32_t* o, const uint32_t* a, const uint32_t* b) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + b[i];
-  carry_store(o, c);
-}
-
-// a + kP - b, one carry pass (the bias dominates b limb by limb)
-__device__ __noinline__ void k_sub(uint32_t* o, const uint32_t* a, const uint32_t* b, int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = a[i] + lh::kBias[kidx][i] - b[i];
-  carry_store(o, c);
-}
-
-// kP - a, one carry pass
-__device__ __noinline__ void k_neg(uint32_t* o, const uint32_t* a, int kidx) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = lh::kBias[kidx][i] - a[i];
-  carry_store(o, c);
-}
-
-__device__ __forceinline__ void k_sel(uint32_t* o, bool take, const uint32_t* a,
-                                      const uint32_t* b) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = take ? a[i] : b[i];
-}
-
-__device__ __forceinline__ void k_one(uint32_t* o) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = lh::kOne[i];
-}
-
-__device__ __forceinline__ void k_load(uint32_t* o, const uint32_t* base, int plane, int n,
-                                       int lane) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = base[(static_cast<size_t>(plane) * NL + i) * n + lane];
-}
-
-__device__ __forceinline__ void k_store(uint32_t* base, int plane, int n, int lane,
-                                        const uint32_t* v) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) base[(static_cast<size_t>(plane) * NL + i) * n + lane] = v[i];
-}
-"""
-
-_HELPERS = _HEAD + _K_MUL + _GLUE
 
 _MILLER_HEAD = """// Both steps run in the group form: G = 16 threads per lane
 // (csrc/group.cuh; miller_kernel.DBL_GROUP, ADD_GROUP).  One thread per lane
@@ -233,22 +180,6 @@ using lh::NL;
 MXU_GROUP_ROWS = {"miller_step_dbl": 32, "miller_step_add": 16}
 SHARED_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90 (227 KB)
 
-
-_SQR_HELPERS = """
-__device__ __noinline__ void k_sqr(uint32_t* o, const uint32_t* a) {
-  uint32_t x[NL], r[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) x[i] = a[i];
-  lh::mont_sqr_core(x, r);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = r[i];
-}
-
-__device__ __forceinline__ void k_zero(uint32_t* o) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) o[i] = 0;
-}
-"""
 
 _GROUP_HELPERS = """
 // The group form (csrc/group.cuh): G threads per lane, the lane's values in
@@ -348,12 +279,6 @@ __device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
   g_put(s, o, r);
 }
 
-__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
-  uint32_t x[NL], r[NL];
-  g_get(s, a, x);
-  lh::mont_sqr_core(x, r);
-  g_put(s, o, r);
-}
 """
 
 # the group form's product on the 13-bit plane: warp-cooperative, so a
@@ -381,81 +306,6 @@ _SIGNATURES = {
     "wsm_step_g1": (("acc", "inf_acc", "base", "inf_base", "bit"), ("acc_out", "inf_out")),
     "wsm_step_g2": (("acc", "inf_acc", "base", "inf_base", "bit"), ("acc_out", "inf_out")),
 }
-
-
-def _body(prog: MK.Program) -> tuple[list, int]:
-    """C statements for a program, slots assigned by liveness: an output
-    slot is taken before the op's dead inputs are released, so no op reads
-    and writes one slot.  Flags live in named uint32 values, not slots;
-    the Miller addition bit is the bool ``take``."""
-    last = {}
-    for idx, op in enumerate(prog.ops):
-        for i in op.ins:
-            last[i] = idx
-    stores = {vid: (buf, plane) for buf, plane, vid in prog.outputs}
-    free, slot, n_slots, lines = [], {}, 0, []
-
-    def s(vid):
-        kind = prog.ops[vid].kind
-        if kind == "bit":
-            return "take"
-        if kind in MK.FLAGS:
-            return f"f{vid}"
-        return f"s[{slot[vid]}]"
-
-    def mask(vid):
-        return s(vid) if prog.ops[vid].kind == "bit" else f"{s(vid)} != 0"
-
-    for idx, op in enumerate(prog.ops):
-        if op.kind in MK.FLAGS:
-            if op.kind == "bit":
-                lines.append("const bool take = bit[lane] != 0;")
-            elif op.kind == "flag":
-                lines.append(f"const uint32_t {s(op.out)} = {op.arg}[lane];")
-            elif op.kind == "and":
-                lines.append(f"const uint32_t {s(op.out)} = {s(op.ins[0])} & {s(op.ins[1])};")
-            else:  # fsel
-                lines.append(f"const uint32_t {s(op.out)} = {mask(op.ins[0])} ? "
-                             f"{s(op.ins[1])} : {s(op.ins[2])};")
-            if op.out in stores:
-                buf, _ = stores[op.out]
-                lines.append(f"{buf}[lane] = {s(op.out)};")
-            continue
-        if free:
-            slot[op.out] = free.pop()
-        else:
-            slot[op.out] = n_slots
-            n_slots += 1
-        o, ins = s(op.out), [s(i) for i in op.ins]
-        if op.kind == "in":
-            buf, plane = op.arg
-            lines.append(f"k_load({o}, {buf}, {plane}, n, lane);")
-        elif op.kind == "one":
-            lines.append(f"k_one({o});")
-        elif op.kind == "zero":
-            lines.append(f"k_zero({o});")
-        elif op.kind == "mul":
-            lines.append(f"k_mul({o}, {ins[0]}, {ins[1]});")
-        elif op.kind == "sqr":
-            lines.append(f"k_sqr({o}, {ins[0]});")
-        elif op.kind == "add":
-            lines.append(f"k_add({o}, {ins[0]}, {ins[1]});")
-        elif op.kind == "sub":
-            lines.append(f"k_sub({o}, {ins[0]}, {ins[1]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}")
-        elif op.kind == "neg":
-            lines.append(f"k_neg({o}, {ins[0]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}")
-        elif op.kind == "sel":
-            lines.append(f"k_sel({o}, {mask(op.ins[0])}, {ins[1]}, {ins[2]});")
-        else:
-            raise AssertionError(op.kind)
-        if op.out in stores:
-            buf, plane = stores[op.out]
-            lines.append(f"k_store({buf}, {plane}, n, lane, {o});")
-        dead = {i for i in op.ins if last[i] == idx and prog.ops[i].kind not in MK.FLAGS}
-        if op.out not in last:
-            dead.add(op.out)
-        free.extend(sorted(slot[v] for v in dead))
-    return lines, n_slots
 
 
 @dataclasses.dataclass(frozen=True)
@@ -591,42 +441,6 @@ def _signature(prog: MK.Program) -> dict:
             "counts": counts}
 
 
-def _kernel(prog: MK.Program, mxu: bool = False, group: int | None = None) -> str:
-    """A step program's kernel and its C launcher lh_<name>: one thread per
-    lane (15-bit only), or with ``group`` the group form (G threads per lane,
-    launched as lh_<name>_g<G>, or lh_<name>_mxu_g<G> with ``mxu``, its warps
-    staging MXU_GROUP_ROWS' rows of C a pass)."""
-    if group is not None:
-        return _group_kernel(prog, group, mxu)
-    assert not mxu, "the MXU steps are printed in the group form only"
-    lines, n_slots = _body(prog)
-    name = prog.name
-    sig = _signature(prog)
-    body = "\n".join("  " + ln for ln in lines)
-    counts = sig["counts"]
-    return f"""
-// {name}: {len(prog.ops)} limb ops, {counts}, {n_slots} slots.
-static __global__ void __launch_bounds__(kBlock)
-{name}_kernel({sig["params"]}) {{
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  uint32_t s[{n_slots}][NL];
-{body}
-}}
-
-extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
-                              void* stream) {{
-  if (n > 0) {{
-    {name}_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        {sig["casts"]},
-        {sig["out_casts"]}, n);
-  }}
-  return static_cast<int>(cudaGetLastError());
-}}
-"""
-
-
 def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict,
               rows: int | None) -> list:
     op = prog.ops[vid]
@@ -639,10 +453,8 @@ def _group_op(prog: MK.Program, sched: GroupSchedule, vid: int, stores: dict,
         line = f"g_{op.kind}(s, {o});"
     elif op.kind in MK.PRODUCTS and rows:  # a square too is the 13-bit product
         line = f"g_mul_mxu<{rows}>(s, {o}, {ins[0]}, {ins[-1]}, mx);"
-    elif op.kind in ("mul", "add"):
+    elif op.kind in ("mul", "add"):  # no program in the group form squares
         line = f"g_{op.kind}(s, {o}, {ins[0]}, {ins[1]});"
-    elif op.kind == "sqr":
-        line = f"g_sqr(s, {o}, {ins[0]});"
     elif op.kind == "sub":
         line = f"g_sub(s, {o}, {ins[0]}, {ins[1]}, {F.BIAS_KS.index(op.arg)});  // k={op.arg}"
     elif op.kind == "neg":
@@ -706,10 +518,12 @@ def _group_body(prog: MK.Program, sched: GroupSchedule, rows: int | None) -> lis
     return lines
 
 
-def _group_kernel(prog: MK.Program, group: int, mxu: bool) -> str:
-    """The group form of a step kernel: ``group`` threads per lane in
-    rank-major blocks of 32 lanes (csrc/group.cuh), the program run in the
-    phases of group_schedule, its values in 16-bit shared-memory slots.
+def _kernel(prog: MK.Program, group: int, mxu: bool = False) -> str:
+    """A step program's kernel in the group form and its C launcher
+    lh_<name>_g<G> (lh_<name>_mxu_g<G> with ``mxu``): ``group`` threads per
+    lane in rank-major blocks of 32 lanes (csrc/group.cuh), the program run
+    in the phases of group_schedule, its values in 16-bit shared-memory
+    slots.
     With ``mxu`` every product is the 13-bit one (g_mul_mxu<rows>), each warp
     (one rank) making its DMMA products together, staged beside the slots in
     the program's MXU_GROUP_ROWS rows of C a pass."""
@@ -763,6 +577,404 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
 """
 
 
+
+@dataclasses.dataclass(frozen=True)
+class CoopSchedule:
+    """A step program laid out for the cooperative form: 16 ranks per lane
+    make each product together (mont_coop.cuh's tiles), one product after
+    another, in five phases each (t or the square's triangle, m, u, the
+    tail's sums, its carry into the output).
+
+    ``phases[p]`` is (product value id or None, its stage 0-4, the linear
+    ops of the phase in program order); phase 0 is the setup (inputs, pads,
+    constants) and holds no op.  A product reads its operands in its stage 0
+    and writes its output in stage 4; a linear op reads and writes in its
+    phase.  ``slot`` gives every limb value its shared array, assigned by
+    liveness over phases as in group_schedule."""
+
+    phases: tuple
+    slot: dict
+    n_slots: int
+
+
+COOP_STAGES = 5  # phases per product: t, m, u, the tail's sums, its carry
+COOP_LIN_CAP = 4  # linear ops per phase, where the dependencies leave room
+
+
+def coop_schedule(prog: MK.Program) -> CoopSchedule:
+    """Products in the order that starts each the earliest (ties to the
+    longest chain of products after it), each five phases after the last;
+    the linear ops between them ride in the products' phases, first as
+    early as their inputs allow (to fix when each product can start), then
+    moved as late as their readers allow (to shorten what they hold), at
+    most COOP_LIN_CAP a phase where the window leaves a choice.  Phases
+    without a product are added only where a product waits on a chain of
+    linear ops, and for the outputs' tails."""
+    ops = prog.ops
+    kind = {op.out: op.kind for op in ops}
+    ins = {op.out: tuple(i for i in op.ins if kind[i] not in MK.FLAGS) for op in ops}
+    limb = [op.out for op in ops if op.kind not in MK.FLAGS]
+    consumers = collections.defaultdict(list)
+    for v in limb:
+        for i in ins[v]:
+            consumers[i].append(v)
+    height = {}
+    for v in reversed(limb):
+        height[v] = max((height[c] + (kind[c] in MK.PRODUCTS) for c in consumers[v]), default=0)
+    start, done = {}, {}  # products' stage 0; every value's write phase
+    asap = {}
+
+    def ready(v):
+        """v's write phase if it can be known without a product not yet placed."""
+        if v in done:
+            return done[v]
+        if kind[v] in MK.PRODUCTS:
+            return None
+        if kind[v] == "in":
+            done[v] = 0
+            return 0
+        deps = [ready(i) for i in ins[v]]
+        if any(d is None for d in deps):
+            return None
+        asap[v] = done[v] = 1 + max(deps, default=0)
+        return done[v]
+
+    free_from = 1
+    left = [v for v in limb if kind[v] in MK.PRODUCTS]
+    while left:
+        est = {}
+        for v in left:
+            deps = [ready(i) for i in ins[v]]
+            if all(d is not None for d in deps):
+                est[v] = max([free_from] + [d + 1 for d in deps])
+        v = min(est, key=lambda v: (est[v], -height[v], v))
+        start[v] = est[v]
+        done[v] = est[v] + COOP_STAGES - 1
+        free_from = done[v] + 1
+        left.remove(v)
+    for v in limb:
+        ready(v)
+    last = max(done.values())
+
+    # as late as the readers allow: a linear op moves to the latest phase
+    # before its first reader with room (a product reads in its stage 0;
+    # an output, stored as it is written, stays in the window's last phase)
+    outputs = {vid for _, _, vid in prog.outputs}
+    place = dict(done)
+    count = collections.Counter()
+    for v in reversed(limb):
+        if kind[v] in MK.PRODUCTS or kind[v] == "in":
+            continue
+        reads = [start[c] if kind[c] in MK.PRODUCTS else place[c] for c in consumers[v]]
+        latest = min(reads) - 1 if reads else last
+        lo = asap[v]
+        assert lo <= latest, (v, lo, latest)
+        roomy = [p for p in range(latest, lo - 1, -1) if count[p] < COOP_LIN_CAP]
+        place[v] = latest if v in outputs or not roomy else roomy[0]
+        count[place[v]] += 1
+
+    phases = []
+    by_phase = collections.defaultdict(list)
+    for v in limb:
+        if kind[v] not in MK.PRODUCTS and kind[v] != "in":
+            by_phase[place[v]].append(v)
+    for p in range(last + 1):
+        prod = next(((v, p - s) for v, s in start.items() if s <= p < s + COOP_STAGES),
+                    (None, None))
+        phases.append((*prod, tuple(by_phase[p])))
+
+    # slots by liveness over phases: a value holds its array from the phase
+    # that writes it through the last phase that reads it (its own, for an
+    # output: stored as it is written)
+    read_at = {v: place[v] for v in limb}
+    for v in limb:
+        at = start[v] if kind[v] in MK.PRODUCTS else place[v]
+        for i in ins[v]:
+            read_at[i] = max(read_at[i], at)
+    written = collections.defaultdict(list)
+    freed = collections.defaultdict(list)
+    for v in limb:
+        written[place[v]].append(v)
+        freed[read_at[v]].append(v)
+    slot, free, n_slots = {}, [], 0
+    for p in range(last + 1):
+        for v in sorted(written[p]):
+            if free:
+                slot[v] = free.pop()
+            else:
+                slot[v] = n_slots
+                n_slots += 1
+        free.extend(sorted((slot[v] for v in freed[p]), reverse=True))
+    return CoopSchedule(tuple(phases), slot, n_slots)
+
+
+# The cooperative form's shape: ranks per lane and lanes per block
+# (wsm_kernel.FORMS), and a lane's shared words besides its arrays (one
+# product's work, lh::coop::kWorkWords: three column sums of 64 words, the
+# carry maps, s = t + u).
+COOP_RANKS, COOP_LANES = 16, 8
+COOP_WORK = 3 * 64 + COOP_RANKS + 2 * F.N
+_OPERAND_WORDS = 28  # an array: 26 limbs and two zero pads
+
+
+def coop_shared_bytes(n_slots: int) -> int:
+    """Shared memory of one block of the cooperative form (kCoopShared):
+    its lanes' arrays and work, then P' and P."""
+    return ((COOP_WORK + n_slots * _OPERAND_WORDS) * COOP_LANES + 2 * _OPERAND_WORDS) * 4
+
+
+# The codes of a table row (coop_phase): word 0's stage, then linear ops.
+COOP_STAGE = ("none", "t", "sqr", "m", "u", "sums", "carry")
+COOP_LIN = ("none", "add", "sub", "neg", "sel", "one", "zero", "store")
+
+
+def coop_pack(code: int, q: int = 0, o: int = 0, a: int = 0, b: int = 0) -> int:
+    """A packed row word: bits 0-2 the code, 3-5 q (a bias row or a flag
+    bit), then the arrays o, a, b in a byte each."""
+    assert code < 8 and q < 8 and max(o, a, b) < 256
+    return code | q << 3 | o << 8 | a << 16 | b << 24
+
+
+_COOP_HELPERS = """
+// The cooperative form (kernel 4's group, csrc/mont_coop.cuh): kCoopRanks
+// threads per lane in blocks of kCoopLanes lanes make each product together,
+// one after another, in five phases (t = a * b, or the triangle square; m;
+// u = m * P; the tail's sums; its carry into the output), every operand a
+// shared-memory array of 28 words (limbs 26 and 27 zero).  A step is a table
+// of phases (codegen.coop_schedule): row p holds the product's stage and its
+// arrays, then the linear ops that ride in the phase, each packed in 32 bits
+// (coop_lin).  One loop over the rows runs the step, so the code holds one
+// copy of each tile.
+using lh::coop::Arena;
+using lh::coop::Lane;
+using lh::coop::NP;
+using lh::coop::Work;
+
+constexpr int kCoopRanks = COOP_RANKS;  // Shape<16>; the square's tiles need 16
+constexpr int kCoopLanes = COOP_LANES;  // lanes per block
+// Shared words per block for `Arrays` arrays a lane: the lanes' arrays and
+// one product's work after them, then P' and P (28 words each).
+template <int Arrays>
+constexpr int kCoopShared =
+    (Arrays * NP + lh::coop::kWorkWords<kCoopRanks>) * lh::kLanes<kCoopLanes> + 2 * NP;
+
+// A phase's product stage (word 0 of a row): bits 0-2 the stage, bits 8-15,
+// 16-23, 24-31 the arrays o, a, b.
+enum : uint32_t { kStageNone, kStageT, kStageSqr, kStageM, kStageU, kStageSums, kStageCarry };
+// A linear op: bits 0-2 the kind, bits 3-5 the bias row of lh::kBias (sub,
+// neg) or the flag bit (sel), bits 8-15, 16-23, 24-31 the arrays o, a, b; a
+// store writes array o to the output plane a.  0 ends a row.
+enum : uint32_t { kLinNone, kLinAdd, kLinSub, kLinNeg, kLinSel, kLinOne, kLinZero, kLinStore };
+
+// A lane's group: its arrays, one product's work, the block's P' and P.
+struct Coop {
+  Arena<kCoopLanes> ar;
+  Work w;
+  uint32_t* pp;
+  __device__ __forceinline__ Lane arr(uint32_t j) const { return ar.arr(static_cast<int>(j)); }
+};
+
+// Rank r's share of the linear op `op`; `flags` holds the lane's flag bits.
+__device__ __forceinline__ void coop_lin(int r, const Coop& c, uint32_t op, uint32_t flags,
+                                         uint32_t* out, int n, int lane, bool live) {
+  const Lane o = c.arr(op >> 8 & 255u), a = c.arr(op >> 16 & 255u), b = c.arr(op >> 24);
+  const uint32_t q = op >> 3 & 7u;
+  switch (op & 7u) {
+    case kLinAdd:
+      lh::coop::pass<kCoopRanks>(r, o, [&](int k) { return a(k) + b(k); });
+      break;
+    case kLinSub:  // a + kP - b (the bias dominates b limb by limb)
+      lh::coop::pass<kCoopRanks>(r, o, [&](int k) { return a(k) + lh::kBias[q][k] - b(k); });
+      break;
+    case kLinNeg:  // kP - a
+      lh::coop::pass<kCoopRanks>(r, o, [&](int k) { return lh::kBias[q][k] - a(k); });
+      break;
+    case kLinSel: {
+      const Lane x = (flags >> q & 1u) ? a : b;
+      for (int k = r; k < NL; k += kCoopRanks) o(k) = x(k);
+      break;
+    }
+    case kLinOne:
+      for (int k = r; k < NL; k += kCoopRanks) o(k) = lh::kOne[k];
+      break;
+    case kLinZero:
+      for (int k = r; k < NL; k += kCoopRanks) o(k) = 0;
+      break;
+    case kLinStore:
+      for (int k = r; k < NL; k += kCoopRanks)
+        if (live) out[(static_cast<size_t>(op >> 16 & 255u) * NL + k) * n + lane] = o(k);
+      break;
+    default:
+      break;
+  }
+}
+
+// The setup phase, rank r's share: zero every array's pads, clear the column
+// sums, fill P' and P.
+__device__ __forceinline__ void coop_setup(int r, const Coop& c, int arrays) {
+  for (int j = r; j < arrays; j += kCoopRanks) c.ar.arr(j)(NL) = c.ar.arr(j)(NL + 1) = 0;
+  lh::coop::clear_sums<kCoopRanks>(r, c.w);
+  lh::coop::fill_constants<kCoopRanks, kCoopLanes>(r, c.pp, c.pp + NP);
+}
+
+// Limbs r, r + 16 of plane `plane` of a (planes, 26, n) input into array j.
+__device__ __forceinline__ void coop_load(int r, const Coop& c, int j, const uint32_t* in,
+                                          int plane, int n, int lane) {
+  for (int k = r; k < NL; k += kCoopRanks)
+    c.ar.arr(j)(k) = in[(static_cast<size_t>(plane) * NL + k) * n + lane];
+}
+
+// Rank r's share of one phase (row: the product's stage, then up to K
+// linear ops).
+template <int K>
+__device__ __forceinline__ void coop_phase(int r, const Coop& c, const uint32_t* row,
+                                           uint32_t flags, uint32_t* out, int n, int lane,
+                                           bool live) {
+  const uint32_t pw = row[0];
+  const Lane o = c.arr(pw >> 8 & 255u), a = c.arr(pw >> 16 & 255u), b = c.arr(pw >> 24);
+  const Work& w = c.w;
+  switch (pw & 7u) {
+    case kStageT:
+      lh::coop::t_tile<kCoopRanks>(r, a, b, w.tsums);
+      break;
+    case kStageSqr:
+      lh::coop::sq_tile<kCoopRanks>(r, a, w.tsums);
+      break;
+    case kStageM:
+      lh::coop::m_tile<kCoopRanks>(r, w.tsums, c.pp, w.msums);
+      break;
+    case kStageU:
+      lh::coop::u_tile<kCoopRanks>(r, w.msums, c.pp + NP, w.usums);
+      break;
+    case kStageSums:
+      lh::coop::tail_sums<kCoopRanks>(r, w.tsums, w.usums, w.s, w.cmap);
+      break;
+    case kStageCarry:  // the sums cleared for the next product beside the carry
+      lh::coop::tail_carry<kCoopRanks>(r, w.s, w.cmap, o, true);
+      lh::coop::clear_sums<kCoopRanks>(r, w);
+      break;
+    default:
+      break;
+  }
+  for (int i = 1; i <= K && row[i]; ++i) coop_lin(r, c, row[i], flags, out, n, lane, live);
+}
+"""
+
+
+def _coop_rows(prog: MK.Program, sched: CoopSchedule) -> tuple[list, int]:
+    """The table rows of a cooperative step (phase 0, the setup, has none)
+    and their width K of linear ops: word 0 the product's stage and arrays,
+    then the phase's linear ops, each output's store after it."""
+    flag_bit = {op.out: k for k, op in enumerate(o for o in prog.ops if o.kind in MK.FLAGS)}
+    assert len(flag_bit) <= 8
+    stores = {vid: plane for buf, plane, vid in prog.outputs if prog.ops[vid].kind not in MK.FLAGS}
+    slot = sched.slot
+    rows = []
+    for vid, stage, lin in sched.phases[1:]:
+        row = [0]
+        if vid is not None:
+            op = prog.ops[vid]
+            name = (op.kind == "sqr" and "sqr" or "t") if stage == 0 else COOP_STAGE[stage + 2]
+            row[0] = coop_pack(COOP_STAGE.index(name), 0, slot[vid], slot[op.ins[0]],
+                               slot[op.ins[-1]])
+        for v in lin:
+            op = prog.ops[v]
+            arrays = [slot[i] for i in op.ins if i in slot]
+            q = 0
+            if op.kind == "sel":
+                q = flag_bit[op.ins[0]]
+            elif op.kind in ("sub", "neg"):
+                q = F.BIAS_KS.index(op.arg)
+            row.append(coop_pack(COOP_LIN.index(op.kind), q, slot[v], *arrays))
+            if v in stores:
+                row.append(coop_pack(COOP_LIN.index("store"), 0, slot[v], stores[v]))
+        rows.append(row)
+    width = max(len(r) for r in rows) - 1
+    return [r + [0] * (width + 1 - len(r)) for r in rows], width
+
+
+def _coop_kernel(prog: MK.Program) -> str:
+    """A step program's cooperative form and its launcher lh_<name>_coop:
+    COOP_RANKS threads per lane in blocks of COOP_LANES lanes (kernel 4's
+    group), the products made one after another by the whole group, the
+    linear ops in their phases (coop_schedule), run from a table of
+    phases."""
+    sched = coop_schedule(prog)
+    rows, width = _coop_rows(prog, sched)
+    name = f"{prog.name}_coop"
+    table = f"k{''.join(w.capitalize() for w in name.split('_'))}"
+    sig = _signature(prog)
+    limb_out = next(buf for buf, _, vid in prog.outputs if prog.ops[vid].kind not in MK.FLAGS)
+    flags = [op for op in prog.ops if op.kind in MK.FLAGS]
+    lines = []
+    for op in flags:
+        v = f"f{op.out}"
+        if op.kind == "flag":
+            lines.append(f"const uint32_t {v} = {op.arg}[lane];")
+        elif op.kind == "and":
+            lines.append(f"const uint32_t {v} = f{op.ins[0]} & f{op.ins[1]};")
+        elif op.kind == "fsel":
+            lines.append(f"const uint32_t {v} = f{op.ins[0]} != 0 ? f{op.ins[1]} : f{op.ins[2]};")
+        else:
+            raise AssertionError(op.kind)
+    for buf, _, vid in prog.outputs:
+        if prog.ops[vid].kind in MK.FLAGS:
+            lines.append(f"if (live && lh::group_rank<kCoopLanes>() == 0) {buf}[lane] = f{vid};")
+    bits = " | ".join(f"(f{op.out} != 0u) << {k}" for k, op in enumerate(flags))
+    lines.append(f"const uint32_t flags = {bits};")
+    loads = [f"coop_load(r, c, {sched.slot[op.out]}, {op.arg[0]}, {op.arg[1]}, n, lane);"
+             for op in prog.ops if op.kind == "in"]
+    body = "\n".join("  " + ln for ln in lines)
+    load_body = "\n".join("        " + ln for ln in loads)
+    table_rows = ",\n    ".join(_array(r) for r in rows)
+    n_products = prog.n_mul + prog.n_sqr
+    tails = len(rows) - COOP_STAGES * n_products
+    return f"""
+// {name}: {len(prog.ops)} limb ops, {sig["counts"]};
+// {COOP_RANKS} threads per lane in blocks of {COOP_LANES} lanes, the products one after
+// another in {len(rows) + 1} phases (the setup, {n_products} x {COOP_STAGES}, {tails} more for the
+// outputs' tails), {sched.n_slots} arrays ({coop_shared_bytes(sched.n_slots):,} bytes of shared
+// memory per block).
+__constant__ uint32_t {table}[{len(rows)}][{width + 1}] = {{
+    {table_rows}}};
+
+static __global__ void __launch_bounds__(kCoopRanks * kCoopLanes)
+{name}_kernel({sig["params"]}) {{
+  LH_GROUP_SHARED(uint32_t, sm, kCoopShared<{sched.n_slots}>);
+  const int gl = lh::group_lane<kCoopLanes>();
+  const bool live = gl < n;
+  const int lane = live ? gl : n - 1;
+  const Arena<kCoopLanes> ar{{sm + lh::group_slot<kCoopLanes>()}};
+  const Coop c{{ar, ar.work<kCoopRanks>({sched.n_slots} * NP),
+               sm + kCoopShared<{sched.n_slots}> - 2 * NP}};
+{body}
+  LH_RANKS_OF(kCoopRanks, kCoopLanes, coop_setup(r, c, {sched.n_slots});
+{load_body})
+#pragma unroll 1
+  for (int p = 0; p < {len(rows)}; ++p) {{
+    LH_RANKS_OF(kCoopRanks, kCoopLanes,
+                coop_phase<{width}>(r, c, {table}[p], flags, {limb_out}, n, lane, live))
+  }}
+}}
+
+extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
+                              void* stream) {{
+  constexpr int kShared = kCoopShared<{sched.n_slots}> * 4;
+  static_assert(kShared <= {SHARED_LIMIT}, "one block's shared memory on sm_90");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      {name}_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (n > 0) {{
+    {name}_kernel<<<(n + kCoopLanes - 1) / kCoopLanes, kCoopRanks * kCoopLanes, kShared,
+                          static_cast<cudaStream_t>(stream)>>>(
+        {sig["casts"]},
+        {sig["out_casts"]}, n);
+  }}
+  return static_cast<int>(cudaGetLastError());
+}}
+"""
+
+
 def miller_step_source() -> str:
     kernels = _kernel(MK.program("dbl"), group=MK.DBL_GROUP)
     kernels += _kernel(MK.program("add"), group=MK.ADD_GROUP)
@@ -778,8 +990,15 @@ def miller_step_mxu_source() -> str:
 
 
 def wsm_step_source() -> str:
-    kernels = "".join(_kernel(WK.program(nc)) for nc in (1, 2))
-    return HEADER + _WSM_DOC + _HELPERS + _SQR_HELPERS + _END_HELPERS + kernels
+    kernels = ""
+    for nc in (2, 1):
+        kind, group, _ = WK.FORMS[nc]
+        kernels += _kernel(WK.program(nc), group=group) if kind == "group" else _coop_kernel(
+            WK.program(nc))
+    helpers = (_COOP_HELPERS.replace("COOP_RANKS", str(COOP_RANKS))
+               .replace("COOP_LANES", str(COOP_LANES)))
+    return (HEADER + _WSM_DOC + _WSM_HEAD + _GROUP_HELPERS + _GROUP_MUL + helpers
+            + _END_HELPERS + kernels)
 
 
 def generate_sources() -> dict:

@@ -18,13 +18,24 @@ byte.  The reference promises values, not bytes, against
 ``points.scalar_mul_bits``: the tests hold the fused driver to the port's
 ``P.scalar_mul_bits`` by canonical value, flags included.
 
-Hopper design: one thread per lane, the accumulator (3 x ncoords planes),
-the base (2 x ncoords) and three flag planes read once, 3 x ncoords planes
-and one flag plane written once, intermediates in a per-thread slot array.
+Hopper design: several threads per lane.  One thread per lane ran the
+step's products one after another (1,703 multiplies each, 1,378 a square)
+with under one warp per SM at the path's 4,096 lanes; each curve now runs
+in the form that was the faster there (``FORMS``, PERF.md), every input
+plane read once and every output plane written once:
+
+* G2 in the group form of kernels 2 and 3 (``codegen._kernel``): 16
+  threads per lane in blocks of 32 lanes run the products of a dependency
+  level side by side, each the one-thread core, in 10 rounds of at most 16.
+* G1, whose 25 products fall in 8 rounds of at most 4, in the cooperative
+  form (``codegen._coop_kernel``): 16 threads per lane in blocks of 8 lanes
+  make each product together, one after another, on kernel 4's tiles
+  (csrc/mont_coop.cuh; the squares by the group triangle square), the
+  linear ops riding in the products' phases.
+
 What bounds it on the card: integer multiplies (the programs' products
 times 1,703, squares times 1,378, per lane) against about 1 KB (G1) or
-2 KB (G2) of traffic per lane; one thread per lane leaves the card far
-from that bound.
+2 KB (G2) of traffic per lane.
 """
 
 from __future__ import annotations
@@ -206,6 +217,12 @@ def program(ncoords: int) -> Program:
 
 # -- wrappers ---------------------------------------------------------------------
 
+# Each curve's form: (kind, threads per lane, lanes per block), the faster at
+# the path's 4,096 lanes of those timed on the card (PERF.md): G2 "group"
+# (G = 16 before G = 8 and the cooperative form), G1 "coop" (before the
+# group form at G = 4).
+FORMS = {1: ("coop", 16, 8), 2: ("group", 16, 32)}
+
 g1_launches = 0  # kernel launches (plain-version calls do not count)
 g2_launches = 0
 
@@ -228,10 +245,17 @@ def _check(ncoords: int, named: dict) -> None:
         raise ValueError(f"the WSM step has no path for device {acc.device}")
 
 
+def launcher(ncoords: int) -> str:
+    """The C launcher of a curve's form: lh_wsm_step_g<nc>_coop or
+    lh_wsm_step_g<nc>_g<G>."""
+    kind, group, _ = FORMS[ncoords]
+    return f"lh_wsm_step_g{ncoords}_" + ("coop" if kind == "coop" else f"g{group}")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.library("wsm_step")
     for nc in (1, 2):
-        fn = getattr(lib, f"lh_wsm_step_g{nc}")
+        fn = getattr(lib, launcher(nc))
         if not fn.argtypes:
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -251,7 +275,7 @@ def _step(ncoords, acc, inf_acc, base, inf_base, bit):
         return _plain(ncoords, acc, inf_acc, base, inf_base, bit)
     acc_out, inf_out = torch.empty_like(acc), torch.empty_like(inf_acc)
     lib = _lib()
-    err = getattr(lib, f"lh_wsm_step_g{ncoords}")(
+    err = getattr(lib, launcher(ncoords))(
         acc.data_ptr(), inf_acc.data_ptr(), base.data_ptr(), inf_base.data_ptr(),
         bit.data_ptr(), acc_out.data_ptr(), inf_out.data_ptr(), acc.shape[-1],
         torch.cuda.current_stream(acc.device).cuda_stream)
@@ -275,7 +299,8 @@ def wsm_step_g2_plain(acc, inf_acc, base, inf_base, bit):
 def wsm_step_g1(acc, inf_acc, base, inf_base, bit):
     """One G1 step: acc (3, 26, n) Jacobian, inf_acc (1, n), base (2, 26, n)
     affine, inf_base (1, n), bit (1, n) -> (acc', inf_acc').  CUDA tensors
-    launch kernel 6's G1 entry point; CPU tensors take the plain version."""
+    launch kernel 6's G1 entry point in its form (FORMS); CPU tensors take
+    the plain version."""
     return _step(1, acc, inf_acc, base, inf_base, bit)
 
 

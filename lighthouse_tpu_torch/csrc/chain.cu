@@ -62,6 +62,7 @@ constexpr int kBias16 = 3;  // row of 16P
 
 // -- the chains in the group form ----------------------------------------
 
+using lh::coop::Arena;
 using lh::coop::Lane;
 using lh::coop::NC;
 using lh::coop::NP;
@@ -69,47 +70,19 @@ using lh::coop::NW;
 using lh::coop::Work;
 
 constexpr int kG = 16;  // threads per lane (Shape<16>; the square's tiles need 16)
-// Shared words per lane of one product's work: three column sums, the carry
-// maps, s = t + u
-constexpr int kWorkWords = 3 * NC + kG + NW;
-
-// A lane's words in its block's shared memory ([word][L lanes] layout): word
-// k at base[k * L]; array j (NP words) starts at word j * NP.
-template <int L>
-struct Arena {
-  uint32_t* base;  // the block's array + the lane's slot
-  __device__ __forceinline__ Lane at(int word) const {
-    return Lane{base + word * lh::kLanes<L>, lh::kLanes<L>};
-  }
-  __device__ __forceinline__ Lane arr(int j) const { return at(j * NP); }
-  __device__ __forceinline__ Work work(int word) const {
-    return Work{at(word), at(word + NC), at(word + 2 * NC), at(word + 3 * NC),
-                at(word + 3 * NC + kG)};
-  }
-};
-
-// o = compress1(col) over 26 limbs, where col(k) is the column before the
-// pass (add, sub): limb k reads columns k and k - 1 only, so rank r of G
-// writes limbs r, r + G, ...; o must not be an array that col reads.
-template <int G, class Col>
-__device__ __forceinline__ void g_pass(int r, Lane o, Col col) {
-#pragma unroll
-  for (int i = 0; i < (NL + G - 1) / G; ++i) {
-    const int k = r + i * G;
-    if (k < NL) o(k) = (col(k) & lh::MASK) + (k ? col(k - 1) >> 15 : 0u);
-  }
-}
+// Shared words per lane of one product's work
+constexpr int kWorkWords = lh::coop::kWorkWords<kG>;
 
 // a + b, one carry pass
 template <int G>
 __device__ __forceinline__ void g_add(int r, Lane o, Lane a, Lane b) {
-  g_pass<G>(r, o, [&](int k) { return a(k) + b(k); });
+  lh::coop::pass<G>(r, o, [&](int k) { return a(k) + b(k); });
 }
 
 // a + kP - b, one carry pass (pallas_fp._sub_biased)
 template <int G>
 __device__ __forceinline__ void g_sub(int r, Lane o, Lane a, Lane b, int kidx) {
-  g_pass<G>(r, o, [&](int k) { return a(k) + lh::kBias[kidx][k] - b(k); });
+  lh::coop::pass<G>(r, o, [&](int k) { return a(k) + lh::kBias[kidx][k] - b(k); });
 }
 
 template <int G>

@@ -127,12 +127,6 @@ __device__ __noinline__ void g_mul(uint16_t* s, int o, int a, int b) {
   g_put(s, o, r);
 }
 
-__device__ __noinline__ void g_sqr(uint16_t* s, int o, int a) {
-  uint32_t x[NL], r[NL];
-  g_get(s, a, x);
-  lh::mont_sqr_core(x, r);
-  g_put(s, o, r);
-}
 
 }  // namespace
 

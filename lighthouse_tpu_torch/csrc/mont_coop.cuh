@@ -86,6 +86,41 @@ struct Work {
   Lane tsums, msums, usums, cmap, s;
 };
 
+// Shared words per lane of one product's Work for G ranks: three column sums,
+// the carry maps, s = t + u.
+template <int G>
+constexpr int kWorkWords = 3 * NC + G + NW;
+
+// A lane's words in its block's shared memory ([word][L lanes] layout): word
+// k at base[k * L]; array j (NP words) starts at word j * NP (the chains'
+// and kernel 6's cooperative form's per-lane values).
+template <int L>
+struct Arena {
+  uint32_t* base;  // the block's array + the lane's slot
+  __device__ __forceinline__ Lane at(int word) const {
+    return Lane{base + word * kLanes<L>, kLanes<L>};
+  }
+  __device__ __forceinline__ Lane arr(int j) const { return at(j * NP); }
+  // one product's Work for G ranks (16: the chains' and kernel 6's groups),
+  // its kWorkWords<G> words from `word`
+  template <int G = 16>
+  __device__ __forceinline__ Work work(int word) const {
+    return Work{at(word), at(word + NC), at(word + 2 * NC), at(word + 3 * NC), at(word + 3 * NC + G)};
+  }
+};
+
+// o = compress1(col) over 26 limbs, where col(k) is the column before the
+// pass (add, sub, neg): limb k reads columns k and k - 1 only, so rank r of
+// G writes limbs r, r + G, ...; o must not be an array that col reads.
+template <int G, class Col>
+__device__ __forceinline__ void pass(int r, Lane o, Col col) {
+#pragma unroll
+  for (int i = 0; i < (NL + G - 1) / G; ++i) {
+    const int k = r + i * G;
+    if (k < NL) o(k) = (col(k) & MASK) + (k ? col(k - 1) >> 15 : 0u);
+  }
+}
+
 // Rank r's tile of the 28 x 28 padded schoolbook: rows [i0, i0 + TI),
 // columns [j0, j0 + TJ).
 template <int G>

@@ -13,8 +13,9 @@ every form of chain_kernel.FP_FORMS, and the Fp2 chain and both MXU chains
 in their one form each): mont_mul, miller_step_dbl, miller_step_add, fp_chain,
 fp2_chain, wsm_step_g1 and wsm_step_g2, and the
 MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
-the 13-bit plane), each at a ragged width, byte for byte.  chip_smoke.py
-runs the same checks at the path's own widths and operands.
+the 13-bit plane), each at a ragged width, byte for byte; kernel 6 in each
+curve's form (wsm_kernel.FORMS) also at 1, 33, 257 and 4,097 lanes.
+chip_smoke.py runs the same checks at the path's own widths and operands.
 """
 
 import random
@@ -193,4 +194,30 @@ def test_cuda_group_chains_match_plain_versions():
         got = CK.fp2_pow_chain(x, y, h2c.SQRT_EXP_BITS, mxu=True)
         ref = CK.fp2_pow_chain_plain(x, y, h2c.SQRT_EXP_BITS, mxu=True)
         assert all(torch.equal(g, r) for g, r in zip(got, ref)), ("mxu", w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_wsm_forms_match_plain_versions():
+    """Kernel 6 in each curve's form (G2 the group form in blocks of 32
+    lanes, G1 the cooperative form in blocks of 8) at 1, 33, 257 and 4,097
+    lanes: ragged tails in every block size, random flags on every side."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    rng = random.Random(41)
+    dev = torch.device("cuda")
+    wide = 4097
+
+    def flags():
+        return torch.tensor([[rng.randrange(2) for _ in range(wide)]], dtype=torch.int32,
+                            device=dev)
+
+    for nc, kern, plain in ((1, W.wsm_step_g1, W.wsm_step_g1_plain),
+                            (2, W.wsm_step_g2, W.wsm_step_g2_plain)):
+        operands = (_rand_planes(rng, 3 * nc, wide).to(dev), flags(),
+                    _rand_planes(rng, 2 * nc, wide).to(dev), flags(), flags())
+        for w in (1, 33, 257, wide):
+            args = tuple(x[..., :w].contiguous() for x in operands)
+            got, ref = kern(*args), plain(*args)
+            assert all(torch.equal(g, r) for g, r in zip(got, ref)), (nc, w)
     torch.cuda.synchronize()

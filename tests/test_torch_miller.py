@@ -10,10 +10,10 @@
   form of MK.FORMS and kernels 2 and 3 in their group forms, each group's
   ranks run upwards and downwards
   within a phase (a rank that read another's write of the same phase would
-  differ); the G1 WSM step printed in the group form too.
-* The group schedules of kernels 2 and 3 hand every value to a slot that
-  nothing overwrites before its last reader, and no phase writes a slot it
-  reads.
+  differ).
+* The group schedules of kernels 2, 3 and kernel 6's G2 step hand every
+  value to a slot that nothing overwrites before its last reader, and no
+  phase writes a slot it reads.
 
 The kernels themselves run against the plain versions on a card in
 tests/test_torch_cuda.py (jax-free, so it runs where the card is).
@@ -43,6 +43,7 @@ from lighthouse_tpu_torch.crypto.bls.torch_backend import _build, codegen  # noq
 from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as F  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.torch_backend import miller_kernel as ML  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.torch_backend import mont_kernel as MK  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import wsm_kernel as W  # noqa: E402
 
 
 def _planes(lfps) -> torch.Tensor:
@@ -272,15 +273,18 @@ def _run_schedule(prog, sched):
     pytest.param("dbl", ML.DBL_MXU_GROUP, True, id=f"dbl-mxu-{ML.DBL_MXU_GROUP}"),
     pytest.param("add", 8, False, id="add-8"),
     pytest.param("add", ML.ADD_GROUP, False, id=f"add-{ML.ADD_GROUP}"),
-    pytest.param("add", ML.ADD_MXU_GROUP, True, id=f"add-mxu-{ML.ADD_MXU_GROUP}")])
+    pytest.param("add", ML.ADD_MXU_GROUP, True, id=f"add-mxu-{ML.ADD_MXU_GROUP}"),
+    pytest.param("wsm_g2", 8, False, id="wsm-g2-8"),
+    pytest.param("wsm_g2", W.FORMS[2][1], False, id=f"wsm-g2-{W.FORMS[2][1]}")])
 def test_group_schedule_never_overwrites_a_live_slot(step, group, mxu):
-    """The group schedules of kernels 2, 2m, 3 and 3m on the recorded
-    programs (no compiler): each limb op runs once, after its operands, in a
-    phase that does not write what it reads; a round holds at most one
-    product per rank; the outputs are stored from their own slots; the slots
-    fit in one block's shared memory, and the printed launcher asserts that
-    they do with the MXU form's DMMA staging (nvcc checks it)."""
-    prog = ML.program(step)
+    """The group schedules of kernels 2, 2m, 3, 3m and 6's G2 step (at its
+    G and at 8, the other G timed) on the recorded programs (no compiler):
+    each limb op runs once, after its operands, in a phase that does not
+    write what it reads; a round holds at most one product per rank; the
+    outputs are stored from their own slots; the slots fit in one block's
+    shared memory, and the printed launcher asserts that they do with the
+    MXU form's DMMA staging (nvcc checks it)."""
+    prog = W.program(2) if step == "wsm_g2" else ML.program(step)
     sched = codegen.group_schedule(prog, group)
     order = _run_schedule(prog, sched)
     limb_ops = [op.out for op in prog.ops if op.kind not in ML.FLAGS]
@@ -311,37 +315,6 @@ def test_step_wrappers_check_operands():
         ML.miller_step_dbl(z.long(), t.long(), p.long(), p.long())
     with pytest.raises(ValueError):
         ML.miller_step_add(z, t, z[:4].clone(), p, p, torch.zeros(2, dtype=torch.int32))
-
-
-_HARNESS_GROUP = r"""
-extern "C" void host_wsm(const uint32_t* acc, const uint32_t* ia, const uint32_t* base,
-                         const uint32_t* ib, const uint32_t* bit, uint32_t* ao, uint32_t* io,
-                         int n, int down) {
-  lh::host_ranks_down = down;
-  EACH_LANE(wsm_step_g1_g16_kernel(acc, ia, base, ib, bit, ao, io, n))
-}
-"""
-
-
-def test_group_form_is_one_argument_for_the_other_steps(tmp_path):
-    """The group form printed for the G1 WSM step (squares, flags), which
-    still ships in the one-thread form: built for the host, it gives the
-    plain version's bytes, ranks run both ways."""
-    from lighthouse_tpu_torch.crypto.bls.torch_backend import wsm_kernel as W
-
-    src = (codegen.HEADER + codegen._MILLER_HEAD + codegen._GROUP_HELPERS + codegen._GROUP_MUL
-           + codegen._END_HELPERS + codegen._kernel(W.program(1), group=16))
-    lib = host_cuda.build(tmp_path, "group_steps", _HARNESS_GROUP, source=src)
-    rng = random.Random(24)
-    n = 17
-    acc, base = _rand_planes(rng, 3, n), _rand_planes(rng, 2, n)
-    flags = [torch.tensor([[rng.randrange(2) for _ in range(n)]], dtype=torch.int32)
-             for _ in range(3)]
-    ra, ri = W.wsm_step_g1_plain(acc, flags[0], base, flags[1], flags[2])
-    for down in (0, 1):
-        ao, io = torch.empty_like(acc), torch.empty_like(flags[0])
-        lib.host_wsm(*map(_ptr, (acc, flags[0], base, flags[1], flags[2], ao, io)), n, down)
-        assert torch.equal(ao, ra) and torch.equal(io, ri)
 
 
 def test_mont_forms_are_checked_and_picked_by_width():

@@ -5,9 +5,14 @@ Fast tier:
   ``points.scalar_mul_bits`` by canonical value, flags included, and
   against the oracle's ``affine_mul``, with infinity-base lanes;
 * the recorded step programs (products, squares, flag outputs);
-* ``csrc/wsm_step.cu`` compiled for the host with g++, lane by lane against
-  the plain versions (its text is held to codegen's by
-  tests/test_torch_miller.py::test_generated_sources_are_committed_text).
+* ``csrc/wsm_step.cu`` compiled for the host with g++: each curve's form
+  (G2 the group form, G1 the cooperative form; wsm_kernel.FORMS) lane by
+  lane against the plain versions, the ranks of every phase run upwards
+  and downwards, on random reduced planes and on live points (its text is
+  held to codegen's by
+  tests/test_torch_miller.py::test_generated_sources_are_committed_text);
+* the cooperative schedule (codegen.coop_schedule) walked over a model of
+  the arrays, and its packed table codes decoded back to the program's ops.
 
 Slow tier: the plain step programs byte for byte against the reference's
 own Pallas step kernel (``pallas_wsm._step_call``) in interpret mode, one
@@ -31,7 +36,9 @@ import jax.numpy as jnp  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls import params  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.curve import (  # noqa: E402
     G1_GENERATOR, G2_GENERATOR, Fp, Fp2, affine_mul)
+from lighthouse_tpu_torch.crypto.bls.torch_backend import _build, codegen  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as F  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import miller_kernel as ML  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.torch_backend import points as P  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.torch_backend import tower as T  # noqa: E402
 from lighthouse_tpu_torch.crypto.bls.torch_backend import wsm_kernel as W  # noqa: E402
@@ -112,16 +119,19 @@ def _flags(rng, n) -> torch.Tensor:
     return torch.tensor([[rng.randrange(2) for _ in range(n)]], dtype=torch.int32)
 
 
-_HARNESS = r"""
-#define HOST_STEP(g)                                                             \
-  extern "C" void host_##g(const uint32_t* acc, const uint32_t* ia, const uint32_t* base, \
-                           const uint32_t* ib, const uint32_t* bit, uint32_t* ao,          \
-                           uint32_t* io, int n) {                                          \
-    EACH_LANE(wsm_step_##g##_kernel(acc, ia, base, ib, bit, ao, io, n))                    \
-  }
-HOST_STEP(g1)
-HOST_STEP(g2)
-"""
+def _kernel_name(nc) -> str:
+    """The kernel of a curve's form (its launcher without ``lh_``)."""
+    return W.launcher(nc)[3:] + "_kernel"
+
+
+_HARNESS = "".join(f"""
+extern "C" void host_g{nc}(const uint32_t* acc, const uint32_t* ia, const uint32_t* base,
+                          const uint32_t* ib, const uint32_t* bit, uint32_t* ao, uint32_t* io,
+                          int n, int down) {{
+  lh::host_ranks_down = down;
+  EACH_LANE({_kernel_name(nc)}(acc, ia, base, ib, bit, ao, io, n))
+}}
+""" for nc in (1, 2))
 
 
 @pytest.fixture(scope="module")
@@ -129,19 +139,148 @@ def host_wsm(tmp_path_factory):
     return host_cuda.build(tmp_path_factory.mktemp("hostwsm"), "wsm_step", _HARNESS)
 
 
+@pytest.mark.parametrize("corpus", ["random", "live"])
 @pytest.mark.parametrize("nc", [1, 2])
-def test_host_compiled_wsm_step_matches_plain(host_wsm, nc):
-    rng = random.Random(30 + nc)
-    n = 9
-    acc, base = _planes(rng, 3 * nc, n), _planes(rng, 2 * nc, n)
-    ia, ib, bit = _flags(rng, n), _flags(rng, n), _flags(rng, n)
-    ao, io = torch.empty_like(acc), torch.empty_like(ia)
-    ptr = host_cuda.ptr
-    getattr(host_wsm, f"host_g{nc}")(ptr(acc), ptr(ia), ptr(base), ptr(ib), ptr(bit), ptr(ao),
-                                     ptr(io), n)
+def test_host_compiled_wsm_step_matches_plain(host_wsm, nc, corpus):
+    """Each curve's form at 1 lane and at 33 (G + 1 and past a block of 32
+    lanes), its ranks run upwards and downwards in every phase, gives the
+    plain version's bytes: on random reduced planes with random flags, and
+    on live points where every flag state occurs."""
+    n = 33
+    if corpus == "random":
+        rng = random.Random(30 + nc)
+        operands = (_planes(rng, 3 * nc, n), _flags(rng, n), _planes(rng, 2 * nc, n),
+                    _flags(rng, n), _flags(rng, n))
+    else:
+        operands = _live_step_inputs(nc, n, seed=50 + nc)
     plain = W.wsm_step_g1_plain if nc == 1 else W.wsm_step_g2_plain
-    ra, ri = plain(acc, ia, base, ib, bit)
-    assert torch.equal(ao, ra) and torch.equal(io, ri)
+    ptr = host_cuda.ptr
+    for w in (1, n):
+        args = tuple(x[..., :w].contiguous() for x in operands)
+        ra, ri = plain(*args)
+        for down in (0, 1):
+            ao, io = torch.empty_like(args[0]), torch.empty_like(args[1])
+            getattr(host_wsm, f"host_g{nc}")(*map(ptr, args), ptr(ao), ptr(io), w, down)
+            assert torch.equal(ao, ra) and torch.equal(io, ri), (w, down)
+
+
+def test_forms_are_the_printed_kernels():
+    """wsm_kernel.FORMS names what codegen prints: G2's group form at its G
+    in blocks of 32 lanes, G1's cooperative form in the shape of the
+    printed constants; the launchers the wrapper binds are in the source."""
+    src = (_build.CSRC / "wsm_step.cu").read_text()
+    assert W.FORMS[2][0] == "group" and W.FORMS[2][2] == 32
+    assert W.FORMS[1] == ("coop", codegen.COOP_RANKS, codegen.COOP_LANES)
+    assert f"constexpr int kCoopLanes = {codegen.COOP_LANES};" in src
+    for nc in (1, 2):
+        assert f'extern "C" int {W.launcher(nc)}(' in src
+
+
+def _walk_coop(prog, sched):
+    """Walk the cooperative phases over a model of the arrays: a product
+    reads its operands in stage 0 and writes its output in stage 4, a
+    linear op reads and writes in its phase.  Every operand must still sit
+    in its array when it is read, and no phase may write an array that it
+    reads or that another op of the phase writes.  Returns the limb ops in
+    the order they complete."""
+    held = {}  # array -> value id
+    for op in prog.ops:
+        if op.kind == "in":
+            held[sched.slot[op.out]] = op.out
+    order = [op.out for op in prog.ops if op.kind == "in"]
+    assert sched.phases[0] == (None, None, ())
+    pending = None
+    for vid, stage, lin in sched.phases[1:]:
+        reads, writes = [], []
+        if vid is not None:
+            op = prog.ops[vid]
+            if stage == 0:
+                assert pending is None, "a product starts before the last one ends"
+                pending = vid
+                reads += list(op.ins)
+            else:
+                assert pending == vid
+            if stage == codegen.COOP_STAGES - 1:
+                writes.append(vid)
+                pending = None
+        for v in lin:
+            reads += [i for i in prog.ops[v].ins if prog.ops[i].kind not in ML.FLAGS]
+            writes.append(v)
+        ws = [sched.slot[v] for v in writes]
+        assert len(ws) == len(set(ws)), "two ops of one phase write one array"
+        assert not {sched.slot[i] for i in reads} & set(ws), "a phase writes an array it reads"
+        for i in reads:
+            assert held.get(sched.slot[i]) == i, "an operand was overwritten"
+        for v in writes:
+            held[sched.slot[v]] = v
+        order += writes
+    assert pending is None
+    return order
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_coop_schedule_never_overwrites_a_live_slot(nc):
+    """The cooperative schedule of each step program (G1 ships in it; G2's
+    was timed): each limb op runs once, after its operands; products one
+    at a time, in five consecutive phases; phases without a product only
+    for the outputs' tails; the arrays fit one block's shared memory."""
+    prog = W.program(nc)
+    sched = codegen.coop_schedule(prog)
+    order = _walk_coop(prog, sched)
+    assert sorted(order) == [op.out for op in prog.ops if op.kind not in ML.FLAGS]
+    products = prog.n_mul + prog.n_sqr
+    assert sum(1 for vid, stage, _ in sched.phases if stage == 0) == products
+    last = max(p for p, (vid, _, _) in enumerate(sched.phases) if vid is not None)
+    assert last == codegen.COOP_STAGES * products
+    assert codegen.coop_shared_bytes(sched.n_slots) <= codegen.SHARED_LIMIT
+
+
+@pytest.mark.parametrize("nc", [1, 2])
+def test_coop_codes_round_trip(nc):
+    """Every packed word of the cooperative table decodes to what the
+    schedule put there: the product's stage (the square's triangle for a
+    sqr) and arrays; each linear op's kind, arrays, bias row (k up to 64
+    for G1 and 128 for G2: three bits) or flag bit; each output's store
+    with its plane."""
+    prog = W.program(nc)
+    sched = codegen.coop_schedule(prog)
+    rows, width = codegen._coop_rows(prog, sched)
+    flags = [op.out for op in prog.ops if op.kind in ML.FLAGS]
+    planes = {vid: plane for _, plane, vid in prog.outputs}
+
+    def unpack(w):
+        return w & 7, w >> 3 & 7, w >> 8 & 255, w >> 16 & 255, w >> 24
+
+    slot = sched.slot
+    ks = set()
+    for row, (vid, stage, lin) in zip(rows, sched.phases[1:]):
+        assert len(row) == width + 1
+        code, q, o, a, b = unpack(row[0])
+        if vid is None:
+            assert row[0] == 0
+        else:
+            op = prog.ops[vid]
+            want = ("sqr" if op.kind == "sqr" else "t") if stage == 0 \
+                else codegen.COOP_STAGE[stage + 2]
+            assert codegen.COOP_STAGE[code] == want
+            assert (o, a, b) == (slot[vid], slot[op.ins[0]], slot[op.ins[-1]])
+        words = [w for w in row[1:] if w]
+        for v in lin:
+            op = prog.ops[v]
+            code, q, o, a, b = unpack(words.pop(0))
+            assert codegen.COOP_LIN[code] == op.kind and o == slot[v]
+            limbs = [i for i in op.ins if prog.ops[i].kind not in ML.FLAGS]
+            assert [a, b][:len(limbs)] == [slot[i] for i in limbs]
+            if op.kind in ("sub", "neg"):
+                assert F.BIAS_KS[q] == op.arg
+                ks.add(op.arg)
+            elif op.kind == "sel":
+                assert flags[q] == op.ins[0]
+            if v in planes:
+                code, q, o, a, b = unpack(words.pop(0))
+                assert (codegen.COOP_LIN[code], o, a) == ("store", slot[v], planes[v])
+        assert not words
+    assert max(ks) == {1: 64, 2: 128}[nc]
 
 
 def test_wsm_wrappers_check_operands():
