@@ -39,10 +39,12 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 4. reference: the device map-to-G2 on a few messages against the host
    hash_to_g2; the chains' outputs (both planes) on a few lanes against
    host pow and the oracle's Fp2.pow.
-5. path, for each arm: TorchBackend(device="cuda", device_h2c=True)
-   .verify_signature_sets on 4,096 signature sets (a tiled pool of seeded
-   signed sets, with multi-key sets); True on the valid batch, False with
-   one signature swapped for a valid signature of another message.  The
+5. path, for each arm, on the eager program (TorchBackend.local_verify_fn,
+   the graph's comparison): TorchBackend(device="cuda", device_h2c=True)
+   marshals 4,096 signature sets (a tiled pool of seeded signed sets, with
+   multi-key sets); True on the valid batch, False with one signature
+   swapped for a valid signature of another message (at N_SETS // 2 + 7)
+   and False with the swap at set 0.  The
    valid verify's dispatch runs under torch's sync debug mode set to
    "error", so any host sync in the device program fails the run; launch
    counts come from each verify (Miller 63/63 in every arm; under the arm
@@ -55,7 +57,17 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    steps: each step whose addition bit is set, and the last; the WSM
    steps: four bits), and each kernel is held byte for byte against its
    plain version on them (path_kernel_check).
-6. kernel times, on the captured operands: CUDA events around runs of
+6. program, for each arm: bk.warm_compile(4,096) builds the key's CUDA
+   graph (torch_backend/program.py): its key and fingerprint, warm-up,
+   capture and instantiate seconds, the graph's nodes by type (kernel nodes
+   = DEVICE_KERNELS), the wrapper launches counted during the capture
+   (= WRAPPER_LAUNCHES, kernel by kernel the eager verify's), device and host
+   memory.  graph_path: the valid, one-bad, valid and bad-at-0 batches
+   dispatched in turn through the replayed graph under sync debug mode
+   "error", all in flight before the first resolve: True, False, True,
+   False, the eager verdicts on the same batches, no wrapper launch counted
+   and no key built.
+7. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches, queued while the card sleeps so that the host's
    wrapper time stays out.  mont_mul at every width of the default path
    (mont_widths: calls x ms, its device time there), every form of it at
@@ -71,16 +83,21 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    in the kernels line); kernel 6 in each curve's form at the arm's 4,096
    lanes and at 16,384 (wsm_forms: the captured operands tiled); every other
    kernel on its arm's operands.
-7. path_timing: verifies of the three arms interleaved (default, arm, mxu,
-   mxu, arm, default), with marshal, dispatch and resolve times and peak
-   memory for each arm.
-8. profile: one more verify of each arm under torch.profiler, giving the
-   kernel launches (DEVICE_KERNELS, counted from the runtime's launch
-   records), every kernel the card ran and the share of the wall time the
-   card was busy (a verify whose kernel records fall short of its launches,
-   as when the profiler loses records, is profiled again, up to
-   PROFILE_TRIES; if every try falls short, the busy time and share are
-   null: the lost records carry time).
+8. path_timing: verifies of the three arms interleaved (default, arm, mxu,
+   mxu, arm, default), each through the eager program and the graph (eager
+   first in the first half, graph first in the second), with marshal,
+   dispatch and resolve times and peak memory for each arm and path.
+9. profile: one more verify of each arm under torch.profiler, eager and
+   replayed, giving the kernel launches (eager: DEVICE_KERNELS, counted from
+   the runtime's launch records; a replay is one graph launch), every kernel
+   the card ran and the share of the wall time the card was busy (a verify
+   whose kernel records fall short of its kernels, as when the profiler
+   loses records, is profiled again, up to PROFILE_TRIES; if every try
+   falls short, the busy time and share are null: the lost records carry
+   time).  profile_stages: one eager verify of each of STAGE_ARMS with the
+   CPU side traced too and the device program's stages (STAGES) as profiler
+   ranges, giving each stage's device kernels and device time; "other" is
+   the glue between the stages.
 
 Then the kernels line, the nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -89,6 +106,7 @@ It exits non-zero, printing no result, without CUDA or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import statistics
@@ -123,6 +141,20 @@ WSM_WIDE = 4  # kernel 6 is also timed at this many times the arm's width
 WRAPPER_LAUNCHES = {"default": 25_925, "arm": 7_465, "mxu": 7_465}
 DEVICE_KERNELS = {"default": 303_366, "arm": 165_602, "mxu": 165_602}
 PROFILE_TRIES = 3  # profiled verifies per arm at most, until one loses no kernel record
+# the device program's stages, as (module name, function) pairs: the top-level
+# calls of backend._verify_kernel(_h2c); a stage called inside another counts
+# for the outer one
+STAGES = {"map_to_g2": (("h2c", "map_to_g2"),),
+          "g2_subgroup_check": (("P", "g2_subgroup_check"),),
+          "scalar_muls": (("P", "scalar_mul_bits"), ("W", "scalar_mul_bits_fused")),
+          "tree_reduce_g2": (("backend", "_tree_reduce_g2"),),
+          "to_affine": (("P", "to_affine"),),
+          "miller_loop": (("PR", "miller_loop"),),
+          "gt_product": (("PR", "gt_product"),),
+          "final_exp_is_one": (("PR", "final_exp_is_one"),)}
+# arms profiled by stage: the mxu arm runs the arm's glue (every stage's kernel
+# count the arm's), only its products differ
+STAGE_ARMS = ("default", "arm")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 # FP64 tensor-core multiply-adds per SM per clock: the H100 SXM data sheet's
@@ -136,7 +168,13 @@ MXU_NAMES = ("mont_mul_mxu", "miller_step_dbl_mxu", "miller_step_add_mxu", "fp_c
 KERNEL_NAMES = ("mont_mul",) + STEP_NAMES + ("fp_chain", "fp2_chain") + WSM_NAMES + MXU_NAMES
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -256,22 +294,20 @@ def capture_kernel_operands(entry_points, mxu_active, keep_steps, run):
     return result, ops, widths
 
 
-def profile_verify(torch, bk, sets) -> dict:
-    """One dispatch + resolve under torch.profiler (device activity only):
-    the kernel launches the CUDA runtime recorded (device_kernels), the
-    kernels the card ran (kernel_records: fewer when the profiler loses
-    records of the card's side, which it can), their summed time, and the
-    share of the verify's wall time in which the card was busy."""
+def profile_trace(torch, run, cpu=False):
+    """run() (one verify, True expected) under torch.profiler: the card's
+    activity and, with ``cpu``, the host's.  Returns (the verify's wall
+    time, the trace's events)."""
     import os
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    mb = bk.marshal_sets(sets)
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        ok = bk.resolve(bk.dispatch(mb))
+        ok = run()
         wall_s = time.perf_counter() - t0
     if ok is not True:
         raise RuntimeError("the profiled verify returned False")
@@ -279,21 +315,93 @@ def profile_verify(torch, bk, sets) -> dict:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
+            return wall_s, json.load(fh)["traceEvents"]
+
+
+def _kernel_name(e) -> str:
+    name = e["name"].replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1][:60]
+
+
+def profile_summary(wall_s, events) -> dict:
+    """One profiled verify: the kernel launches the CUDA runtime recorded
+    (device_kernels) and its graph launches, the kernels the card ran
+    (kernel_records: fewer when the profiler loses records of the card's
+    side, which it can), their summed time, and the share of the verify's
+    wall time in which the card was busy."""
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    launches = sum(e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"] for e in events)
+    runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
     busy_us = sum(e["dur"] for e in kernels)
     by_name = {}
     for e in kernels:
-        name = e["name"].replace("(anonymous namespace)::", "")
-        name = name.split("(")[0].split("<")[0].split("::")[-1][:60]
-        count, us = by_name.get(name, (0, 0.0))
-        by_name[name] = (count + 1, us + e["dur"])
+        count, us = by_name.get(_kernel_name(e), (0, 0.0))
+        by_name[_kernel_name(e)] = (count + 1, us + e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    return {"wall_s": wall_s, "device_kernels": launches, "kernel_records": len(kernels),
-            "device_busy_s": busy_us / 1e6,
+    return {"wall_s": wall_s, "device_kernels": sum("LaunchKernel" in n for n in runtime),
+            "graph_launches": sum("GraphLaunch" in n for n in runtime),
+            "kernel_records": len(kernels), "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall_s if kernels else None,
             "top_kernels": [{"name": k, "launches": c, "s": us / 1e6} for k, (c, us) in top]}
+
+
+@contextlib.contextmanager
+def stage_ranges(torch, modules):
+    """Wrap each function of STAGES (``modules`` maps the module names to
+    the modules) in a profiler range named after its stage, only where no
+    stage is open already, so that the ranges do not nest."""
+    depth = [0]
+    orig = {}
+
+    def wrap(fn, stage):
+        def wrapped(*args, **kw):
+            if depth[0]:
+                return fn(*args, **kw)
+            depth[0] += 1
+            try:
+                with torch.profiler.record_function(stage):
+                    return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+
+        return wrapped
+
+    for stage, fns in STAGES.items():
+        for mod_name, attr in fns:
+            mod = modules[mod_name]
+            orig[(mod, attr)] = getattr(mod, attr)
+            setattr(mod, attr, wrap(orig[(mod, attr)], stage))
+    try:
+        yield
+    finally:
+        for (mod, attr), fn in orig.items():
+            setattr(mod, attr, fn)
+
+
+def stage_summary(events) -> dict:
+    """{stage: device kernels, kernel records, device seconds} of a verify
+    traced with the CPU side under stage_ranges: a kernel belongs to the
+    stage whose range holds the runtime call that launched it (matched by
+    correlation id); "other" is the glue between the stages."""
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"] in STAGES)
+    launches = sorted((e["ts"], e.get("args", {}).get("correlation")) for e in events
+                      if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"])
+    stage_of, i = {}, 0
+    for ts, corr in launches:
+        while i < len(ranges) and ranges[i][1] < ts:
+            i += 1
+        inside = i < len(ranges) and ranges[i][0] <= ts
+        stage_of[corr] = ranges[i][2] if inside else "other"
+    out = {stage: {"device_kernels": 0, "kernel_records": 0, "device_s": 0.0}
+           for stage in (*STAGES, "other")}
+    for stage in stage_of.values():
+        out[stage]["device_kernels"] += 1
+    for e in events:
+        if e.get("cat") == "kernel":
+            stage = stage_of.get(e["args"].get("correlation"), "other")
+            out[stage]["kernel_records"] += 1
+            out[stage]["device_s"] += e["dur"] / 1e6
+    return out
 
 
 def main() -> int:
@@ -310,7 +418,8 @@ def main() -> int:
             hash_to_field_fp2, hash_to_g2)
         from lighthouse_tpu_torch.crypto.bls.torch_backend import (
             _build, backend, chain_kernel as CK, codegen, fp as F, h2c, miller_kernel as ML,
-            mont_kernel as MK, mxu_kernel as X, points as P, tower as T, wsm_kernel as W)
+            mont_kernel as MK, mxu_kernel as X, pairing as PR, points as P, tower as T,
+            wsm_kernel as W)
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 2
@@ -610,6 +719,10 @@ def main() -> int:
     bad = list(sets)
     bad[N_SETS // 2 + 7] = api.SignatureSet(
         other.sign(b"another message"), [other.public_key()], sets[N_SETS // 2 + 7].message)
+    bad_at_0 = list(sets)
+    bad_at_0[0] = api.SignatureSet(other.sign(b"another message"), [other.public_key()],
+                                   sets[0].message)
+    batches = {"valid": sets, "one_bad": bad, "bad_at_0": bad_at_0}
     emit({"phase": "path_setup", "sets": N_SETS, "distinct": POOL, "multi_key_sets": MULTI,
           "signers_per_multi_key_set": 16, "seconds": round(time.perf_counter() - t0, 3)})
 
@@ -638,44 +751,104 @@ def main() -> int:
     }
     products = {"default": "mont_mul", "arm": "mont_mul", "mxu": "mont_mul_mxu"}
     bk = backend.TorchBackend(device="cuda", device_h2c=True)
-    counts, path_ops, path_widths = {}, {}, {}
+
+    def eager_dispatch(mb):
+        """The eager device program (local_verify_fn) on a marshalled batch,
+        under the arm in force: the graph's comparison."""
+        args = backend._to_device(mb.args, dev)
+        with torch.inference_mode():
+            return bk.local_verify_fn()(*args)
+
+    eager_counts, path_ops, path_widths, marshalled, eager_verdicts = {}, {}, {}, {}, {}
     for arm in ARMS:
         set_arm(arm)
+        mbs = marshalled[arm] = {name: bk.marshal_sets(b) for name, b in batches.items()}
         backend.reset_launch_counts()
-        mb = bk.marshal_sets(sets)
         torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
         try:
-            handle = bk.dispatch(mb)
+            handle = eager_dispatch(mbs["valid"])
         finally:
             torch.cuda.set_sync_debug_mode("default")
         verdict = bk.resolve(handle)
-        counts[arm] = backend.launch_counts()
+        eager_counts[arm] = backend.launch_counts()
         backend.reset_launch_counts()
         bad_verdict, path_ops[arm], path_widths[arm] = capture_kernel_operands(
-            entry_points, F.mxu_active, keep_steps, lambda: bk.verify_signature_sets(bad))
+            entry_points, F.mxu_active, keep_steps,
+            lambda: bk.resolve(eager_dispatch(mbs["one_bad"])))
         bad_counts = backend.launch_counts()
-        emit({"phase": "path", "arm": arm, "verdict_valid": verdict,
-              "verdict_one_bad": bad_verdict, "launches_per_verify": counts[arm],
-              "launches_one_bad": bad_counts,
-              "launches_per_verify_total": sum(counts[arm].values())})
-        if not (verdict is True and bad_verdict is False):
+        bad0_verdict = bk.resolve(eager_dispatch(mbs["bad_at_0"]))
+        eager_verdicts[arm] = {"valid": verdict, "one_bad": bad_verdict,
+                               "bad_at_0": bad0_verdict}
+        emit({"phase": "path", "arm": arm, "path": "eager", "verdict_valid": verdict,
+              "verdict_one_bad": bad_verdict, "verdict_bad_at_0": bad0_verdict,
+              "launches_per_verify": eager_counts[arm], "launches_one_bad": bad_counts,
+              "launches_per_verify_total": sum(eager_counts[arm].values())})
+        if not (verdict is True and bad_verdict is False and bad0_verdict is False):
             return 1
-        if sum(counts[arm].values()) != WRAPPER_LAUNCHES[arm]:
+        if sum(eager_counts[arm].values()) != WRAPPER_LAUNCHES[arm]:
             emit({"phase": "path", "arm": arm, "error": "unexpected wrapper launches per verify",
                   "want": WRAPPER_LAUNCHES[arm]})
             return 1
-        for c in (counts[arm], bad_counts):
+        for c in (eager_counts[arm], bad_counts):
             prod = products[arm]
             if c[prod] <= 0 or any(c[k] != v for k, v in want_counts[arm].items() if k != prod):
                 emit({"phase": "path", "arm": arm, "error": "unexpected launch counts",
                       "want": want_counts[arm]})
                 return 1
     # the mxu arm runs the arm's path with every product on the 13-bit plane
-    if counts["mxu"]["mont_mul_mxu"] != counts["arm"]["mont_mul"]:
+    if eager_counts["mxu"]["mont_mul_mxu"] != eager_counts["arm"]["mont_mul"]:
         emit({"phase": "path", "error": "the mxu arm's 13-bit products differ in number from "
-              "the arm's 15-bit products", "mxu": counts["mxu"]["mont_mul_mxu"],
-              "arm": counts["arm"]["mont_mul"]})
+              "the arm's 15-bit products", "mxu": eager_counts["mxu"]["mont_mul_mxu"],
+              "arm": eager_counts["arm"]["mont_mul"]})
         return 1
+
+    # -- the main path: one captured graph per key, replayed ---------------
+    # counts: the wrapper launches of the main path's program, counted while
+    # warm_compile captures it (every replay runs each of them once)
+    counts, keys = {}, {}
+    for arm in ARMS:
+        set_arm(arm)
+        backend.reset_launch_counts()
+        built = bk.warm_compile(N_SETS)
+        total = sum(backend.launch_counts().values())  # the warm-up's and the capture's
+        key = keys[arm] = (N_SETS, True, arm == "mxu", arm != "default", arm != "default")
+        rec = bk.builds.get(key, {})
+        counts[arm] = {name: rec.get("launches", {}).get(name, 0) for name in KERNEL_NAMES}
+        emit({"phase": "program", "arm": arm, "key": key, "card": smi, "built": built,
+              **{k: v for k, v in rec.items() if k != "launches"},
+              "launches_at_capture": counts[arm],
+              "launches_at_capture_total": sum(counts[arm].values()),
+              "launches_warm_up_and_capture": total,
+              "reserved_gib": torch.cuda.memory_reserved() / 2**30})
+        if not (built and rec.get("nodes", {}).get("kernel") == DEVICE_KERNELS[arm]
+                and counts[arm] == eager_counts[arm]
+                and sum(counts[arm].values()) == WRAPPER_LAUNCHES[arm]
+                and total == 2 * WRAPPER_LAUNCHES[arm]):
+            emit({"phase": "program", "arm": arm, "error": "unexpected build",
+                  "want_kernel_nodes": DEVICE_KERNELS[arm],
+                  "want_launches": WRAPPER_LAUNCHES[arm]})
+            return 1
+    built_keys = {key: rec["capture_s"] for key, rec in bk.builds.items()}
+    for arm in ARMS:
+        set_arm(arm)
+        order = ("valid", "one_bad", "valid", "bad_at_0")
+        backend.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
+        try:
+            handles = [bk.dispatch(marshalled[arm][name]) for name in order]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        verdicts = [bk.resolve(h) for h in handles]  # all four in flight before the first
+        replay_counts = backend.launch_counts()
+        eager = [eager_verdicts[arm][name] for name in order]
+        rebuilt = {key: rec["capture_s"] for key, rec in bk.builds.items()} != built_keys
+        emit({"phase": "graph_path", "arm": arm, "batches": order, "verdicts": verdicts,
+              "eager_verdicts": eager, "launches_on_replay": sum(replay_counts.values()),
+              "keys_built": len(bk.builds), "rebuilt": rebuilt})
+        if (verdicts != [True, False, True, False] or verdicts != eager
+                or any(replay_counts.values()) or rebuilt):
+            return 1
+    del marshalled
 
     # -- the kernels on the path's own operands ----------------------------
     with torch.inference_mode():
@@ -885,56 +1058,93 @@ def main() -> int:
               "forms": {name: W.FORMS[int(name[-1])] for name in wsm_ms}, "ms": wsm_ms})
     del path_ops, ops, mxu_ops
 
-    # -- path timing, the arms interleaved ---------------------------------
-    timings = {arm: [] for arm in ARMS}
-    peak = {arm: 0 for arm in ARMS}
-    for arm in TIMING_ORDER:
+    # -- path timing, the arms interleaved, eager and graph ----------------
+    paths = {"eager": eager_dispatch, "graph": bk.dispatch}
+    timings = {(arm, path): [] for arm in ARMS for path in paths}
+    peak = {(arm, path): 0 for arm in ARMS for path in paths}
+    for i, arm in enumerate(TIMING_ORDER):
         set_arm(arm)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+        for path in (("eager", "graph") if 2 * i < len(TIMING_ORDER) else ("graph", "eager")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            mb = bk.marshal_sets(sets)
+            t1 = time.perf_counter()
+            handle = paths[path](mb)
+            t2 = time.perf_counter()
+            ok = bk.resolve(handle)
+            t3 = time.perf_counter()
+            if ok is not True:
+                return 1
+            timings[arm, path].append((t1 - t0, t2 - t1, t3 - t2))
+            peak[arm, path] = max(peak[arm, path], torch.cuda.max_memory_allocated())
+    if {key: rec["capture_s"] for key, rec in bk.builds.items()} != built_keys:
+        emit({"phase": "path_timing", "error": "a dispatch built a key"})
+        return 1
+    for arm in ARMS:
+        for path in paths:
+            runs = timings[arm, path]
+            med = [statistics.median(c) for c in zip(*runs)]
+            extra = {}
+            if path == "graph":
+                rec = bk.builds[keys[arm]]
+                extra = {"capture_s": rec["capture_s"], "instantiate_s": rec["instantiate_s"],
+                         "capture_peak_gib": rec["capture_peak_bytes"] / 2**30,
+                         "pool_gib": rec["pool_bytes"] / 2**30,
+                         "instantiate_device_gib": rec["instantiate_device_bytes"] / 2**30}
+            emit({"phase": "path_timing", "arm": arm, "path": path, "sets": N_SETS,
+                  "order": TIMING_ORDER, "reps": len(runs), "marshal_s": med[0],
+                  "dispatch_s": med[1], "resolve_s": med[2], "sets_per_s": N_SETS / sum(med),
+                  "device_sets_per_s": N_SETS / (med[1] + med[2]),
+                  "sets_per_s_each": [N_SETS / sum(r) for r in runs],
+                  "dispatch_s_each": [r[1] for r in runs],
+                  "launches_per_verify": sum(counts[arm].values()),
+                  "card": smi, "peak_mem_gib": peak[arm, path] / 2**30, **extra})
+
+    # -- profiles: eager and replayed, then the eager program by stage -------
+    for arm in ARMS:
+        set_arm(arm)
+        for path in paths:
+            # the profiler can lose records of the card's side (kernel_records
+            # short of the kernels, the busy time with it), so such a verify is
+            # profiled again, up to PROFILE_TRIES
+            records_each = []
+            for _ in range(PROFILE_TRIES):
+                mb = bk.marshal_sets(sets)
+                prof = profile_summary(*profile_trace(
+                    torch, lambda: bk.resolve(paths[path](mb))))
+                # a replay's kernels: the graph's, and any launched beside it
+                want = prof["device_kernels"] + (
+                    bk.builds[keys[arm]]["nodes"]["kernel"] if path == "graph" else 0)
+                records_each.append(prof["kernel_records"])
+                if prof["kernel_records"] == want:
+                    break
+            else:  # every try lost records: no busy time is printed as measured
+                prof.update(device_busy_s=None, device_busy_share=None)
+            emit({"phase": "profile", "arm": arm, "path": path, "sets": N_SETS, "card": smi,
+                  **prof, "kernels_wanted": want, "kernel_records_each": records_each})
+            if path == "eager" and prof["device_kernels"] != DEVICE_KERNELS[arm]:
+                emit({"phase": "profile", "arm": arm, "error": "unexpected device kernels per "
+                      "verify", "want": DEVICE_KERNELS[arm]})
+                return 1
+        if arm not in STAGE_ARMS:
+            continue
         mb = bk.marshal_sets(sets)
-        t1 = time.perf_counter()
-        handle = bk.dispatch(mb)
-        t2 = time.perf_counter()
-        ok = bk.resolve(handle)
-        t3 = time.perf_counter()
-        if ok is not True:
-            return 1
-        timings[arm].append((t1 - t0, t2 - t1, t3 - t2))
-        peak[arm] = max(peak[arm], torch.cuda.max_memory_allocated())
-    for arm in ARMS:
-        med = [statistics.median(c) for c in zip(*timings[arm])]
-        emit({"phase": "path_timing", "arm": arm, "sets": N_SETS, "order": TIMING_ORDER,
-              "reps": len(timings[arm]), "marshal_s": med[0], "dispatch_s": med[1],
-              "resolve_s": med[2], "sets_per_s": N_SETS / sum(med),
-              "device_sets_per_s": N_SETS / (med[1] + med[2]),
-              "sets_per_s_each": [N_SETS / sum(r) for r in timings[arm]],
-              "dispatch_s_each": [r[1] for r in timings[arm]],
-              "launches_per_verify": sum(counts[arm].values()),
-              "card": smi, "peak_mem_gib": peak[arm] / 2**30})
-    for arm in ARMS:
-        set_arm(arm)
-        # the profiler can lose records of the card's side (kernel_records
-        # short of the launches, the busy time with it), so such a verify is
-        # profiled again, up to PROFILE_TRIES
-        records_each = []
-        for _ in range(PROFILE_TRIES):
-            prof = profile_verify(torch, bk, sets)
-            records_each.append(prof["kernel_records"])
-            if prof["kernel_records"] == prof["device_kernels"]:
-                break
-        else:  # every try lost records: no busy time is printed as measured
-            prof.update(device_busy_s=None, device_busy_share=None)
-        emit({"phase": "profile", "arm": arm, "sets": N_SETS, "card": smi, **prof,
-              "kernel_records_each": records_each})
-        if prof["device_kernels"] != DEVICE_KERNELS[arm]:
-            emit({"phase": "profile", "arm": arm, "error": "unexpected device kernels per verify",
+        with stage_ranges(torch, {"h2c": h2c, "P": P, "W": W, "backend": backend, "PR": PR}):
+            wall_s, events = profile_trace(torch, lambda: bk.resolve(eager_dispatch(mb)),
+                                           cpu=True)
+        stages = stage_summary(events)
+        del events
+        emit({"phase": "profile_stages", "arm": arm, "path": "eager", "sets": N_SETS,
+              "card": smi, "wall_s": wall_s, "stages": stages})
+        if sum(v["device_kernels"] for v in stages.values()) != DEVICE_KERNELS[arm]:
+            emit({"phase": "profile_stages", "arm": arm, "error": "unexpected device kernels",
                   "want": DEVICE_KERNELS[arm]})
             return 1
     set_arm("default")
 
-    # launches: on the arm whose path the kernel is timed on
+    # launches: the main path's, counted while its program was captured, on the
+    # arm whose path the kernel is timed on
     home = {name: "mxu" if name in MXU_NAMES else "arm" for name in KERNEL_NAMES}
     out = []
     for name, rec in kernels.items():

@@ -13,10 +13,13 @@ verify_signature_sets (crypto/bls/src/impls/blst.rs:35-117):
           -> dispatch (enqueues on the current CUDA stream) / resolve
           (the one host sync, returns the verdict)
 
-The device program runs eagerly: every field op is a launch, every
+Written out, the device program is eager: every field op is a launch, every
 Montgomery product one launch of kernel 1, every Miller step one launch of
-kernel 2 or 3.  The default arm is the TPU default: fused Miller steps on,
-the opt-in chain, scalar-mul and MXU kernels off.  The chain-and-WSM
+kernel 2 or 3.  On the card it is captured once per program key into a
+CUDA graph (program.py; the counterpart of ``JaxBackend._kernel`` and
+``traced_jit``), and ``dispatch`` replays the graph; ``local_verify_fn``
+gives the eager program.  The default arm is the TPU default: fused Miller
+steps on, the opt-in chain, scalar-mul and MXU kernels off.  The chain-and-WSM
 arm (``fp.set_chains(True)``, ``fp.set_wsm(True)`` or LIGHTHOUSE_TPU_CHAINS=1
 / LIGHTHOUSE_TPU_WSM=1) runs every static-exponent chain as one launch of
 kernel 4 or 5 and each bit of the weight scalar muls as one launch of
@@ -44,6 +47,7 @@ from . import mont_kernel as MK
 from . import mxu_kernel as X
 from . import pairing as PR
 from . import points as P
+from . import program as PG
 from . import tower as T
 from . import wsm_kernel as W
 
@@ -220,6 +224,78 @@ class TorchBackend:
         self.device = device
         self.min_batch = min_batch
         self.device_h2c = device_h2c
+        # program key -> callable; key -> build record (fingerprint, and on
+        # the card the warm-up, capture and instantiate seconds, the
+        # launches counted at capture, the graph's nodes by type, memory)
+        self._programs = {}
+        self.builds = {}
+        self._pool = None  # the keys' shared graph memory pool, on the card
+
+    # -- the compiled program: one per key (jax_backend/backend.py:_kernel) -
+
+    def _program(self, B: int):
+        """The program for padded batch ``B`` under the arm in force, looked
+        up or made.  The key holds every gate the program reads while it is
+        traced: ``B``, ``device_h2c`` and the arm (the mxu plane as
+        ``fp.mxu_for_batch(B)`` resolves it, the chains and the fused scalar
+        muls), so flipping an arm never replays another arm's graph.  On the
+        card the program is a ``program.CapturedProgram`` (its first call
+        captures it; a failed capture raises, nothing falls back to the
+        eager program); on the CPU, the eager program with its arm pinned."""
+        chains, wsm, mxu = F.chains_active(), F.wsm_fused_active(), F.mxu_for_batch(B)
+        key = (B, self.device_h2c, mxu, chains, wsm)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        fn = self.local_verify_fn()
+        rec = {"fingerprint": PG.program_fingerprint(
+            fn.__name__, self.device, B=B, device_h2c=self.device_h2c, mxu=mxu,
+            chains=chains, wsm=wsm)}
+        arm = (chains, wsm, mxu)
+        if self.device.type == "cuda":
+            if self._pool is None:
+                self._pool = PG.GraphPool(self.device)
+            prog = PG.CapturedProgram(fn, key, arm, self._pool, rec, launch_counts)
+        else:
+            device = self.device
+
+            def prog(*host_args):
+                args = _to_device(host_args, device)
+                with torch.inference_mode(), F.pinned_arm(*arm):
+                    return fn(*args)
+
+        self._programs[key] = prog
+        self.builds[key] = rec
+        return prog
+
+    def warm_compile(self, B: int) -> bool:
+        """Build the program for padded size ``B`` ahead of traffic (on the
+        card: warm-up, capture, instantiate) from one probe set, marshalled
+        once and tiled along the batch axis (every operand is batch-last),
+        through the same ``_program`` path as traffic.  False for a size
+        that is no padded batch size (below ``min_batch`` or not a power of
+        two), as in the reference."""
+        from ..api import SecretKey, SignatureSet
+
+        if B < self.min_batch or B & (B - 1):
+            return False
+        sk = SecretKey(2)
+        msg = b"lighthouse-tpu warm-compile probe"
+        s = SignatureSet(sk.sign(msg), [sk.public_key()], msg)
+        mb = self.marshal_sets([s], weights=[1])
+        if mb.invalid:
+            return False
+        reps = B // mb.B
+        args = PG.map_operands(lambda t, _: t.repeat(*([1] * (t.dim() - 1)), reps), mb.args)
+        self._program(B)(*args)
+        return True
+
+    def local_verify_fn(self):
+        """The raw device program (``_verify_kernel_h2c`` or
+        ``_verify_kernel``), run eagerly on operands already on the device:
+        the graph's comparison on the card, and the seam for a sharded
+        program (jax_backend/backend.py:local_verify_fn)."""
+        return _verify_kernel_h2c if self.device_h2c else _verify_kernel
 
     # -- single-set conveniences over the batch path ----------------------
 
@@ -302,27 +378,25 @@ class TorchBackend:
         return MarshalledBatch(n, B, self.device_h2c, args)
 
     def dispatch(self, mb: MarshalledBatch):
-        """Device stage: copy the operands over and enqueue the program on
-        the current stream; returns the in-flight verdict tensor without
-        waiting for it (nothing in the program synchronises the host).  The
-        arm is resolved for the padded batch (``fp.mxu_for_batch``: an
+        """Device stage: run the key's program on the batch and return the
+        in-flight verdict tensor without waiting for it.  On the card that
+        is the operands' copies into the graph's static inputs and one
+        replay, enqueued on the current stream (``program.CapturedProgram``;
+        the key's first dispatch builds it); on the CPU the eager program.
+        The arm is resolved for the padded batch (``fp.mxu_for_batch``: an
         override, else the installed plan, else the gate) and held around
-        the program, the previous override restored exactly
+        the program, the previous settings restored exactly
         (jax_backend/backend.py:_pin_mxu)."""
         if mb.invalid:
             return False
-        args = _to_device(mb.args, self.device)
-        fn = _verify_kernel_h2c if mb.device_h2c else _verify_kernel
-        prev = F.set_mxu(F.mxu_for_batch(mb.B))
-        try:
-            with torch.inference_mode():
-                return fn(*args)
-        finally:
-            F.set_mxu(prev)
+        return self._program(mb.B)(*mb.args)
 
     def resolve(self, handle) -> bool:
         """Wait for an in-flight dispatch and return the verdict."""
         return bool(handle)
+
+    def verify_marshalled(self, mb: MarshalledBatch) -> bool:
+        return False if mb.invalid else self.resolve(self.dispatch(mb))
 
     def _padded_size(self, n: int) -> int:
         """Next power-of-two batch size >= n."""

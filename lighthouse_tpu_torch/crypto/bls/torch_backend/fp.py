@@ -149,6 +149,12 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     for the stream to drain, which the device program must never do."""
     device = torch.device(device)
     if device.type == "cuda":
+        # A captured copy would read this pinned buffer again on every
+        # replay, long after PyTorch has handed it to someone else: every
+        # constant is uploaded by the warm-up run, before a capture.
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("upload: a host-to-device copy inside a CUDA graph capture "
+                               "(the warm-up run should have cached it)")
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
@@ -509,6 +515,22 @@ def mxu_for_batch(batch) -> bool:
 def mxu_active() -> bool:
     """The one gate for routing products to the 13-bit plane."""
     return mxu_enabled()
+
+
+@contextlib.contextmanager
+def pinned_arm(chains: bool, wsm: bool, mxu: bool):
+    """Hold the three gates at one arm inside the block (a program traced or
+    captured there is that arm's); the previous settings, the mxu override
+    included, are restored exactly."""
+    global _CHAINS_MODE, _WSM_MODE
+    prev = (_CHAINS_MODE, _WSM_MODE)
+    _CHAINS_MODE, _WSM_MODE = chains, wsm
+    prev_mxu = set_mxu(mxu)
+    try:
+        yield
+    finally:
+        _CHAINS_MODE, _WSM_MODE = prev
+        set_mxu(prev_mxu)
 
 
 # The fixpoint bound of a pow carry: 4.3 * 4.3 = 18.5 <= 2000 and

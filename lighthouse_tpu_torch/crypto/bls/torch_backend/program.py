@@ -1,0 +1,233 @@
+"""The compiled device program: one CUDA graph per program key.
+
+Port of the compiled-program layer of jax_backend/backend.py
+(``program_fingerprint``, ``traced_jit`` and the executables that
+``JaxBackend._kernel`` caches).  The reference never runs its device
+program op by op: ``jax.jit`` traces it once per key and every dispatch is
+one call of the executable.  Here the program is captured once per key
+into a CUDA graph, and a dispatch copies the marshalled operands into the
+graph's static input buffers and replays it: one ``cudaGraphLaunch``
+instead of a Python call per kernel.
+
+A key's first call builds it in three steps: static input buffers shaped
+like the operands (every leaf on the card, each LFp's bound kept), one
+warm-up run of the program on a side stream (which uploads and caches every
+device constant, sets the kernels' shared-memory attributes and loads their
+modules, none of which may happen inside a capture), then the capture under
+``torch.cuda.graph`` and the instantiation, each timed into the key's build
+record.  The kernel wrappers' launch counters tick during the warm-up and
+the capture and never on a replay.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import os
+import time
+
+import torch
+
+from . import fp as F
+
+
+def program_fingerprint(kernel: str, device, **attrs) -> str:
+    """Stable per-program fingerprint: the program's name, the key's
+    attributes, the PyTorch and CUDA versions and the device's name.  12 hex
+    characters, sha256-derived (jax_backend/backend.py:program_fingerprint)."""
+    device = torch.device(device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+    blob = json.dumps({"kernel": kernel, "torch": torch.__version__,
+                       "cuda": torch.version.cuda, "device": name, **attrs}, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]
+
+
+def map_operands(fn, tree):
+    """Apply ``fn(tensor, bound)`` to every leaf of an operand tree (LFp or
+    tensor leaves in tuples); LFp leaves come back as LFp."""
+    if isinstance(tree, F.LFp):
+        return F.LFp(fn(tree.limbs, tree.bound), tree.bound)
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, None)
+    return tuple(map_operands(fn, c) for c in tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, F.LFp):
+        return [(tree.limbs, tree.bound)]
+    if isinstance(tree, torch.Tensor):
+        return [(tree, None)]
+    return [leaf for c in tree for leaf in _leaves(c)]
+
+
+def _copy_into(static, host) -> None:
+    """Enqueue the copies of the host operands into the static buffers on the
+    current stream, from pinned memory and without a host sync.  The
+    operands must have the structure, shapes, dtypes and bounds the program
+    was captured with: the bounds are static in the captured program."""
+    dst, src = _leaves(static), _leaves(host)
+    if len(dst) != len(src):
+        raise ValueError(f"program operands: {len(src)} leaves, the program takes {len(dst)}")
+    for (d, d_bound), (s, s_bound) in zip(dst, src):
+        if d.shape != s.shape or d.dtype != s.dtype or d_bound != s_bound:
+            raise ValueError(f"program operand {tuple(s.shape)} {s.dtype} bound {s_bound}; "
+                             f"the program takes {tuple(d.shape)} {d.dtype} bound {d_bound}")
+    for (d, _), (s, _) in zip(dst, src):
+        if s.device.type == "cpu" and not s.is_pinned():
+            s = s.pin_memory()
+        d.copy_(s, non_blocking=True)
+
+
+# CUgraphNodeType (cuda.h)
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+               6: "wait_event", 7: "event_record", 8: "ext_semas_signal",
+               9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+               13: "conditional"}
+
+
+def graph_node_counts(graph: torch.cuda.CUDAGraph) -> dict:
+    """{node type: count} of a captured graph (kept with ``keep_graph``),
+    through libcuda's cuGraphGetNodes and cuGraphNodeGetType."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUresult {err}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts, kind = {}, ctypes.c_int()
+    for node in nodes:
+        check(lib.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        name = _NODE_TYPES.get(kind.value, str(kind.value))
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def _host_rss_bytes() -> int:
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class GraphPool:
+    """The memory pool every key of one backend captures into, and the event
+    recorded after the backend's last replay.  Keys share the pool, so a
+    replay's temporaries may lie where another key's were: every replay
+    waits for the one before it (an event, no host sync), whatever stream
+    it comes on, and each replay's static output is copied out right after
+    it, before another replay can run."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.handle = torch.cuda.graph_pool_handle()
+        self.last_replay: torch.cuda.Event | None = None
+
+    def reserved_bytes(self) -> int:
+        """Device memory the pool holds: the graphs' working set."""
+        segments = torch.cuda.memory._snapshot(self.device)["segments"]
+        return sum(seg["total_size"] for seg in segments
+                   if tuple(seg["segment_pool_id"]) == tuple(self.handle))
+
+
+class CapturedProgram:
+    """One key's captured program.  Calling it with the host operands of a
+    marshalled batch builds the graph on the first call, then copies the
+    operands into the static inputs, replays the graph and returns a fresh
+    copy of its one-element verdict tensor, all enqueued on the current
+    stream without waiting for the device.
+
+    Ordering: the input copies and the replay run on the caller's current
+    stream after the backend's previous replay (``GraphPool.last_replay``),
+    so dispatch N + 1 overwrites the static inputs only once replay N has
+    read them, and replays of keys sharing the pool never overlap, also
+    when dispatches come on different streams.  The returned tensor never
+    aliases the static output."""
+
+    def __init__(self, fn, key: tuple, arm: tuple, pool: GraphPool, record: dict, counts):
+        self.fn = fn
+        self.key = key
+        self.arm = arm  # (chains, wsm, mxu), held around warm-up and capture
+        self.pool = pool
+        self.record = record  # the key's build record, filled by the build
+        self.counts = counts  # the wrappers' launch counts (backend.launch_counts)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.static_in = None
+        self.static_out = None
+
+    def __call__(self, *host_args):
+        if self.graph is None:
+            self._build(host_args)
+        return self._replay(host_args)
+
+    def _replay(self, host_args):
+        stream = torch.cuda.current_stream(self.pool.device)
+        if self.pool.last_replay is not None:
+            stream.wait_event(self.pool.last_replay)
+        with torch.inference_mode():
+            _copy_into(self.static_in, host_args)
+            self.graph.replay()
+            out = self.static_out.clone()
+        done = torch.cuda.Event()
+        done.record(stream)
+        self.pool.last_replay = done
+        return out
+
+    def _build(self, host_args) -> None:
+        dev = self.pool.device
+        rec = self.record
+        self.static_in = map_operands(
+            lambda t, _: torch.empty(t.shape, dtype=t.dtype, device=dev), host_args)
+        main = torch.cuda.current_stream(dev)
+        if self.pool.last_replay is not None:
+            main.wait_event(self.pool.last_replay)
+        _copy_into(self.static_in, host_args)
+        # the warm-up: fills every cache of device constants and runs each
+        # kernel's one-time setup outside the capture (F.upload refuses a
+        # copy inside one)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side), torch.inference_mode(), F.pinned_arm(*self.arm):
+            self.fn(*self.static_in)
+        main.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        rec["warmup_s"] = time.perf_counter() - t0
+
+        before = self.counts()
+        rss0 = _host_rss_bytes()
+        torch.cuda.reset_peak_memory_stats(dev)
+        live0 = torch.cuda.memory_allocated(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool.handle), torch.inference_mode(), \
+                    F.pinned_arm(*self.arm):
+                out = self.fn(*self.static_in)
+        except Exception as exc:
+            raise RuntimeError(f"capture of program {self.key} failed: {exc}") from exc
+        rec["capture_s"] = time.perf_counter() - t0
+        rec["capture_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - live0
+        rec["pool_bytes"] = self.pool.reserved_bytes()
+        after = self.counts()
+        rec["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        rec["nodes"] = graph_node_counts(graph)
+        rec["capture_host_bytes"] = _host_rss_bytes() - rss0
+        rss0 = _host_rss_bytes()
+        free0 = torch.cuda.mem_get_info(dev)[0]
+        t0 = time.perf_counter()
+        try:
+            graph.instantiate()
+            torch.cuda.synchronize(dev)
+        except Exception as exc:
+            raise RuntimeError(f"instantiation of program {self.key} failed: {exc}") from exc
+        rec["instantiate_s"] = time.perf_counter() - t0
+        rec["instantiate_device_bytes"] = free0 - torch.cuda.mem_get_info(dev)[0]
+        rec["instantiate_host_bytes"] = _host_rss_bytes() - rss0
+        self.graph, self.static_out = graph, out

@@ -16,6 +16,10 @@ MXU variants (kernel 7 mont_mul_mxu, the Miller steps and both chains on
 the 13-bit plane), each at a ragged width, byte for byte; kernel 6 in each
 curve's form (wsm_kernel.FORMS) also at 1, 33, 257 and 4,097 lanes.
 chip_smoke.py runs the same checks at the path's own widths and operands.
+
+The captured program (torch_backend/program.py) is held against the eager
+one at B = 8 under each arm, on the edge corpora of
+tests/test_torch_backend.py (built here from the same seeded specs).
 """
 
 import random
@@ -221,3 +225,92 @@ def test_cuda_wsm_forms_match_plain_versions():
             got, ref = kern(*args), plain(*args)
             assert all(torch.equal(g, r) for g, r in zip(got, ref)), (nc, w)
     torch.cuda.synchronize()
+
+
+def _graph_corpora():
+    """The seeded corpora of tests/test_torch_backend.py, in the port's api,
+    and a signature on the curve outside the subgroup."""
+    from lighthouse_tpu_torch.crypto.bls import api, params
+    from lighthouse_tpu_torch.crypto.bls.curve import B2, Fp2, g2_subgroup_check
+
+    def spec(corpus):
+        rng = random.Random(corpus)
+        out = []
+        for _ in range(4):
+            sk = rng.randrange(2, 10**12)
+            out.append(([sk], rng.randbytes(32), sk, False))
+        multi = [rng.randrange(2, 10**12) for _ in range(3)]
+        out.append((multi, b"\x11" * 32, sum(multi), False))
+        if corpus == "one_invalid":
+            sks, msg, signer, neg = out[2]
+            out[2] = (sks, msg, signer + 1, neg)
+        elif corpus == "infinity_signature":
+            sks, msg, _, neg = out[1]
+            out[1] = (sks, msg, None, neg)
+        elif corpus == "aggregate_to_infinity":
+            sk = out[3][0][0]
+            out[3] = ([sk, sk], out[3][1], sk, True)
+        return out
+
+    def sets(corpus):
+        built = []
+        for sks, msg, signer, negate in spec(corpus):
+            keys = [api.SecretKey(k).public_key() for k in sks]
+            if negate:
+                x, y = keys[0].point
+                keys[1] = api.PublicKey((x, -y))
+            sig = (api.Signature.infinity() if signer is None
+                   else api.SecretKey(signer).sign(msg))
+            built.append(api.SignatureSet(sig, keys, msg))
+        return built
+
+    corpora = {c: sets(c) for c in ("valid", "one_invalid", "infinity_signature",
+                                    "aggregate_to_infinity")}
+    rng = random.Random(12)
+    while True:
+        x = Fp2(rng.randrange(params.P), rng.randrange(params.P))
+        y = (x.square() * x + B2).sqrt()
+        if y is not None and not g2_subgroup_check((x, y)):
+            break
+    good = corpora["valid"]
+    corpora["non_subgroup"] = good[1:] + [
+        api.SignatureSet(api.Signature((x, y)), good[0].signing_keys, good[0].message)]
+    return corpora
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["default", "arm", "mxu"])
+def test_cuda_graph_verdicts_match_eager(arm, monkeypatch):
+    """At B = 8: one build of the key, replays whose refreshed inputs flip
+    the verdict (valid, one invalid, valid), no launch counted on a replay,
+    and the eager program's verdicts on the same marshalled batches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+
+    monkeypatch.setattr(F, "_CHAINS_MODE", arm != "default")
+    monkeypatch.setattr(F, "_WSM_MODE", arm != "default")
+    monkeypatch.setattr(F, "_MXU_MODE", arm == "mxu")
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    assert bk.warm_compile(8)
+    (key,) = bk.builds
+    assert key == (8, True, arm == "mxu", arm != "default", arm != "default")
+    assert bk.builds[key]["nodes"]["kernel"] > 0
+    corpora = _graph_corpora()
+    order = ["valid", "one_invalid", "valid", "infinity_signature", "aggregate_to_infinity",
+             "non_subgroup"]
+    mbs = {c: bk.marshal_sets(sets) for c, sets in corpora.items()}
+    TB.reset_launch_counts()
+    handles = [bk.dispatch(mbs[c]) for c in order]  # all in flight before the first resolve
+    graph = [bk.resolve(h) for h in handles]
+    assert set(TB.launch_counts().values()) == {0}
+    assert list(bk.builds) == [key]
+    assert graph == [True, False, True, False, False, False]
+
+    def eager(mb):
+        if mb.invalid:
+            return False
+        with torch.inference_mode():
+            return bool(bk.local_verify_fn()(*TB._to_device(mb.args, bk.device)))
+
+    assert [eager(mbs[c]) for c in order] == graph

@@ -1,0 +1,160 @@
+"""The compiled-program layer of TorchBackend (torch_backend/program.py and
+backend.py's _program, warm_compile, dispatch, local_verify_fn and
+verify_marshalled) against jax_backend/backend.py's _kernel, warm_compile,
+program_fingerprint, local_verify_fn and verify_marshalled.
+
+On the CPU the program is the eager one, so these tests stub it where a real
+verify is not the point; the captured graph is tested on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+jax = pytest.importorskip("jax")
+
+from lighthouse_tpu.crypto.bls.jax_backend import backend as JB  # noqa: E402
+from lighthouse_tpu.crypto.bls.jax_backend import fp as JF  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls import api as tapi  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as F  # noqa: E402
+from lighthouse_tpu_torch.crypto.bls.torch_backend import program as PG  # noqa: E402
+
+
+@pytest.fixture
+def gates(monkeypatch):
+    """The port's three arm gates, off, and restored after the test."""
+    monkeypatch.setattr(F, "_CHAINS_MODE", False)
+    monkeypatch.setattr(F, "_WSM_MODE", False)
+    monkeypatch.setattr(F, "_MXU_MODE", False)
+    monkeypatch.setattr(F, "_MXU_PLAN", None)
+
+
+@pytest.fixture
+def stub(monkeypatch, gates):
+    """Both device programs replaced by a recorder of their operands and of
+    the arm in force while they run; the verdict is True."""
+    calls = []
+    for name in ("_verify_kernel_h2c", "_verify_kernel"):
+        def program(*args):
+            calls.append({"args": args, "arm": (F.chains_active(), F.wsm_fused_active(),
+                                                F.mxu_active())})
+            return torch.ones((1,), dtype=torch.bool)
+
+        program.__name__ = name
+        monkeypatch.setattr(TB, name, program)
+    return calls
+
+
+@pytest.mark.parametrize("B", [0, 4, 12, 24])
+def test_warm_compile_refuses_what_the_reference_refuses(stub, B):
+    """Below min_batch or not a power of two: False before any build."""
+    assert JB.JaxBackend(min_batch=8).warm_compile(B) is False
+    bk = TB.TorchBackend(device="cpu", min_batch=8)
+    assert bk.warm_compile(B) is False
+    assert bk.builds == {} and stub == []
+
+
+@pytest.mark.parametrize("B", [8, 16])
+def test_warm_compile_builds_the_key_from_the_tiled_probe(stub, B):
+    bk = TB.TorchBackend(device="cpu", min_batch=8)
+    assert bk.warm_compile(B) is True
+    assert list(bk.builds) == [(B, True, False, False, False)]
+    (call,) = stub
+    pk_x, wbits = call["args"][0][0].limbs, call["args"][-1]
+    assert pk_x.shape == (F.N, B) and wbits.shape == (64, B)
+    assert torch.equal(pk_x, pk_x[:, :1].expand(F.N, B))  # one probe set, tiled
+    assert torch.equal(wbits[:-1].sum(0), torch.zeros(B, dtype=wbits.dtype))  # weight 1
+    assert call["arm"] == (False, False, False)
+    assert bk.warm_compile(B) is True and len(bk.builds) == 1  # the key is reused
+
+
+def _flip(gate):
+    {"chains": F.set_chains, "wsm": F.set_wsm, "mxu": F.set_mxu}[gate](True)
+
+
+@pytest.mark.parametrize("gate", ["chains", "wsm", "mxu"])
+def test_each_arm_gate_gives_a_new_key_and_fingerprint(stub, gate):
+    bk = TB.TorchBackend(device="cpu", min_batch=8)
+    first = bk._program(8)
+    assert bk._program(8) is first and len(bk.builds) == 1
+    _flip(gate)
+    second = bk._program(8)
+    assert second is not first and len(bk.builds) == 2
+    (k0, r0), (k1, r1) = bk.builds.items()
+    assert k0[:2] == k1[:2] == (8, True) and k0 != k1
+    assert r0["fingerprint"] != r1["fingerprint"]
+    # the program runs under its key's arm, whatever the gates say later
+    F.set_chains(False), F.set_wsm(False), F.set_mxu(False)
+    second(*bk.marshal_sets(_signed_sets(1), weights=[3]).args)
+    assert stub[-1]["arm"] == (gate == "chains", gate == "wsm", gate == "mxu")
+    assert (F.chains_active(), F.wsm_fused_active(), F.mxu_active()) == (False,) * 3
+
+
+def test_the_reference_key_misses_chains_and_wsm(monkeypatch, gates):
+    """A finding about the reference, pinned so that the port does not
+    repeat it: JaxBackend._kernel keys its executables on (B, device_h2c,
+    mxu) only, while fp.chains_active() and fp.wsm_fused_active() are read
+    when the program is traced, so flipping set_chains or set_wsm after a
+    key is built reuses the other arm's executable.  The port's key holds
+    both (test above)."""
+    monkeypatch.setattr(JF, "_CHAINS_MODE", False)
+    monkeypatch.setattr(JF, "_WSM_MODE", False)
+    monkeypatch.setattr(JB, "traced_jit", lambda fn, fp_hex, **kw: object())
+    jb = JB.JaxBackend(min_batch=8, device_h2c=False)
+    first = jb._kernel(8)
+    JF.set_chains(True)
+    JF.set_wsm(True)
+    assert jb._kernel(8) is first and list(jb._kernels) == [(8, False, False)]
+
+
+def test_program_fingerprint_is_stable_and_tells_keys_apart():
+    base = dict(B=8, device_h2c=True, mxu=False, chains=False, wsm=False)
+    fp = PG.program_fingerprint("_verify_kernel_h2c", "cpu", **base)
+    assert len(fp) == 12 and int(fp, 16) >= 0
+    assert fp == PG.program_fingerprint("_verify_kernel_h2c", "cpu", **base)
+    others = [PG.program_fingerprint("_verify_kernel_h2c", "cpu", **{**base, k: v})
+              for k, v in (("B", 16), ("device_h2c", False), ("mxu", True), ("chains", True),
+                           ("wsm", True))]
+    assert len({fp, *others}) == 6
+
+
+def _signed_sets(n):
+    sks = [tapi.SecretKey(1000 + i) for i in range(n)]
+    msg = b"\x42" * 32
+    return [tapi.SignatureSet(sk.sign(msg), [sk.public_key()], msg) for sk in sks]
+
+
+@pytest.mark.parametrize("device_h2c", [False, True])
+def test_local_verify_fn_and_verify_marshalled_as_in_the_reference(stub, device_h2c):
+    jb = JB.JaxBackend(min_batch=8, device_h2c=device_h2c)
+    bk = TB.TorchBackend(device="cpu", min_batch=8, device_h2c=device_h2c)
+    assert bk.local_verify_fn().__name__ == jb.local_verify_fn().__name__
+    assert bk.local_verify_fn() is (TB._verify_kernel_h2c if device_h2c else TB._verify_kernel)
+    # an invalid batch is False on the host, in both, without a program
+    assert jb.verify_marshalled(jb.marshal_sets([])) is False
+    assert bk.verify_marshalled(bk.marshal_sets([])) is False
+    assert bk.builds == {} and stub == []
+    # a valid batch goes through the key's program
+    assert bk.verify_marshalled(bk.marshal_sets(_signed_sets(2))) is True
+    assert len(stub) == 1 and list(bk.builds) == [(8, device_h2c, False, False, False)]
+
+
+def test_upload_refuses_a_copy_inside_a_capture(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        F.upload(torch.zeros((F.N, 1), dtype=F.DTYPE), "cuda")
+    assert torch.equal(F.upload(torch.ones(3), "cpu"), torch.ones(3))
+
+
+def test_static_inputs_take_only_the_captured_operands():
+    static = (F.LFp(torch.zeros((F.N, 8), dtype=F.DTYPE), 1.0), torch.zeros((64, 8)))
+    for bad in ((F.LFp(torch.zeros((F.N, 8), dtype=F.DTYPE), 2.0), torch.zeros((64, 8))),
+                (F.LFp(torch.zeros((F.N, 16), dtype=F.DTYPE), 1.0), torch.zeros((64, 8))),
+                (F.LFp(torch.zeros((F.N, 8), dtype=F.DTYPE), 1.0),),
+                (F.LFp(torch.zeros((F.N, 8), dtype=F.DTYPE), 1.0),
+                 torch.zeros((64, 8), dtype=F.DTYPE))):
+        with pytest.raises(ValueError, match="program"):
+            PG._copy_into(static, bad)
