@@ -67,6 +67,25 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    "error", all in flight before the first resolve: True, False, True,
    False, the eager verdicts on the same batches, no wrapper launch counted
    and no key built.
+   aggregate (aggregate_phase): TorchBackend.aggregate_verify through its
+   captured programs (n padded to a power of two, the padding lanes
+   masked), AGG_SIZES messages on the default arm and AGG_ARM_SIZE on the
+   other two: each key's build record, a replayed and an eager call timed,
+   True on a valid aggregate, False with the messages rotated and with one
+   message twice.
+   epoch (epoch_phase), for each arm: the mainnet-epoch batch at full shape
+   (EPOCH_SETS sets, committees of EPOCH_COMMITTEE in EPOCH_POSITIONS
+   positions, committee pubkeys summed on the card by the segment tree):
+   the eager program (valid under sync debug mode "error"; a member key
+   replaced; a padding flag cleared: True, False, False; its device kernels
+   from a profile), then epoch_program's build record (kernel nodes = those
+   device kernels, launches at capture = the eager ones) and the three
+   batches replayed, all in flight before the first resolve, with the same
+   verdicts; marshal (the tiled copy), dispatch and resolve seconds,
+   sets/s and validators/s.  On the default and mxu arms, kernels 1 and 7
+   on the tree's own operands at EPOCH_CHECK_WIDTHS and the widest call,
+   byte for byte against their plain versions (in chunks of PLAIN_CHUNK
+   lanes), and every width the program launches timed (epoch_widths).
 7. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches, queued while the card sleeps so that the host's
    wrapper time stays out.  mont_mul at every width of the default path
@@ -83,23 +102,26 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    in the kernels line); kernel 6 in each curve's form at the arm's 4,096
    lanes and at 16,384 (wsm_forms: the captured operands tiled); every other
    kernel on its arm's operands.
-8. path_timing: verifies of the three arms interleaved (default, arm, mxu,
-   mxu, arm, default), each through the eager program and the graph (eager
-   first in the first half, graph first in the second), with marshal,
+8. path_timing: one verify of each arm (TIMING_ORDER), each through the
+   eager program and the graph (eager first, graph first on the last arm),
+   with marshal,
    dispatch and resolve times and peak memory for each arm and path.
 9. profile: one more verify of each arm under torch.profiler, eager and
    replayed, giving the kernel launches (eager: DEVICE_KERNELS, counted from
    the runtime's launch records; a replay is one graph launch), every kernel
    the card ran and the share of the wall time the card was busy (a verify
    whose kernel records fall short of its kernels, as when the profiler
-   loses records, is profiled again, up to PROFILE_TRIES; if every try
-   falls short, the busy time and share are null: the lost records carry
-   time).  profile_stages: one eager verify of each of STAGE_ARMS with the
+   loses records, is profiled again, up to PROFILE_TRIES in all; if every
+   try falls short, the busy time and share are null: the lost records
+   carry time).  profile_stages: one eager verify of each of STAGE_ARMS with the
    CPU side traced too and the device program's stages (STAGES) as profiler
    ranges, giving each stage's device kernels and device time; "other" is
    the glue between the stages.
 
-Then the kernels line, the nvidia-smi line and the last line
+Then the kernels line (with each kernel's launches at capture per program
+and arm: the verify's, the aggregate's at AGG_ARM_SIZE messages and the
+epoch's; kernels 1 and 7 also timed at the epoch tree's widths), the
+nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
 """
@@ -113,6 +135,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 N_SETS = 4096  # BASELINE.json configs[2]: 4096 unaggregated attestations
 N_LANES = N_SETS + 1  # seeded-check width: the Miller loop's, sets + (-G1, S)
@@ -125,7 +148,9 @@ LONG_LAUNCHES = 10  # ... of a kernel of a millisecond or more
 PLAIN_LAUNCHES = 3  # back-to-back plain-version calls per window
 SLEEP_CYCLES = 50_000_000  # ~25 ms at 1980 MHz: covers the host queueing a window
 ARMS = ("default", "arm", "mxu")
-TIMING_ORDER = ("default", "arm", "mxu", "mxu", "arm", "default")  # interleaved path verifies
+# path verifies, one per arm and path (eager first, graph first on the last
+# arm): a second round would take the run past half its time limit
+TIMING_ORDER = ("default", "arm", "mxu")
 WSM_KEEP = (0, 1, 32, 63)  # WSM step calls whose operands are kept
 MONT_HEAVY = 3  # mont_mul widths of the default path timed: the most device time
 # mont_mul widths beyond the path's, as multiples of the check width, where
@@ -140,7 +165,10 @@ WSM_WIDE = 4  # kernel 6 is also timed at this many times the arm's width
 # the device kernels of the profiled verify
 WRAPPER_LAUNCHES = {"default": 25_925, "arm": 7_465, "mxu": 7_465}
 DEVICE_KERNELS = {"default": 303_366, "arm": 165_602, "mxu": 165_602}
-PROFILE_TRIES = 3  # profiled verifies per arm at most, until one loses no kernel record
+# profiled verifies per arm and path at most, until one loses no kernel record:
+# an eager try costs up to ~30 s, and most tries lose a few records whatever
+# their number
+PROFILE_TRIES = 1
 # the device program's stages, as (module name, function) pairs: the top-level
 # calls of backend._verify_kernel(_h2c); a stage called inside another counts
 # for the outer one
@@ -160,6 +188,23 @@ IMAD_PER_SM_CLK = 64  # 32-bit integer multiply-adds per SM per clock
 # FP64 tensor-core multiply-adds per SM per clock: the H100 SXM data sheet's
 # 67 TFLOP/s FP64 Tensor Core = 128 FMA x 2 x 132 SMs x 1,980 MHz
 DMMA_FMA_PER_SM_CLK = 128
+# aggregate_verify: message counts on the default arm, and on the other two
+AGG_SIZES = (1, 3, 64)
+AGG_ARM_SIZE = 64
+# the epoch batch: BASELINE.json config 4 at tools/epoch_attestation_bench.py's
+# defaults (2,048 sets, committees of 440 from a pool of 256 keys, padded to
+# 512 positions); EPOCH_DISTINCT sets are built on the host and tiled
+EPOCH_SETS = 2048
+EPOCH_COMMITTEE = 440
+EPOCH_POOL = 256
+EPOCH_POSITIONS = 512
+EPOCH_DISTINCT = 64
+EPOCH_BAD_MEMBER = (1031, 5)  # (set, position): a member key replaced
+EPOCH_BAD_PAD = (517, 500)  # (set, position past the committee): a padding flag cleared
+# product widths of the tree's first two levels, where kernels 1 and 7 are held
+# against their plain versions on the epoch's own operands (and the widest call)
+EPOCH_CHECK_WIDTHS = (524_288, 262_144)
+PLAIN_CHUNK = 131_072  # lanes per plain-version call in a wide check
 
 STEP_NAMES = ("miller_step_dbl", "miller_step_add")
 WSM_NAMES = ("wsm_step_g1", "wsm_step_g2")
@@ -404,6 +449,294 @@ def stage_summary(events) -> dict:
     return out
 
 
+def aggregate_phase(c):
+    """aggregate_verify on the card through its captured programs: AGG_SIZES
+    messages on the default arm, AGG_ARM_SIZE on the other two; for each,
+    the key's build record, a replayed and an eager call (through the
+    program function itself) timed, and True on the valid input, False with
+    the messages rotated and with one message twice.  Returns the launches
+    counted at capture by arm (the last key of each), or None on a
+    failure."""
+    torch, api, backend, bk, dev, smi, rng = c.torch, c.api, c.backend, c.bk, c.dev, c.smi, c.rng
+    set_arm, products = c.set_arm, c.products
+    from lighthouse_tpu_torch.crypto.bls.curve import Fp2 as CFp2, from_jacobian, jac_add, \
+        to_jacobian
+
+    def g2_sum(points):
+        acc = to_jacobian(None, CFp2)
+        for pt in points:
+            acc = jac_add(acc, to_jacobian(pt, CFp2), CFp2)
+        return from_jacobian(acc, CFp2)
+
+    n_agg = max(AGG_SIZES + (AGG_ARM_SIZE,)) + 1
+    agg_sks = [api.SecretKey(rng.randrange(1, api.params.R)) for _ in range(n_agg)]
+    agg_msgs = [rng.randbytes(32) for _ in range(n_agg)]
+    agg_pks = [sk.public_key() for sk in agg_sks]
+    agg_sigs = [sk.sign(m).point for sk, m in zip(agg_sks, agg_msgs)]
+    agg_counts = {}
+    for arm, n_msgs in [("default", k) for k in AGG_SIZES] + [("arm", AGG_ARM_SIZE),
+                                                               ("mxu", AGG_ARM_SIZE)]:
+        set_arm(arm)
+        sig = api.Signature(g2_sum(agg_sigs[:n_msgs]))
+        pks, msgs = agg_pks[:n_msgs], agg_msgs[:n_msgs]
+        if n_msgs > 1:  # messages rotated by one; the first message twice
+            bad = ((pks, msgs[1:] + msgs[:1], sig), (pks, msgs[:-1] + msgs[:1], sig))
+        else:  # another message; the signature over one message more
+            bad = ((pks, agg_msgs[1:2], sig), (pks, msgs, api.Signature(g2_sum(agg_sigs[:2]))))
+        t0 = time.perf_counter()
+        size, args = bk.marshal_aggregate(pks, msgs, sig)
+        marshal_s = time.perf_counter() - t0
+        backend.reset_launch_counts()
+        prog = bk._agg_program(size)
+        t0 = time.perf_counter()
+        verdict = bk.resolve(prog(*args))  # builds the key, then replays it
+        first_s = time.perf_counter() - t0
+        total = sum(backend.launch_counts().values())  # the warm-up's and the capture's
+        key = ("agg", size, arm == "mxu", arm != "default", arm != "default")
+        rec = bk.builds[key]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay_ok = bk.resolve(prog(*args))
+        replay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            eager_ok = bk.resolve(backend._aggregate_verify_kernel(*backend._to_device(args, dev)))
+        eager_s = time.perf_counter() - t0
+        verdicts = [verdict] + [bk.aggregate_verify(*b) for b in bad]
+        at_capture = agg_counts[arm] = {k: rec["launches"].get(k, 0) for k in KERNEL_NAMES}
+        emit({"phase": "aggregate", "arm": arm, "n": n_msgs, "key": key, "card": smi,
+              "verdicts": verdicts, "replay_verdict": replay_ok, "eager_verdict": eager_ok,
+              **{k: v for k, v in rec.items() if k != "launches"},
+              "launches_at_capture": at_capture,
+              "launches_at_capture_total": sum(at_capture.values()),
+              "launches_warm_up_and_capture": total, "marshal_s": marshal_s,
+              "build_and_first_call_s": first_s, "replay_s": replay_s, "eager_s": eager_s,
+              "keys_built": len(bk.builds)})
+        steps = [k + ("_mxu" if arm == "mxu" else "") for k in STEP_NAMES]
+        if (verdicts != [True, False, False] or replay_ok is not True or eager_ok is not True
+                or total != 2 * sum(at_capture.values())
+                or min(at_capture[k] for k in [products[arm]] + steps) <= 0):
+            emit({"phase": "aggregate", "arm": arm, "n": n_msgs, "error": "unexpected verdicts "
+                  "or launches"})
+            return None
+
+    return agg_counts
+
+
+def epoch_phase(c):
+    """The epoch batch on the card at full shape (EPOCH_SETS sets of
+    EPOCH_COMMITTEE members in EPOCH_POSITIONS positions, EPOCH_DISTINCT sets
+    tiled), under each arm: the eager program (valid under sync debug mode
+    "error", the two one-bad batches; device kernels from a profile), then
+    epoch_program's build record and the three batches replayed in flight,
+    True, False, False as the eager program, kernel nodes = the eager
+    device kernels, launches at capture = the eager launches; marshal,
+    dispatch and resolve of one more batch.  On the default and mxu arms,
+    kernels 1 and 7 on the tree's own operands (EPOCH_CHECK_WIDTHS and the
+    widest call, byte for byte) and every width the program launches, timed.
+    Returns (launches at capture by arm, the timed widths by kernel), or None
+    on a failure."""
+    torch, api, backend, bk, dev, smi = c.torch, c.api, c.backend, c.bk, c.dev, c.smi
+    set_arm, products, funcs, checked = c.set_arm, c.products, c.funcs, c.checked
+    max_abs_err, bound_ms, hash_to_g2 = c.max_abs_err, c.bound_ms, c.hash_to_g2
+    F, P, PG, MK, X = c.F, c.P, c.PG, c.MK, c.X
+    t0 = time.perf_counter()
+    pool_pts = [api.SecretKey(1000 + i).public_key().point for i in range(EPOCH_POOL)]
+    committees, ep_sigs, ep_hs = [], [], []
+    for s_ in range(EPOCH_DISTINCT):
+        members = [(s_ * 7 + j * 3) % EPOCH_POOL for j in range(EPOCH_COMMITTEE)]
+        committees.append([pool_pts[m] for m in members])
+        msg = s_.to_bytes(8, "big") * 4
+        ep_sigs.append(api.SecretKey(sum(1000 + m for m in members) % api.params.R)
+                       .sign(msg).point)
+        ep_hs.append(hash_to_g2(msg))
+    cpu = torch.device("cpu")
+    ep_pk, ep_mask = backend.encode_committee_pubkeys(committees, EPOCH_POSITIONS)
+    weights = [0x9E3779B97F4A7C15 ^ (i * 0x2545F4914F6CDD1D) or 1 for i in range(EPOCH_SETS)]
+    if any(w % 2**64 == 0 for w in weights):  # _pack_wbits keeps the low 64 bits
+        return None
+    ep_tail = (P.g2_encode(ep_sigs, cpu), P.g2_encode(ep_hs, cpu), backend._pack_wbits(weights))
+    reps = EPOCH_SETS // EPOCH_DISTINCT
+    bad_x, bad_y = P.g1_encode([api.SecretKey(31337).public_key().point], cpu)
+    setup_s = time.perf_counter() - t0
+
+    def tile_positions(t, _=None):
+        """(..., positions * DISTINCT) -> (..., positions * SETS): each
+        position's block of DISTINCT lanes repeated, so lane pos * SETS + set
+        holds committee set % DISTINCT's member at pos."""
+        lead = t.shape[:-1]
+        return (t.reshape(*lead, EPOCH_POSITIONS, 1, EPOCH_DISTINCT)
+                .expand(*lead, EPOCH_POSITIONS, reps, EPOCH_DISTINCT).reshape(*lead, -1)
+                .contiguous())
+
+    def epoch_marshal(corrupt=None):
+        """The epoch operands at full shape, as CPU tensors: the encoded
+        DISTINCT sets tiled to SETS (the sets' operands repeated), with one
+        member key replaced ("member") or one padding flag cleared ("pad")."""
+        pk = PG.map_operands(tile_positions, ep_pk)
+        pad = tile_positions(ep_mask)
+        if corrupt == "member":
+            s_, pos = EPOCH_BAD_MEMBER
+            pk[0].limbs[:, pos * EPOCH_SETS + s_] = bad_x.limbs[:, 0]
+            pk[1].limbs[:, pos * EPOCH_SETS + s_] = bad_y.limbs[:, 0]
+        elif corrupt == "pad":
+            s_, pos = EPOCH_BAD_PAD
+            pad[pos * EPOCH_SETS + s_] = False
+        tail = PG.map_operands(lambda t, _: t.repeat(*([1] * (t.dim() - 1)), reps), ep_tail[:2])
+        return (pk, pad, *tail, ep_tail[2])
+
+    t0 = time.perf_counter()
+    ep_batches = {"valid": epoch_marshal(), "bad_member": epoch_marshal("member"),
+                  "bad_pad": epoch_marshal("pad")}
+    emit({"phase": "epoch_setup", "sets": EPOCH_SETS, "committee": EPOCH_COMMITTEE,
+          "positions": EPOCH_POSITIONS, "pool": EPOCH_POOL, "distinct": EPOCH_DISTINCT,
+          "validators": EPOCH_SETS * EPOCH_COMMITTEE, "pk_lanes": ep_batches["valid"][1].numel(),
+          "bad_member": EPOCH_BAD_MEMBER, "bad_pad": EPOCH_BAD_PAD, "setup_s": setup_s,
+          "tile_s": (time.perf_counter() - t0) / 3})
+
+    def epoch_eager(args):
+        with torch.inference_mode():
+            return backend._epoch_verify_kernel(*backend._to_device(args, dev), EPOCH_POSITIONS)
+
+    def hold_wide(name, args):
+        """hold() for a wide call: the kernel on every lane, its plain version
+        PLAIN_CHUNK lanes at a time."""
+        wrapper, plain = funcs[name]
+        got = wrapper(*args)
+        eq, err = True, 0
+        for lo in range(0, args[0].shape[-1], PLAIN_CHUNK):
+            ref = plain(*(a[:, lo:lo + PLAIN_CHUNK].contiguous() for a in args))
+            part = [g[:, lo:lo + PLAIN_CHUNK] for g in got]
+            eq &= all(bool(torch.equal(g, r)) for g, r in zip(part, ref))
+            err = max(err, max_abs_err(part, ref))
+        torch.cuda.synchronize()
+        checked[name]["equal"] &= eq
+        checked[name]["max_abs_err"] = max(checked[name]["max_abs_err"], err)
+        return eq
+
+    ep_counts, epoch_widths = {}, {}
+    product_points = [(MK, "mont_mul", "mont_mul", 2, False),
+                      (X, "mont_mul_mxu", "mont_mul_mxu", 2, False)]
+    for arm in ARMS:
+        set_arm(arm)
+        name = products[arm]
+        # the eager program: the valid batch may only enqueue, the one-bad
+        # batches keep their products' operands (first call at each width)
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = epoch_eager(ep_batches["valid"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t1 = time.perf_counter()
+        eager = {"valid": bk.resolve(handle)}
+        eager_times = (t1 - t0, time.perf_counter() - t1)
+        eager_counts = backend.launch_counts()
+        eager_peak = torch.cuda.max_memory_allocated()
+        eager["bad_member"], ops, widths = capture_kernel_operands(
+            product_points, F.mxu_active, set(), lambda: bk.resolve(epoch_eager(
+                ep_batches["bad_member"])))
+        eager["bad_pad"] = bk.resolve(epoch_eager(ep_batches["bad_pad"]))
+        prof = profile_summary(*profile_trace(
+            torch, lambda: bk.resolve(epoch_eager(ep_batches["valid"]))))
+        # the program: build, then the three batches in flight
+        backend.reset_launch_counts()
+        prog = bk.epoch_program(EPOCH_SETS, EPOCH_POSITIONS)
+        t0 = time.perf_counter()
+        built_ok = bk.resolve(prog(*ep_batches["valid"]))
+        build_s = time.perf_counter() - t0
+        total = sum(backend.launch_counts().values())
+        key = ("epoch", EPOCH_SETS, EPOCH_POSITIONS, arm == "mxu",
+                             arm != "default", arm != "default")
+        rec = bk.builds[key]
+        at_capture = ep_counts[arm] = {k: rec["launches"].get(k, 0) for k in KERNEL_NAMES}
+        order = ("valid", "bad_member", "bad_pad")
+        n_keys = len(bk.builds)
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
+        try:
+            handles = [prog(*ep_batches[b]) for b in order]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t1 = time.perf_counter()
+        verdicts = [bk.resolve(h) for h in handles]  # all three in flight before the first
+        t2 = time.perf_counter()
+        replay_launches = sum(backend.launch_counts().values())
+        # one more valid batch: marshal (the tiled copy), dispatch, resolve
+        t_m = time.perf_counter()
+        args = epoch_marshal()
+        t3 = time.perf_counter()
+        handle = prog(*args)
+        t4 = time.perf_counter()
+        one_ok = bk.resolve(handle)
+        t5 = time.perf_counter()
+        del args
+        wall = t5 - t_m
+        emit({"phase": "epoch", "arm": arm, "key": key, "card": smi,
+              "eager_verdicts": [eager[b] for b in order], "verdicts": verdicts,
+              "batches": order, "build_verdict": built_ok, "timed_verdict": one_ok,
+              **{k: v for k, v in rec.items() if k != "launches"},
+              "launches_at_capture": at_capture,
+              "launches_at_capture_total": sum(at_capture.values()),
+              "launches_warm_up_and_capture": total, "eager_launches": eager_counts,
+              "eager_device_kernels": prof["device_kernels"], "eager_profile_wall_s":
+              prof["wall_s"], "eager_dispatch_s": eager_times[0],
+              "eager_resolve_s": eager_times[1], "eager_peak_gib": eager_peak / 2**30,
+              "build_and_first_call_s": build_s, "three_dispatch_s": t1 - t0,
+              "three_resolve_s": t2 - t1, "launches_on_replay": replay_launches,
+              "marshal_s": t3 - t_m, "dispatch_s": t4 - t3, "resolve_s": t5 - t4,
+              "sets_per_s": EPOCH_SETS / wall,
+              "validators_per_s": EPOCH_SETS * EPOCH_COMMITTEE / wall,
+              "device_sets_per_s": EPOCH_SETS / (t5 - t3),
+              "pool_gib": bk._pool.reserved_bytes() / 2**30, "keys_built": len(bk.builds)})
+        steps = [k + ("_mxu" if arm == "mxu" else "") for k in STEP_NAMES]
+        if not ([eager[b] for b in order] == verdicts == [True, False, False]
+                and built_ok is True and one_ok is True and replay_launches == 0
+                and len(bk.builds) == n_keys
+                and rec["nodes"].get("kernel") == prof["device_kernels"]
+                and at_capture == {k: eager_counts[k] for k in KERNEL_NAMES}
+                and total == 2 * sum(at_capture.values())
+                and min(at_capture[k] for k in [name] + steps) > 0):
+            emit({"phase": "epoch", "arm": arm, "error": "unexpected verdicts, build or "
+                  "launches"})
+            return None
+        if arm == "arm":
+            continue
+        # kernels 1 and 7 on the epoch's own operands: the tree's first two
+        # levels' widths and the widest call, byte for byte; then every width
+        # the epoch program launches, timed (calls x ms: its device time there)
+        kept, calls = ops[name], widths[name]
+        plane = F.N * 4
+        bound = (lambda w: bound_ms(3 * plane * w, MK.IMAD_PER_LANE * w)) if name == "mont_mul" \
+            else (lambda w: bound_ms(3 * plane * w, X.IMAD_PER_LANE * w, X.DMMA_FMA_PER_LANE * w))
+        form_of = MK.form_for if name == "mont_mul" else X.form_for
+        with torch.inference_mode():
+            check = sorted({*EPOCH_CHECK_WIDTHS, max(kept)}, reverse=True)
+            missing = [w for w in check if w not in kept]
+            eqs = {w: hold_wide(name, kept[w]) for w in check if w in kept}
+            emit({"phase": "epoch_kernel_check", "arm": arm, "kernel": name, "widths": check,
+                  "equal": eqs, "missing": missing, "plain_chunk": PLAIN_CHUNK})
+            if missing or not all(eqs.values()):
+                return None
+            ms = {w: time_ms(torch, lambda a=kept[w], k=funcs[name][0]: k(*a), KERNEL_LAUNCHES,
+                             queue_first=True, windows=SWEEP_WINDOWS) for w in sorted(kept)}
+        rows = sorted(({"n": w, "calls": calls[w], "ms": ms[w], "device_s": calls[w] * ms[w] / 1e3,
+                        "bound_ms": bound(w)[0], "form": form_of(w)} for w in kept),
+                      key=lambda r: -r["device_s"])
+        epoch_widths[name] = {"arm": arm, "calls": sum(calls.values()), "widths": len(calls),
+                              "device_s": sum(r["device_s"] for r in rows), "by_width": rows}
+        emit({"phase": "epoch_widths", "kernel": name, "card": smi, **epoch_widths[name]})
+        del kept, ops
+    del ep_batches
+    set_arm("default")
+    return ep_counts, epoch_widths
+
+
 def main() -> int:
     import torch
 
@@ -418,8 +751,8 @@ def main() -> int:
             hash_to_field_fp2, hash_to_g2)
         from lighthouse_tpu_torch.crypto.bls.torch_backend import (
             _build, backend, chain_kernel as CK, codegen, fp as F, h2c, miller_kernel as ML,
-            mont_kernel as MK, mxu_kernel as X, pairing as PR, points as P, tower as T,
-            wsm_kernel as W)
+            mont_kernel as MK, mxu_kernel as X, pairing as PR, points as P, program as PG,
+            tower as T, wsm_kernel as W)
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 2
@@ -850,6 +1183,21 @@ def main() -> int:
             return 1
     del marshalled
 
+    # -- aggregate_verify and the epoch batch, through their programs --------
+    ctx = types.SimpleNamespace(
+        torch=torch, api=api, backend=backend, bk=bk, dev=dev, smi=smi, rng=rng,
+        set_arm=set_arm, products=products, funcs=funcs, checked=checked,
+        max_abs_err=max_abs_err, bound_ms=bound_ms, hash_to_g2=hash_to_g2, F=F, P=P, PG=PG,
+        MK=MK, X=X)
+    agg_counts = aggregate_phase(ctx)
+    if agg_counts is None:
+        return 1
+    epoch = epoch_phase(ctx)
+    if epoch is None:
+        return 1
+    ep_counts, epoch_widths = epoch
+    built_keys = {key: rec["capture_s"] for key, rec in bk.builds.items()}  # with the new keys
+
     # -- the kernels on the path's own operands ----------------------------
     with torch.inference_mode():
         for arm in ARMS:
@@ -1148,8 +1496,14 @@ def main() -> int:
     home = {name: "mxu" if name in MXU_NAMES else "arm" for name in KERNEL_NAMES}
     out = []
     for name, rec in kernels.items():
-        out.append({"name": name, **rec, "launches": counts[home[name]][name],
-                    "launches_by_arm": {arm: counts[arm][name] for arm in ARMS}})
+        row = {"name": name, **rec, "launches": counts[home[name]][name],
+               "launches_by_arm": {arm: counts[arm][name] for arm in ARMS},
+               "launches_aggregate_by_arm": {arm: agg_counts[arm][name] for arm in ARMS},
+               "launches_epoch_by_arm": {arm: ep_counts[arm][name] for arm in ARMS}}
+        if name in epoch_widths:  # the epoch tree's widest calls
+            row["epoch_widths"] = [r for r in epoch_widths[name]["by_width"]
+                                   if r["n"] in EPOCH_CHECK_WIDTHS]
+        out.append(row)
     emit({"kernels": out})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -156,5 +156,31 @@ def get_backend():
     return _ACTIVE[0]
 
 
+# ---------------------------------------------------------------------------
+# The free functions of the reference client's ``bls::``, each routed to the
+# active backend (crypto/bls/api.py of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def verify(pubkey: PublicKey, msg: bytes, sig: Signature) -> bool:
+    return get_backend().verify(pubkey, msg, sig)
+
+
+def aggregate_verify(pubkeys, msgs, sig) -> bool:
+    return get_backend().aggregate_verify(pubkeys, msgs, sig)
+
+
+def fast_aggregate_verify(pubkeys, msg, sig) -> bool:
+    return get_backend().fast_aggregate_verify(pubkeys, msg, sig)
+
+
+def eth_fast_aggregate_verify(pubkeys, msg, sig) -> bool:
+    """The spec's variant: an infinity signature over no pubkeys is valid
+    (sync-committee verification)."""
+    if not pubkeys and sig.is_infinity():
+        return True
+    return fast_aggregate_verify(pubkeys, msg, sig)
+
+
 def verify_signature_sets(sets: list[SignatureSet]) -> bool:
     return get_backend().verify_signature_sets(sets)

@@ -1,9 +1,8 @@
 """The "torch" BLS backend: batched signature-set verification on the card.
 
-Port of jax_backend/backend.py (JaxBackend.verify_signature_sets and the
-device program _verify_kernel / _verify_kernel_h2c), the twin of blst's
-``verify_multiple_aggregate_signatures`` behind the reference client's
-verify_signature_sets (crypto/bls/src/impls/blst.rs:35-117):
+Port of jax_backend/backend.py (JaxBackend and its device programs), the
+twin of blst's ``verify_multiple_aggregate_signatures`` behind the reference
+client's verify_signature_sets (crypto/bls/src/impls/blst.rs:35-117):
 
   host:   per-set validation (empty sets, infinity signatures/pubkeys),
           pubkey aggregation, hashing to Fp2 (or full hash-to-curve),
@@ -27,12 +26,21 @@ kernel 6 per curve.  The MXU arm (``fp.set_mxu(True)``, LIGHTHOUSE_TPU_MXU=1
 or an installed plan, ``fp.install_mxu_plan``) runs every Montgomery
 product on the 13-bit plane: kernel 7 and the MXU variants of kernels 2-5,
 the WSM steps staying on the 15-bit core as in the reference.
+
+Two more device programs, keyed and captured the same way:
+``_aggregate_verify_kernel`` (``aggregate_verify``: distinct-message
+aggregate verification, blst.rs:244-255, on n padded to a power of two) and
+``_epoch_verify_kernel`` (``epoch_program``: committee pubkeys aggregated
+on the device by ``_segment_aggregate_g1``, then the batch verify; the
+mainnet-epoch attestation batch).
 """
 
 from __future__ import annotations
 
+import functools
 import secrets
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
@@ -40,6 +48,7 @@ import torch
 from .. import params
 from ..curve import Fp, G1_GENERATOR, affine_neg, from_jacobian, jac_add, to_jacobian
 from ..hash_to_curve import hash_to_field_fp2, hash_to_g2
+from ....utils import faults
 from . import chain_kernel as CK
 from . import fp as F
 from . import miller_kernel as ML
@@ -178,6 +187,82 @@ def _verify_kernel_h2c(pk_aff, sig_aff, u0, u1, wbits):
     return _verify_kernel(pk_aff, sig_aff, h2c.map_to_g2(u0, u1), wbits)
 
 
+def _segment_aggregate_g1(pk_aff, pad_inf, positions: int):
+    """Sum each set's committee pubkeys on the device.
+
+    Position-major layout: the trailing axis is positions * B, lane
+    ``pos * B + set``, so each level of the halving tree adds two contiguous
+    lane ranges with the complete ``jac_add`` (B lanes per position), log2
+    (positions) levels in all.  ``pad_inf`` marks absent members (lanes of
+    committees shorter than ``positions``): their lanes count as infinity,
+    the identity of the sum.  ``positions`` must be a power of two: the
+    reference halves with ``n // 2`` and so drops the last position of an
+    odd level; here such a ``positions`` raises."""
+    total = pad_inf.shape[-1]
+    if positions < 1 or positions & (positions - 1) or total % positions:
+        raise ValueError(f"positions must be a power of two dividing the {total} lanes, "
+                         f"not {positions}")
+    p = P.from_affine(P.FP_OPS, pk_aff)
+    p = (p[0], p[1], p[2], p[3] | pad_inf)
+    B = total // positions
+    n = positions
+    while n > 1:
+        half = n // 2
+        p = P.jac_add(P.FP_OPS, _slice_pt(p, 0, half * B), _slice_pt(p, half * B, n * B))
+        n = half
+    return p
+
+
+def _epoch_verify_kernel(pk_aff, pad_inf, sig_aff, h_aff, wbits, positions: int):
+    """The epoch batch program: committee aggregation on the device
+    (``_segment_aggregate_g1``), affinized, feeding ``_verify_kernel``
+    (host H(m) points, as in the reference)."""
+    agg = _segment_aggregate_g1(pk_aff, pad_inf, positions)
+    return _verify_kernel(P.to_affine(P.FP_OPS, agg, F.fp_inv), sig_aff, h_aff, wbits)
+
+
+def encode_committee_pubkeys(committees: list, positions: int):
+    """Host marshal of the epoch program's pubkey operand: committees
+    (ragged lists of oracle affine G1 points) -> position-major affine (x,
+    y) CPU tensors at lane ``pos * B + set`` and the (positions * B,) bool
+    padding mask.  Padding lanes hold the generator (any valid point) under
+    a True flag.  A committee longer than ``positions`` raises (the
+    reference drops its members past ``positions``)."""
+    B = len(committees)
+    if any(len(c) > positions for c in committees):
+        raise ValueError(f"a committee has more than {positions} members")
+    flat = []
+    mask = np.zeros(positions * B, dtype=bool)
+    for pos in range(positions):
+        for b, committee in enumerate(committees):
+            if pos < len(committee):
+                flat.append(committee[pos])
+            else:
+                flat.append(G1_GENERATOR)
+                mask[pos * B + b] = True
+    return P.g1_encode(flat, torch.device("cpu")), torch.as_tensor(mask)
+
+
+def _aggregate_verify_kernel(pk_aff, h_aff, sig_aff, pad=None):
+    """Distinct-message aggregate verification (blst.rs:244-255): one G2
+    subgroup check on the signature, then prod_i e(pk_i, H(m_i)) *
+    e(-G1, sig) == 1 with one final exponentiation; no weights.
+
+    pk_aff, h_aff: G1 and G2 affine batches, one lane per message; sig_aff:
+    the batch-1 G2 affine signature.  ``pad`` (bool, one per lane) marks
+    padding lanes, whose Miller values are set to one: n messages run in
+    the program of the next power of two."""
+    ok_sub = torch.all(P.g2_subgroup_check(sig_aff))
+    neg_gen = _neg_gen_const(sig_aff[0][0].limbs.device)
+    p_side = (_cat_lfp(pk_aff[0], neg_gen[0]), _cat_lfp(pk_aff[1], neg_gen[1]))
+    q_side = (_cat_lfp(h_aff[0], sig_aff[0]), _cat_lfp(h_aff[1], sig_aff[1]))
+    f = PR.miller_loop(p_side, q_side)
+    if pad is not None:
+        mask = torch.cat([pad, torch.zeros((1,), dtype=torch.bool, device=pad.device)])
+        f = T.fp12_select(mask, PR.fp12_one_like_from_fp2(q_side[0]), f)
+    return PR.final_exp_is_one(PR.gt_product(f)) & ok_sub
+
+
 def _pack_wbits(weights: list[int]) -> torch.Tensor:
     """(64, B) MSB-first weight bits, from two 32-bit halves."""
     w_hi = np.array([(w >> 32) & 0xFFFFFFFF for w in weights], dtype=np.uint32)
@@ -207,6 +292,9 @@ class MarshalledBatch:
     device_h2c: bool
     args: tuple = field(default=())
     invalid: bool = False
+    # registry mode: the (B,) validator-slot vector when the pubkey operand
+    # is gathered from a resident registry (args then exclude the pubkeys)
+    slots: Any = None
 
 
 class TorchBackend:
@@ -231,27 +319,59 @@ class TorchBackend:
         self.builds = {}
         self._pool = None  # the keys' shared graph memory pool, on the card
 
-    # -- the compiled program: one per key (jax_backend/backend.py:_kernel) -
+    # -- the compiled programs: one per key (jax_backend/backend.py:_kernel) -
 
     def _program(self, B: int):
-        """The program for padded batch ``B`` under the arm in force, looked
-        up or made.  The key holds every gate the program reads while it is
-        traced: ``B``, ``device_h2c`` and the arm (the mxu plane as
-        ``fp.mxu_for_batch(B)`` resolves it, the chains and the fused scalar
-        muls), so flipping an arm never replays another arm's graph.  On the
-        card the program is a ``program.CapturedProgram`` (its first call
-        captures it; a failed capture raises, nothing falls back to the
-        eager program); on the CPU, the eager program with its arm pinned."""
-        chains, wsm, mxu = F.chains_active(), F.wsm_fused_active(), F.mxu_for_batch(B)
-        key = (B, self.device_h2c, mxu, chains, wsm)
+        """The batch-verify program for padded batch ``B`` under the arm in
+        force, looked up or made.  Its key is (B, device_h2c, mxu, chains,
+        wsm): every gate the program reads while it is traced, the mxu plane
+        as ``fp.mxu_for_batch(B)`` resolves it, so flipping an arm never
+        replays another arm's graph."""
+        chains, wsm, mxu = arm = self._arm(B)
+        fn = self.local_verify_fn()
+        return self._keyed((B, self.device_h2c, mxu, chains, wsm), fn.__name__, fn, arm,
+                           B=B, device_h2c=self.device_h2c)
+
+    def _agg_program(self, n: int):
+        """The aggregate-verify program for ``n`` lanes (a power of two),
+        key ("agg", n, mxu, chains, wsm)."""
+        chains, wsm, mxu = arm = self._arm(n)
+        return self._keyed(("agg", n, mxu, chains, wsm), "_aggregate_verify_kernel",
+                           _aggregate_verify_kernel, arm, n=n)
+
+    def epoch_program(self, B: int, positions: int):
+        """The epoch batch program for ``B`` sets of ``positions`` committee
+        positions (a power of two), key ("epoch", B, positions, mxu, chains,
+        wsm): called with the operands (pk_aff, pad_inf, sig_aff, h_aff,
+        wbits) as CPU tensors, it returns the in-flight verdict
+        (``resolve`` waits for it).  The counterpart of the reference's
+        ``jax.jit(_epoch_verify_kernel, static_argnums=5)``, with
+        ``positions`` bound into the program."""
+        if positions < 1 or positions & (positions - 1):
+            raise ValueError(f"positions must be a power of two, not {positions}")
+        chains, wsm, mxu = arm = self._arm(B)
+        fn = functools.partial(_epoch_verify_kernel, positions=positions)
+        return self._keyed(("epoch", B, positions, mxu, chains, wsm), "_epoch_verify_kernel",
+                           fn, arm, B=B, positions=positions)
+
+    @staticmethod
+    def _arm(batch: int) -> tuple:
+        """(chains, wsm, mxu) in force for a program of ``batch`` lanes."""
+        return F.chains_active(), F.wsm_fused_active(), F.mxu_for_batch(batch)
+
+    def _keyed(self, key: tuple, name: str, fn, arm: tuple, **attrs):
+        """The program under ``key``, looked up or made from ``fn`` (the
+        eager device program, named ``name`` in its fingerprint with
+        ``attrs`` and the arm).  On the card a ``program.CapturedProgram``
+        (its first call captures it; a failed capture raises, nothing falls
+        back to the eager program); on the CPU the eager program with its
+        arm pinned."""
         prog = self._programs.get(key)
         if prog is not None:
             return prog
-        fn = self.local_verify_fn()
+        chains, wsm, mxu = arm
         rec = {"fingerprint": PG.program_fingerprint(
-            fn.__name__, self.device, B=B, device_h2c=self.device_h2c, mxu=mxu,
-            chains=chains, wsm=wsm)}
-        arm = (chains, wsm, mxu)
+            name, self.device, **attrs, mxu=mxu, chains=chains, wsm=wsm)}
         if self.device.type == "cuda":
             if self._pool is None:
                 self._pool = PG.GraphPool(self.device)
@@ -311,9 +431,50 @@ class TorchBackend:
             return False
         return self.verify_signature_sets([SignatureSet(sig, list(pubkeys), msg)])
 
+    def aggregate_verify(self, pubkeys, msgs, sig) -> bool:
+        """Distinct-message aggregate verification (blst.rs:244-255) on the
+        device: ``marshal_aggregate``, then the program of the padded size."""
+        marshalled = self.marshal_aggregate(pubkeys, msgs, sig)
+        if marshalled is None:
+            return False
+        size, args = marshalled
+        return self.resolve(self._agg_program(size)(*args))
+
+    def marshal_aggregate(self, pubkeys, msgs, sig):
+        """Host stage of ``aggregate_verify``: None where the reference
+        refuses on the host (no pubkeys or a length mismatch, an infinity
+        signature, an infinity key or hash), else (size, operands): the n
+        pairs, each message hashed to G2, padded to the next power of two
+        with repeats of pair 0 that the ``pad`` operand masks."""
+        if not pubkeys or len(pubkeys) != len(msgs):
+            return None
+        if sig.point is None:
+            return None
+        h_pts = [hash_to_g2(m) for m in msgs]
+        pk_pts = [pk.point for pk in pubkeys]
+        if any(p is None for p in pk_pts) or any(h is None for h in h_pts):
+            return None
+        n = len(pk_pts)
+        size = 1 << (n - 1).bit_length()
+        reps = size - n
+        host = torch.device("cpu")
+        return size, (P.g1_encode(pk_pts + [pk_pts[0]] * reps, host),
+                      P.g2_encode(h_pts + [h_pts[0]] * reps, host),
+                      P.g2_encode([sig.point], host),
+                      torch.arange(size) >= n)
+
+    @staticmethod
+    def registry_pk_wrap(x, y):
+        """Canonical Montgomery limb planes gathered from a pubkey registry
+        -> the program's pubkey operand (bound 1.0, as ``lfp_encode``'s)."""
+        return (F.LFp(x, 1.0), F.LFp(y, 1.0))
+
     # -- the batch path: verify == resolve(dispatch(marshal_sets)) ---------
 
     def verify_signature_sets(self, sets) -> bool:
+        # the chaos hook: device errors and hung devices are injected here,
+        # before the marshal (a no-op unless armed)
+        faults.fire("bls.device_verify")
         mb = self.marshal_sets(sets)
         if mb.invalid:
             return False

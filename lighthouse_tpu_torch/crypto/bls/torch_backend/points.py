@@ -278,6 +278,22 @@ def g2_encode(points, device) -> tuple:
             T.fp2_encode([p[1] for p in points], device))
 
 
+def g1_decode_jac(p) -> list:
+    """Jacobian G1 (X, Y, Z, inf) -> oracle affine points (None = inf)."""
+    from .. import curve as C
+    from .. import fields as O
+
+    Xs, Ys, Zs = F.decode_mont(p[0]), F.decode_mont(p[1]), F.decode_mont(p[2])
+    inf = p[3].reshape(-1).tolist()
+    out = []
+    for x, y, z, isinf in zip(Xs, Ys, Zs, inf):
+        if isinf or z == 0:
+            out.append(None)
+        else:
+            out.append(C.from_jacobian((O.Fp(x), O.Fp(y), O.Fp(z)), O.Fp))
+    return out
+
+
 def g2_decode_jac(p) -> list:
     """Jacobian G2 (X, Y, Z, inf) -> oracle affine points (None = inf)."""
     from .. import curve as C

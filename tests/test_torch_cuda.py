@@ -19,7 +19,9 @@ chip_smoke.py runs the same checks at the path's own widths and operands.
 
 The captured program (torch_backend/program.py) is held against the eager
 one at B = 8 under each arm, on the edge corpora of
-tests/test_torch_backend.py (built here from the same seeded specs).
+tests/test_torch_backend.py (built here from the same seeded specs), and
+the aggregate-verify and epoch graphs against their eager programs at small
+sizes under each arm.
 """
 
 import random
@@ -314,3 +316,77 @@ def test_cuda_graph_verdicts_match_eager(arm, monkeypatch):
             return bool(bk.local_verify_fn()(*TB._to_device(mb.args, bk.device)))
 
     assert [eager(mbs[c]) for c in order] == graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["default", "arm", "mxu"])
+def test_cuda_aggregate_and_epoch_graphs_match_eager(arm, monkeypatch):
+    """The aggregate-verify graph (three messages in the four-lane key) and
+    the epoch graph (B = 4, positions = 4): valid and corrupted inputs
+    dispatched in turn, one build per key, no launch counted on a replay,
+    and the eager programs' verdicts on the same operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    from lighthouse_tpu_torch.crypto.bls import api, params
+    from lighthouse_tpu_torch.crypto.bls.curve import Fp2, from_jacobian, jac_add, to_jacobian
+    from lighthouse_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import points as P
+
+    monkeypatch.setattr(F, "_CHAINS_MODE", arm != "default")
+    monkeypatch.setattr(F, "_WSM_MODE", arm != "default")
+    monkeypatch.setattr(F, "_MXU_MODE", arm == "mxu")
+    bk = TB.TorchBackend(device="cuda", min_batch=4)
+    cpu = torch.device("cpu")
+
+    def eager(fn, *args):
+        with torch.inference_mode():
+            return bool(fn(*TB._to_device(args, bk.device)))
+
+    # aggregate verify: n = 3 in the 4-lane graph
+    sks = [api.SecretKey(7000 + i) for i in range(3)]
+    msgs = [bytes([i + 1]) * 32 for i in range(3)]
+    acc = to_jacobian(None, Fp2)
+    for sk, m in zip(sks, msgs):
+        acc = jac_add(acc, to_jacobian(sk.sign(m).point, Fp2), Fp2)
+    sig = api.Signature(from_jacobian(acc, Fp2))
+    pks = [sk.public_key() for sk in sks]
+    TB.reset_launch_counts()
+    assert bk.aggregate_verify(pks, msgs, sig) is True
+    built = TB.launch_counts()
+    assert bk.aggregate_verify(pks, [msgs[1], msgs[0], msgs[2]], sig) is False
+    assert bk.aggregate_verify(pks, [msgs[0], msgs[0], msgs[2]], sig) is False
+    (key,) = bk.builds
+    assert key == ("agg", 4, arm == "mxu", arm != "default", arm != "default")
+    assert TB.launch_counts() == built and bk.builds[key]["nodes"]["kernel"] > 0
+    for order, want in (((0, 1, 2), True), ((1, 0, 2), False)):
+        h = [hash_to_g2(msgs[i]) for i in order]
+        args = (P.g1_encode([pk.point for pk in pks] + [pks[0].point], cpu),
+                P.g2_encode(h + h[:1], cpu), P.g2_encode([sig.point], cpu),
+                torch.tensor([False, False, False, True]))
+        assert eager(TB._aggregate_verify_kernel, *args) is want
+
+    # the epoch batch: B = 4 committees of 3, positions = 4
+    committees, sigs, hs = [], [], []
+    for s in range(4):
+        members = [(s * 7 + j * 3) % 8 for j in range(3)]
+        committees.append([api.SecretKey(1000 + m).public_key().point for m in members])
+        msg = s.to_bytes(8, "big") * 4
+        sigs.append(api.SecretKey(sum(1000 + m for m in members) % params.R).sign(msg).point)
+        hs.append(hash_to_g2(msg))
+    bad = [list(c) for c in committees]
+    bad[2][1] = api.SecretKey(31337).public_key().point
+    tail = (P.g2_encode(sigs, cpu), P.g2_encode(hs, cpu),
+            TB._pack_wbits([0x9E3779B97F4A7C15 ^ (i * 0x2545F4914F6CDD1D) or 1
+                            for i in range(4)]))
+    batches = [(*TB.encode_committee_pubkeys(c, 4), *tail) for c in (committees, bad, committees)]
+    prog = bk.epoch_program(4, 4)
+    prog(*batches[0])  # the build
+    TB.reset_launch_counts()
+    handles = [prog(*args) for args in batches]  # all in flight before the first resolve
+    graph = [bk.resolve(h) for h in handles]
+    assert graph == [True, False, True]
+    assert set(TB.launch_counts().values()) == {0}
+    assert len(bk.builds) == 2 and bk.epoch_program(4, 4) is prog
+    assert [eager(lambda *a: TB._epoch_verify_kernel(*a, 4), *args)
+            for args in batches] == graph

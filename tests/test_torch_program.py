@@ -158,3 +158,46 @@ def test_static_inputs_take_only_the_captured_operands():
                  torch.zeros((64, 8), dtype=F.DTYPE))):
         with pytest.raises(ValueError, match="program"):
             PG._copy_into(static, bad)
+
+
+_NEW_KEYS = {"agg": lambda bk: bk._agg_program(4), "epoch": lambda bk: bk.epoch_program(4, 8)}
+
+
+@pytest.mark.parametrize("program", sorted(_NEW_KEYS))
+@pytest.mark.parametrize("gate", ["chains", "wsm", "mxu"])
+def test_new_programs_key_on_the_arm_gates(gates, program, gate):
+    """The aggregate and epoch keys hold the three gates after their name and
+    static sizes, and each key gets its own fingerprint; the verify key
+    stays (B, device_h2c, mxu, chains, wsm).  Making a key runs nothing."""
+    bk = TB.TorchBackend(device="cpu", min_batch=4)
+    make = _NEW_KEYS[program]
+    first = make(bk)
+    assert make(bk) is first
+    bk._program(4)
+    _flip(gate)
+    assert make(bk) is not first
+    arms = [(False, False, False), (gate == "mxu", gate == "chains", gate == "wsm")]
+    sizes = (4,) if program == "agg" else (4, 8)
+    assert list(bk.builds) == [(program, *sizes, *arms[0]), (4, True, False, False, False),
+                               (program, *sizes, *arms[1])]
+    fps = [rec["fingerprint"] for rec in bk.builds.values()]
+    assert len(set(fps)) == 3
+
+
+def test_the_program_names_tell_the_keys_apart(gates):
+    bk = TB.TorchBackend(device="cpu", min_batch=4)
+    bk._agg_program(4), bk.epoch_program(4, 4), bk.epoch_program(4, 8), bk._program(4)
+    bk._agg_program(8)
+    assert len({rec["fingerprint"] for rec in bk.builds.values()}) == 5
+    with pytest.raises(ValueError, match="power of two"):
+        bk.epoch_program(4, 12)
+
+
+def test_registry_seams_as_in_the_reference():
+    limbs = torch.arange(F.N * 3, dtype=F.DTYPE).reshape(F.N, 3)
+    x, y = TB.TorchBackend.registry_pk_wrap(limbs, limbs + 1)
+    jx, jy = JB.JaxBackend.registry_pk_wrap(limbs.numpy(), limbs.numpy() + 1)
+    assert (x.bound, y.bound) == (float(jx.bound), float(jy.bound)) == (1.0, 1.0)
+    assert x.limbs is limbs and torch.equal(y.limbs, limbs + 1)
+    assert TB.MarshalledBatch(0, 0, True).slots is None
+    assert JB.MarshalledBatch(0, 0, True).slots is None
