@@ -86,6 +86,24 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    on the tree's own operands at EPOCH_CHECK_WIDTHS and the widest call,
    byte for byte against their plain versions (in chunks of PLAIN_CHUNK
    lanes), and every width the program launches timed (epoch_widths).
+   registry (registry_phase): the ingest engine (lighthouse_tpu_torch.ingest)
+   with the resident pubkey registry: REGISTRY_SLOTS distinct PublicKey
+   objects over the path pool's points synced into the cache (timed) and
+   mirrored on the card (upload timed, its bytes); N_SETS single-signer sets
+   at scattered slots marshalled with the gather on the card: the operand is
+   a card tensor, byte-equal to host assembly and to the scalar marshal; under
+   each arm through the key the program phase built, True, and False with
+   one signature swapped (no key built, no launch counted on a replay);
+   marshal seconds of the engine with the gather, with host assembly and of
+   the scalar marshal, on the tiled corpus and on N_SETS distinct messages
+   (marshal only; there also the engine through one thread per core, the
+   reference's pool default), and the gather's ms; INGEST_FALLBACKS
+   unchanged.
+   epoch_balance (epoch_balance_phase): the per-epoch balance pipeline
+   (per_epoch_torch) at BALANCE_VALIDATORS validators from seeded columns at
+   MAINNET values, finalizing and leaking: the card's output equals the
+   CPU run's exactly; upload, pipeline (median of BALANCE_RUNS) and
+   download ms.
 7. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches, queued while the card sleeps so that the host's
    wrapper time stays out.  mont_mul at every width of the default path
@@ -130,6 +148,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -205,6 +224,14 @@ EPOCH_BAD_PAD = (517, 500)  # (set, position past the committee): a padding flag
 # against their plain versions on the epoch's own operands (and the widest call)
 EPOCH_CHECK_WIDTHS = (524_288, 262_144)
 PLAIN_CHUNK = 131_072  # lanes per plain-version call in a wide check
+# the resident pubkey registry (ingest): mainnet's ~1M validators, rounded up
+REGISTRY_SLOTS = 2**20
+REGISTRY_BAD = N_SETS // 2 + 7  # the set whose signature is swapped
+MARSHAL_REPS = 3  # marshal timings per form; the median is kept
+GATHER_LAUNCHES = 50  # gathers per timing window
+# the epoch balance pipeline: validators, and the pipeline runs timed (median)
+BALANCE_VALIDATORS = 2**20
+BALANCE_RUNS = 5
 
 STEP_NAMES = ("miller_step_dbl", "miller_step_add")
 WSM_NAMES = ("wsm_step_g1", "wsm_step_g2")
@@ -737,6 +764,253 @@ def epoch_phase(c):
     return ep_counts, epoch_widths
 
 
+def registry_phase(c):
+    """The ingest engine with the resident registry: REGISTRY_SLOTS distinct
+    PublicKey objects over the path pool's points, synced into the cache and
+    mirrored on the card (timed; the mirror's bytes); N_SETS single-signer
+    sets whose keys sit at scattered slots, marshalled by the engine with
+    the gather on the card.  The gathered operand equals host assembly and
+    the scalar marshal byte for byte; under each arm, through the key the
+    program phase built, the batch gives True, and False with one signature
+    swapped (dispatch under sync debug mode "error", no key built, no
+    wrapper launch on a replay).  Marshal times: the engine with the gather,
+    with host assembly, and the scalar marshal, on the tiled corpus and on
+    N_SETS distinct messages under one signature (marshal only); the gather
+    timed alone.  INGEST_FALLBACKS must not move.  Returns True, or None on
+    a failure."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.ingest import IngestEngine, MarshalPool
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    torch, api, backend, bk, smi, rng = c.torch, c.api, c.backend, c.bk, c.smi, c.rng
+    f0 = M.INGEST_FALLBACKS.value()
+    singles = [s for s in c.pool if len(s.signing_keys) == 1]
+    points = [s.signing_keys[0].point for s in singles]
+    points += [pk.point for s in c.pool if len(s.signing_keys) > 1 for pk in s.signing_keys]
+
+    class Registry:  # the beacon ValidatorPubkeyCache's interface: len, get
+        def __init__(self, keys):
+            self.keys = keys
+
+        def __len__(self):
+            return len(self.keys)
+
+        def get(self, i):
+            return self.keys[i]
+
+    t0 = time.perf_counter()
+    reg = Registry([api.PublicKey(points[i % len(points)]) for i in range(REGISTRY_SLOTS)])
+    keys_s = time.perf_counter() - t0
+    eng = IngestEngine(bk, pubkey_cache=reg)  # device_gather: on, the backend is on the card
+    host = IngestEngine(bk, pubkey_cache=reg, device_gather=False, cache=eng.cache)
+    t0 = time.perf_counter()
+    synced = eng.cache.sync_registry(reg)
+    sync_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mirror = eng.cache.registry_device()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    mirror_bytes = torch.cuda.memory_allocated() - mem0
+    # set j: single pool set j % len(singles), its key at a scattered slot
+    # (slot == the point's index mod len(points), drawn without repeats)
+    per_point = REGISTRY_SLOTS // len(points)
+    draws = rng.sample(range(per_point), N_SETS)
+    slots = [j % len(singles) + len(points) * draws[j] for j in range(N_SETS)]
+    sets = [api.SignatureSet(singles[j % len(singles)].signature, [reg.get(slots[j])],
+                             singles[j % len(singles)].message) for j in range(N_SETS)]
+    bad = list(sets)
+    other = singles[(REGISTRY_BAD + 1) % len(singles)].signature
+    bad[REGISTRY_BAD] = api.SignatureSet(other, sets[REGISTRY_BAD].signing_keys,
+                                         sets[REGISTRY_BAD].message)
+    weights = [rng.getrandbits(64) | 1 for _ in range(N_SETS)]
+    mb = eng.marshal_sets(sets, weights)
+    ref_host = host.marshal_sets(sets, weights)
+    ref_scalar = bk.marshal_sets(sets, weights)
+    pk = mb.args[0] if not mb.invalid else ()
+    gathered = (len(pk) == 2 and all(x.limbs.device.type == "cuda" for x in pk)
+                and isinstance(mb.ready, torch.cuda.Event) and mb.slots is None)
+    torch.cuda.synchronize()
+
+    def cpu_leaves(args):
+        if isinstance(args, c.F.LFp):
+            return [(args.limbs.cpu(), args.bound)]
+        if isinstance(args, torch.Tensor):
+            return [(args.cpu(), None)]
+        return [leaf for a in args for leaf in cpu_leaves(a)]
+
+    def same(a, b):
+        la, lb = cpu_leaves(a.args), cpu_leaves(b.args)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and x.shape == y.shape and bx == by and torch.equal(x, y)
+            for (x, bx), (y, by) in zip(la, lb))
+
+    equal = {"host_assembly": same(mb, ref_host), "scalar_marshal": same(mb, ref_scalar)}
+    mb_bad = eng.marshal_sets(bad)
+    del ref_host, ref_scalar
+    verdicts, builds = {}, {key: rec["capture_s"] for key, rec in bk.builds.items()}
+    launches = 0
+    for arm in ARMS:
+        c.set_arm(arm)
+        backend.reset_launch_counts()  # the counts just before the registry path
+        torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
+        try:
+            handles = [bk.dispatch(b) for b in (mb, mb_bad)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        verdicts[arm] = [bk.resolve(h) for h in handles]  # both in flight first
+        launches += sum(backend.launch_counts().values())  # read just after: a replay
+    c.set_arm("default")
+    rebuilt = {key: rec["capture_s"] for key, rec in bk.builds.items()} != builds
+
+    def median_s(fn):
+        runs = []
+        for _ in range(MARSHAL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append(time.perf_counter() - t0)
+        return statistics.median(runs), out
+
+    # the tiled corpus (len(singles) distinct messages), then N_SETS distinct
+    # messages under one signature: marshal only
+    distinct = [api.SignatureSet(singles[0].signature, s.signing_keys, b"distinct %d" % j)
+                for j, s in enumerate(sets)]
+    timings = {}
+    for corpus, batch in (("tiled", sets), ("distinct", distinct)):
+        row = {}
+        row["engine_gather_s"], out = median_s(lambda b=batch: eng.marshal_sets(b))
+        # the same, until the gather has run on the card
+        row["engine_gather_ready_s"], _ = median_s(
+            lambda b=batch: (eng.marshal_sets(b), torch.cuda.synchronize())[0])
+        row["engine_host_s"], out_h = median_s(lambda b=batch: host.marshal_sets(b))
+        row["scalar_s"], out_s = median_s(lambda b=batch: bk.marshal_sets(b))
+        row["ok"] = not (out.invalid or out_h.invalid or out_s.invalid)
+        row["scalar_over_engine_gather"] = row["scalar_s"] / row["engine_gather_s"]
+        timings[corpus] = row
+    # the reference's default pool, one thread per core, on the distinct
+    # messages (once: the shards queue on the GIL)
+    threads = os.cpu_count() or 1
+    pooled = IngestEngine(bk, pubkey_cache=reg, cache=eng.cache,
+                          pool=MarshalPool(workers=threads))
+    t0 = time.perf_counter()
+    out_p = pooled.marshal_sets(distinct)
+    timings["distinct"].update(threads=threads, shards=pooled.pool.shard_count(N_SETS),
+                               engine_gather_threads_s=time.perf_counter() - t0)
+    timings["distinct"]["ok"] &= not out_p.invalid
+    pooled.close()
+    slot_arr = np.asarray(slots, dtype=np.int64)
+    dev_slots = torch.as_tensor(slot_arr, device=c.dev)
+    gather_ms = time_ms(torch, lambda: eng.cache.gather_device(slot_arr), GATHER_LAUNCHES)
+    select_ms = time_ms(torch, lambda: (mirror[0].index_select(1, dev_slots),
+                                        mirror[1].index_select(1, dev_slots)),
+                        GATHER_LAUNCHES, queue_first=True)
+    gather_bytes = 2 * (2 * c.F.N * 4 * N_SETS) + 8 * N_SETS  # read + write, the slots
+    fallbacks = M.INGEST_FALLBACKS.value() - f0
+    emit({"phase": "registry", "card": smi, "slots": REGISTRY_SLOTS, "points": len(points),
+          "synced": synced, "keys_s": keys_s, "sync_s": sync_s, "upload_s": upload_s,
+          "mirror_bytes": mirror_bytes, "mirror_bytes_expected": eng.cache.device_bytes(),
+          "sets": N_SETS, "distinct_slots": len(set(slots)), "gathered_on_card": gathered,
+          "equal": equal, "verdicts": verdicts, "bad_set": REGISTRY_BAD,
+          "launches_on_replay": launches, "rebuilt": rebuilt, "keys_built": len(bk.builds),
+          "marshal": timings, "gather_ms": gather_ms, "index_select_ms": select_ms,
+          "index_select_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+          "fallbacks": fallbacks})
+    ok = (synced == REGISTRY_SLOTS and gathered and all(equal.values())
+          and all(v == [True, False] for v in verdicts.values()) and len(verdicts) == 3
+          and launches == 0 and not rebuilt and fallbacks == 0
+          and mirror_bytes >= eng.cache.device_bytes()
+          and all(r["ok"] for r in timings.values()))
+    if not ok:
+        emit({"phase": "registry", "error": "a registry check failed"})
+        return None
+    eng.close()
+    return True
+
+
+def epoch_balance_phase(c):
+    """The epoch balance pipeline (per_epoch_torch) on the card at
+    BALANCE_VALIDATORS validators from seeded numpy columns at MAINNET values
+    (post-Bellatrix quotients), finalizing and leaking: the card's output
+    equals the CPU run's exactly, through the entry point and through the
+    kernel; upload, pipeline (median of BALANCE_RUNS) and download ms.
+    Returns True, or None on a failure."""
+    import numpy as np
+
+    from lighthouse_tpu_torch.consensus.state_processing import arrays as PA
+    from lighthouse_tpu_torch.consensus.state_processing import per_epoch_torch as PT
+
+    torch, smi = c.torch, c.smi
+    g = np.random.default_rng(SEED)
+    n = BALANCE_VALIDATORS
+    current, previous = 300_000, 299_999
+    eb = np.where(g.random(n) < 0.95, 32, g.integers(17, 32, n)).astype(np.int64) * 10**9
+    slashed = g.random(n) < 0.005
+    exiting = g.random(n) < 0.01
+    va = PA.ValidatorArrays(
+        effective_balance=eb,
+        slashed=slashed,
+        activation_eligibility_epoch=np.zeros(n, np.int64),
+        activation_epoch=np.where(g.random(n) < 0.01, PA.FAR,
+                                  g.integers(0, previous, n)).astype(np.int64),
+        exit_epoch=np.where(exiting, current + 5, PA.FAR).astype(np.int64),
+        withdrawable_epoch=np.where(
+            slashed, np.where(g.random(n) < 0.5, current + 4096, current + 100),
+            np.where(exiting, current + 261, PA.FAR)).astype(np.int64),
+        balances=np.maximum(eb + g.integers(-10**9, 10**9, n), 0).astype(np.int64),
+    )
+    flags = np.where(g.random(n) < 0.9, 7, g.integers(0, 8, n)).astype(np.int64)
+    scores = np.where(g.random(n) < 0.9, 0, g.integers(0, 100, n)).astype(np.int64)
+    kw = dict(multiplier=PT.BELLATRIX_SLASHING_MULTIPLIER,
+              inactivity_quotient=PT.BELLATRIX_INACTIVITY_QUOTIENT)
+    col_bytes = sum(np.asarray(x).nbytes for x in (
+        va.effective_balance, va.balances, flags, va.slashed, scores)) + 4 * n
+    out_bytes = 3 * 8 * n
+    rows = {}
+    for case, finalized in (("finalizing", previous - 1), ("leaking", previous - 10)):
+        args = (va, flags, scores, current, previous, finalized, 64 * 32 * 10**9, PT.MAINNET)
+        positional, static = PT.kernel_inputs(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = PT.upload(positional, c.dev)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        runs = []
+        with torch.inference_mode():
+            for _ in range(BALANCE_RUNS + 1):  # the first is a warm-up
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = PT.epoch_kernel(*on_card, **static)
+                end.record()
+                end.synchronize()
+                runs.append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            card = [x.cpu().numpy() for x in out]
+            download_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            cpu = [x.numpy() for x in PT.epoch_kernel(*PT.upload(positional, "cpu"), **static)]
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        entry = PT.epoch_balance_pipeline(*args, **kw)  # the entry point, on the card
+        equal = (all(np.array_equal(a, b) for a, b in zip(card, cpu))
+                 and all(np.array_equal(a, b) for a, b in zip(entry, cpu)))
+        moved = int((card[0] != va.balances).sum())
+        rows[case] = {"in_leak": bool(positional[10]), "equal": equal,
+                      "upload_ms": upload_ms, "pipeline_ms": statistics.median(runs[1:]),
+                      "pipeline_ms_each": runs[1:], "download_ms": download_ms,
+                      "host_cpu_ms": cpu_ms, "balances_moved": moved}
+    emit({"phase": "epoch_balance", "card": smi, "validators": n, **rows,
+          "bytes_moved": col_bytes + out_bytes,
+          "bound_ms": (col_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3})
+    if not (all(r["equal"] and r["balances_moved"] > 0 for r in rows.values())
+            and rows["leaking"]["in_leak"] and not rows["finalizing"]["in_leak"]):
+        emit({"phase": "epoch_balance", "error": "the card's output differs from the CPU's"})
+        return None
+    return True
+
+
 def main() -> int:
     import torch
 
@@ -1188,7 +1462,7 @@ def main() -> int:
         torch=torch, api=api, backend=backend, bk=bk, dev=dev, smi=smi, rng=rng,
         set_arm=set_arm, products=products, funcs=funcs, checked=checked,
         max_abs_err=max_abs_err, bound_ms=bound_ms, hash_to_g2=hash_to_g2, F=F, P=P, PG=PG,
-        MK=MK, X=X)
+        MK=MK, X=X, pool=pool)
     agg_counts = aggregate_phase(ctx)
     if agg_counts is None:
         return 1
@@ -1196,6 +1470,9 @@ def main() -> int:
     if epoch is None:
         return 1
     ep_counts, epoch_widths = epoch
+    # -- the ingest engine with the resident registry; the epoch balances -----
+    if registry_phase(ctx) is None or epoch_balance_phase(ctx) is None:
+        return 1
     built_keys = {key: rec["capture_s"] for key, rec in bk.builds.items()}  # with the new keys
 
     # -- the kernels on the path's own operands ----------------------------

@@ -284,17 +284,24 @@ def _to_device(x, device):
 @dataclass
 class MarshalledBatch:
     """Host-marshalled device operands for one padded batch.  ``args`` are
-    the positional operands of the device program, as CPU tensors;
-    ``invalid`` means host validation already rejected the batch."""
+    the positional operands of the device program, as CPU tensors (the
+    ingest engine's all-registry batch carries its pubkey operand gathered
+    on the device); ``invalid`` means host validation already rejected the
+    batch."""
 
     n: int  # real (unpadded) set count
     B: int  # padded batch size
     device_h2c: bool
     args: tuple = field(default=())
     invalid: bool = False
-    # registry mode: the (B,) validator-slot vector when the pubkey operand
-    # is gathered from a resident registry (args then exclude the pubkeys)
+    # registry mode (ingest marshal_for_mesh): the (B,) int32 validator-slot
+    # vector when the pubkey operand is deferred to a sharded program's
+    # registry gather; args then exclude the pubkeys, and only a mesh path
+    # may take the batch (``dispatch`` refuses it)
     slots: Any = None
+    # a CUDA event recorded after the operands made on the device at marshal
+    # time (the registry gather); dispatch's stream waits for it
+    ready: Any = None
 
 
 class TorchBackend:
@@ -547,9 +554,24 @@ class TorchBackend:
         The arm is resolved for the padded batch (``fp.mxu_for_batch``: an
         override, else the installed plan, else the gate) and held around
         the program, the previous settings restored exactly
-        (jax_backend/backend.py:_pin_mxu)."""
+        (jax_backend/backend.py:_pin_mxu).  A batch that carries registry
+        ``slots`` (``IngestEngine.marshal_for_mesh``) lacks its pubkey
+        operand and raises ``ValueError``: only a mesh path may take it."""
+        if mb.slots is not None:
+            raise ValueError("a MarshalledBatch with registry slots defers its pubkey "
+                             "operand to a sharded program's gather; only the mesh "
+                             "path may take it, not TorchBackend.dispatch")
         if mb.invalid:
             return False
+        if mb.ready is not None:
+            # operands gathered on the device, maybe on another stream: order
+            # this stream after the gather, and keep their memory from being
+            # reused on the gather's stream before this stream has read it
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(mb.ready)
+            for t, _ in PG._leaves(mb.args):
+                if t.device.type == "cuda":
+                    t.record_stream(stream)
         return self._program(mb.B)(*mb.args)
 
     def resolve(self, handle) -> bool:
@@ -557,7 +579,9 @@ class TorchBackend:
         return bool(handle)
 
     def verify_marshalled(self, mb: MarshalledBatch) -> bool:
-        return False if mb.invalid else self.resolve(self.dispatch(mb))
+        """The verdict of a marshalled batch (False for an invalid one); a
+        batch with registry slots raises ``ValueError``, as in ``dispatch``."""
+        return self.resolve(self.dispatch(mb))
 
     def _padded_size(self, n: int) -> int:
         """Next power-of-two batch size >= n."""

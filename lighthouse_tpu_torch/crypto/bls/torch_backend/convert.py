@@ -28,6 +28,21 @@ def operands_from_jax(args, device):
     return torch.as_tensor(np.asarray(args).astype(np.int32)).to(device)
 
 
+def registry_from_jax(x_cols, y_cols) -> tuple:
+    """The JAX cache's registry columns (numpy uint32 (26, n) planes, as
+    ``PubkeyLimbCache.registry_columns`` returns them) -> the port's int32
+    planes (``fp.DTYPE``), value for value: canonical limbs are below 2^15."""
+    out = []
+    for cols in (x_cols, y_cols):
+        arr = np.asarray(cols)
+        if arr.ndim != 2 or arr.shape[0] != F.N:
+            raise ValueError(f"registry columns must be ({F.N}, n), not {arr.shape}")
+        if arr.size and int(arr.max()) > F.MASK:
+            raise ValueError("registry columns hold a limb above 15 bits")
+        out.append(np.ascontiguousarray(arr.astype(np.int32)))
+    return tuple(out)
+
+
 def operands_to_numpy(args):
     """The port's operand tree -> nested tuples of (int64 limbs, bound)
     leaves and int64 arrays, for comparison with the JAX package's."""

@@ -1,1 +1,1 @@
-"""Host-side utilities of the port (the fault injector)."""
+"""Host-side utilities of the port (the fault injector, the ingest metrics)."""

@@ -3,10 +3,13 @@
 The port's own copy of the part of the JAX package's ``utils/faults.py``
 that its sites need.  A site is a string; code on a hot path calls
 ``fire(site)`` there, which is a no-op (one dict lookup) unless a fault is
-armed at the site.  The port's one site:
+armed at the site.  The port's sites:
 
   ``bls.device_verify``  the head of ``TorchBackend.verify_signature_sets``,
                          before the marshal: device errors, hung devices
+  ``ingest.marshal``     the head of ``IngestEngine.marshal_sets`` and
+                         ``marshal_for_mesh`` (ingest/engine.py): a failed
+                         vectorized marshal, which degrades to the scalar one
 
 Fault kinds:
 

@@ -21,7 +21,9 @@ The captured program (torch_backend/program.py) is held against the eager
 one at B = 8 under each arm, on the edge corpora of
 tests/test_torch_backend.py (built here from the same seeded specs), and
 the aggregate-verify and epoch graphs against their eager programs at small
-sizes under each arm.
+sizes under each arm.  The ingest engine's registry gather on the card
+equals host assembly (and dispatches through the B = 8 graph), and the epoch
+balance pipeline on the card equals its CPU run.
 """
 
 import random
@@ -390,3 +392,95 @@ def test_cuda_aggregate_and_epoch_graphs_match_eager(arm, monkeypatch):
     assert len(bk.builds) == 2 and bk.epoch_program(4, 4) is prog
     assert [eager(lambda *a: TB._epoch_verify_kernel(*a, 4), *args)
             for args in batches] == graph
+
+
+class _Registry:
+    """ValidatorPubkeyCache stand-in: index -> PublicKey."""
+
+    def __init__(self, keys):
+        self._keys = list(keys)
+
+    def __len__(self):
+        return len(self._keys)
+
+    def get(self, i):
+        return self._keys[i]
+
+
+@pytest.mark.cuda
+def test_cuda_registry_gather_matches_host_assembly():
+    """The ingest engine's all-registry batch on the card: the pubkey
+    operand gathered on the card (marshalled on a side stream, the batch
+    carrying the gather's event) equals host assembly and the scalar
+    marshal byte for byte, and dispatch through the B = 8 graph gives True,
+    and False with one signature swapped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+    from lighthouse_tpu_torch.ingest import IngestEngine
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    sks = [api.SecretKey(5000 + 7 * i) for i in range(40)]
+    keys = [sk.public_key() for sk in sks]
+    slots = [37, 2, 19, 0, 25, 11]
+    sets = [api.SignatureSet(sks[i].sign(b"reg %d" % i), [keys[i]], b"reg %d" % i)
+            for i in slots]
+    bad = list(sets)
+    bad[3] = api.SignatureSet(sks[5].sign(b"other"), [keys[slots[3]]], sets[3].message)
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    dev = IngestEngine(bk, pubkey_cache=_Registry(keys))
+    host = IngestEngine(bk, pubkey_cache=_Registry(keys), device_gather=False)
+    ws = [3 + i for i in range(len(sets))]
+    f0 = M.INGEST_FALLBACKS.value()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        mb = dev.marshal_sets(sets, ws)
+    want = host.marshal_sets(sets, ws)
+    scalar = bk.marshal_sets(sets, ws)
+    assert M.INGEST_FALLBACKS.value() == f0
+    assert isinstance(mb.ready, torch.cuda.Event)
+    pk = mb.args[0]
+    assert all(c.limbs.device.type == "cuda" and c.bound == 1.0 for c in pk)
+    torch.cuda.current_stream().wait_event(mb.ready)
+    for a, b, c in zip(pk, want.args[0], scalar.args[0]):
+        assert torch.equal(a.limbs.cpu(), b.limbs) and torch.equal(b.limbs, c.limbs)
+    assert dev.cache.device_bytes() == 2 * F.N * 4 * 40
+    TB.reset_launch_counts()
+    assert bk.resolve(bk.dispatch(mb)) is True  # builds the key, then replays
+    with torch.cuda.stream(side):
+        mb_bad = dev.marshal_sets(bad)
+    assert bk.resolve(bk.dispatch(mb_bad)) is False
+    assert len(bk.builds) == 1 and M.INGEST_FALLBACKS.value() == f0
+
+
+@pytest.mark.cuda
+def test_cuda_epoch_pipeline_matches_cpu():
+    """The epoch balance pipeline on the card equals its CPU run exactly, at
+    4,097 validators, finalizing and leaking."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    import numpy as np
+
+    from lighthouse_tpu_torch.consensus.state_processing import arrays as PA
+    from lighthouse_tpu_torch.consensus.state_processing import per_epoch_torch as PT
+
+    rng = np.random.default_rng(29)
+    n = 4097
+    va = PA.ValidatorArrays(
+        effective_balance=rng.integers(16, 33, n).astype(np.int64) * 10**9,
+        slashed=rng.random(n) < 0.05,
+        activation_eligibility_epoch=np.zeros(n, np.int64),
+        activation_epoch=np.where(rng.random(n) < 0.02, PA.FAR, 0).astype(np.int64),
+        exit_epoch=np.where(rng.random(n) < 0.02, 90, PA.FAR).astype(np.int64),
+        withdrawable_epoch=np.where(rng.random(n) < 0.5, 100 + 4096, PA.FAR).astype(np.int64),
+        balances=rng.integers(15 * 10**9, 34 * 10**9, n).astype(np.int64),
+    )
+    flags, scores = rng.integers(0, 8, n), rng.integers(0, 200, n)
+    for finalized in (98, 50):
+        args = (va, flags, scores, 100, 99, finalized, 512 * 10**9, PT.MAINNET)
+        kw = dict(multiplier=PT.BELLATRIX_SLASHING_MULTIPLIER,
+                  inactivity_quotient=PT.BELLATRIX_INACTIVITY_QUOTIENT)
+        card = PT.epoch_balance_pipeline(*args, **kw)  # the card by default
+        cpu = PT.epoch_balance_pipeline(*args, **kw, device="cpu")
+        assert all(np.array_equal(a, b) for a, b in zip(card, cpu))
