@@ -67,6 +67,24 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    "error", all in flight before the first resolve: True, False, True,
    False, the eager verdicts on the same batches, no wrapper launch counted
    and no key built.
+   boot (boot_phase): warm boot (torch_backend/aot.py, autotune.py,
+   backend.enable_compile_cache) into an AOT store in a temporary directory:
+   the arm plan tuned at autotune.CARD_SHAPES (each arm's trial ms, CUDA
+   events around back-to-back launches, and the winners); a first boot in
+   this process, a backend with the store attached building the verify key
+   of the plan's arm at N_SETS (chains and WSM off) and one aggregate key
+   (BOOT_AGG messages) from traffic, True, False, True, its launches at
+   capture (under mxu13 every product on kernel 7, 2m and 3m 63 each, no
+   chain and no WSM launch), the plan arm's kernels held byte for byte
+   against their plain versions on the key's own operands (an eager verify
+   under that arm), and one verify through the plan key against one through
+   the default arm's key in turns; a second boot in a fresh process
+   (``chip_smoke.py --second-boot``, second_boot): enable_compile_cache on
+   the same build root, prewarm (2 loaded, 0 rejected, 0 stale, 3 plan
+   shapes, no nvcc run, each key's build record), and the valid, one-bad and
+   aggregate batches, passed as saved host tensors, through the prewarmed
+   keys: True, False, True, no key built and no wrapper launch counted; the
+   host memory of both processes.
    aggregate (aggregate_phase): TorchBackend.aggregate_verify through its
    captured programs (n padded to a power of two, the padding lanes
    masked), AGG_SIZES messages on the default arm and AGG_ARM_SIZE on the
@@ -153,6 +171,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -225,6 +244,9 @@ EPOCH_BAD_PAD = (517, 500)  # (set, position past the committee): a padding flag
 EPOCH_CHECK_WIDTHS = (524_288, 262_144)
 PLAIN_CHUNK = 131_072  # lanes per plain-version call in a wide check
 # the resident pubkey registry (ingest): mainnet's ~1M validators, rounded up
+BOOT_AGG = 64  # the aggregate key the boot phase's first boot builds (messages)
+BOOT_SEED = SEED + 13  # the boot phase's own draws, so the later phases' stay as they were
+BOOT_CHILD_TIMEOUT_S = 600  # the second boot's process
 REGISTRY_SLOTS = 2**20
 REGISTRY_BAD = N_SETS // 2 + 7  # the set whose signature is swapped
 MARSHAL_REPS = 3  # marshal timings per form; the median is kept
@@ -476,6 +498,249 @@ def stage_summary(events) -> dict:
     return out
 
 
+def g2_sum(points):
+    """The oracle's sum of affine G2 points (the aggregate of signatures)."""
+    from lighthouse_tpu_torch.crypto.bls.curve import Fp2, from_jacobian, jac_add, to_jacobian
+
+    acc = to_jacobian(None, Fp2)
+    for pt in points:
+        acc = jac_add(acc, to_jacobian(pt, Fp2), Fp2)
+    return from_jacobian(acc, Fp2)
+
+
+def pack_operands(F, tree):
+    """An operand tree as lists of {"limbs", "bound"} and {"tensor"} leaves:
+    what torch.save writes with no class of the port, so that the second
+    boot reads it with ``weights_only``."""
+    if isinstance(tree, F.LFp):
+        return {"limbs": tree.limbs, "bound": float(tree.bound)}
+    if hasattr(tree, "shape"):
+        return {"tensor": tree}
+    return [pack_operands(F, c) for c in tree]
+
+
+def unpack_operands(F, tree):
+    if isinstance(tree, dict):
+        return F.LFp(tree["limbs"], tree["bound"]) if "limbs" in tree else tree["tensor"]
+    return tuple(unpack_operands(F, c) for c in tree)
+
+
+def boot_phase(c, mbs):
+    """Warm boot on the card (torch_backend/aot.py, autotune.py,
+    backend.enable_compile_cache), into a store in a temporary directory.
+    (a) tune: autotune.tune_and_store at CARD_SHAPES, each arm's trial ms per
+    shape and the winners.  (b) first boot, in this process: a TorchBackend
+    with the store attached verifies the valid and one-bad batches (``mbs``)
+    at N_SETS sets and aggregate-verifies BOOT_AGG messages, so the verify
+    key under the plan's arm (chains and WSM off) and one aggregate key are
+    built from traffic and captured into the store; the plan key's launches
+    at capture (on the mxu plane, when the plan picks mxu13: every product on
+    kernel 7, 2m and 3m 63 each, no chain and no WSM launch); an eager verify
+    under the plan's arm keeps the kernels' operands, and each is held byte
+    for byte against its plain version; one verify through the plan key
+    against one through the default arm's key, timed in turns.  (c) second
+    boot, in a fresh process (``--second-boot``): enable_compile_cache on this
+    process's build root, prewarm, the report (2 loaded, 0 rejected, 0 stale,
+    3 plan shapes), no nvcc run, and the valid, one-bad and aggregate batches
+    (saved host tensors) through the prewarmed keys: True, False, True, with
+    no key built and no wrapper launch counted.  Host memory of both
+    processes.  Returns True, or None on a failure."""
+    torch, api, backend, dev, smi, F, PG = c.torch, c.api, c.backend, c.dev, c.smi, c.F, c.PG
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import _build, aot, autotune
+
+    t_phase = time.perf_counter()
+    rng = random.Random(BOOT_SEED)
+    F.set_chains(False)
+    F.set_wsm(False)
+    F.set_mxu(None)  # no override: the plan routes the product plane
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_boot_") as tmp:
+        store = aot.AotStore(os.path.join(tmp, "aot_cache"))
+        # (a) tune
+        t0 = time.perf_counter()
+        plan = autotune.tune_and_store(store)
+        tune_s = time.perf_counter() - t0
+        plan_mxu = F.mxu_for_batch(N_SETS)
+        emit({"phase": "boot", "step": "tune", "card": smi, "seconds": tune_s,
+              "identity": {k: plan[k] for k in ("torch", "cuda", "device_kind", "source_hash")},
+              "trials_ms": {b: e["trials_ms"] for b, e in plan["shapes"].items()},
+              "winners": {b: e["arm"] for b, e in plan["shapes"].items()},
+              "plan_arm_at_n_sets": "mxu13" if plan_mxu else "vpu15"})
+        if sorted(map(int, plan["shapes"])) != sorted(autotune.CARD_SHAPES) \
+                or store.plan() != plan:
+            emit({"phase": "boot", "error": "the plan does not cover CARD_SHAPES or did not "
+                  "round-trip through the store"})
+            return None
+
+        # (b) first boot: the plan's keys built from traffic, captured into the store
+        key = (N_SETS, True, plan_mxu, False, False)
+        bk1 = backend.TorchBackend(device="cuda", device_h2c=True)
+        bk1.attach_aot_store(store)
+        rss0 = PG._host_rss_bytes()
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        verdicts = [bk1.resolve(bk1.dispatch(mbs["valid"]))]  # builds the key, replays it
+        build_and_first_s = time.perf_counter() - t0
+        verdicts.append(bk1.resolve(bk1.dispatch(mbs["one_bad"])))
+        at_capture = {k: bk1.builds[key]["launches"].get(k, 0) for k in KERNEL_NAMES}
+        sks = [api.SecretKey(rng.randrange(1, api.params.R)) for _ in range(BOOT_AGG)]
+        msgs = [rng.randbytes(32) for _ in range(BOOT_AGG)]
+        pks = [sk.public_key() for sk in sks]
+        agg_sig = api.Signature(g2_sum([sk.sign(m).point for sk, m in zip(sks, msgs)]))
+        verdicts.append(bk1.aggregate_verify(pks, msgs, agg_sig))
+        agg_size, agg_args = bk1.marshal_aggregate(pks, msgs, agg_sig)
+        agg_key = ("agg", agg_size, F.mxu_for_batch(agg_size), False, False)
+        entries = store.entries()
+        first_rss = PG._host_rss_bytes()
+        emit({"phase": "boot", "step": "first_boot", "card": smi, "key": key, "agg_key": agg_key,
+              "verdicts": verdicts, "build_and_first_verify_s": build_and_first_s,
+              "builds": {str(k): {f: v for f, v in rec.items() if f != "launches"}
+                         for k, rec in bk1.builds.items()},
+              "launches_at_capture": at_capture,
+              "launches_at_capture_total": sum(at_capture.values()),
+              "entries": sorted((m["cache_key"] for m in entries.values()), key=str),
+              "host_rss_gib": first_rss / 2**30,
+              "host_rss_added_gib": (first_rss - rss0) / 2**30})
+        plane, steps = (("mont_mul_mxu", ("miller_step_dbl_mxu", "miller_step_add_mxu"))
+                        if plan_mxu else ("mont_mul", ("miller_step_dbl", "miller_step_add")))
+        want = {name: 0 for name in KERNEL_NAMES if name != plane}
+        want.update({name: 63 for name in steps})
+        if (verdicts != [True, False, True] or at_capture[plane] <= 0
+                or any(at_capture[k] != v for k, v in want.items())
+                or sorted((m["cache_key"] for m in entries.values()), key=str)
+                != sorted([list(key), list(agg_key)], key=str)
+                or any(entries[rec["fingerprint"]]["cache_key"] != list(k)
+                       for k, rec in bk1.builds.items())):
+            emit({"phase": "boot", "error": "unexpected first boot: verdicts, launches at "
+                  "capture or store entries", "want_launches": want})
+            return None
+
+        # the plan key's kernels on its own operands: an eager verify under the
+        # plan's arm keeps them, each held byte for byte against its plain version
+        backend.reset_launch_counts()
+        with F.pinned_arm(False, False, plan_mxu):
+            bad_verdict, ops, widths = capture_kernel_operands(
+                c.entry_points, F.mxu_active, c.keep_steps,
+                lambda: bool(c.eager_dispatch(mbs["one_bad"])))
+        eager_counts = backend.launch_counts()
+        held = {}
+        with torch.inference_mode():
+            for name in (plane,) + steps:
+                held[name] = all(c.hold(name, args)[0] for args in ops[name].values())
+        emit({"phase": "boot", "step": "plan_key_kernels", "card": smi,
+              "arm": {"chains": False, "wsm": False, "mxu": plan_mxu},
+              "eager_verdict_one_bad": bad_verdict, "eager_launches_equal_capture":
+              eager_counts == at_capture,
+              "kernels": {name: {"equal": held[name], "kept": sorted(ops[name]),
+                                 "calls_by_width": dict(sorted(widths[name].items()))}
+                          for name in held}})
+        if bad_verdict is not False or eager_counts != at_capture or not all(held.values()):
+            emit({"phase": "boot", "error": "the plan key's kernels disagree with their plain "
+                  "versions, or its eager launches with those at capture"})
+            return None
+
+        # one verify through the plan key and one through the default arm's key
+        # (the program phase's), in turns: default, plan, plan, default
+        default_key = (N_SETS, True, False, False, False)
+        default_prog = c.bk._programs[default_key]
+        plan_prog = bk1._programs[key]
+        times = {"default": [], "plan": []}
+        for which in ("default", "plan", "plan", "default"):
+            prog = default_prog if which == "default" else plan_prog
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = bool(prog(*mbs["valid"].args))
+            times[which].append(time.perf_counter() - t0)
+            if ok is not True:
+                return None
+        emit({"phase": "boot", "step": "plan_vs_default", "card": smi, "sets": N_SETS,
+              "dispatch_and_resolve_s": times,
+              "median_s": {k: statistics.median(v) for k, v in times.items()},
+              "plan_key": key, "default_key": default_key})
+
+        # (c) the second boot, in a fresh process
+        batches = os.path.join(tmp, "batches.pt")
+        torch.save({"valid": pack_operands(F, mbs["valid"].args),
+                    "one_bad": pack_operands(F, mbs["one_bad"].args),
+                    "agg": pack_operands(F, agg_args)}, batches)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--second-boot", store.root,
+             str(_build.BUILD_ROOT), batches],
+            capture_output=True, text=True, timeout=BOOT_CHILD_TIMEOUT_S,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        child_wall_s = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"phase": "second_boot"')]
+        child = json.loads(lines[-1]) if lines else {}
+        child.pop("phase", None)
+        emit({"phase": "boot", "step": "second_boot", "card": smi, "rc": proc.returncode,
+              "wall_s": child_wall_s, **child,
+              "stderr_tail": proc.stderr[-3000:] if proc.returncode else None})
+        report = child.get("report", {})
+        if (proc.returncode != 0 or child.get("enable_compile_cache") is not True
+                or child.get("nvcc_runs") != 0
+                or [report.get(k) for k in ("loaded", "rejected", "stale", "plan_shapes")]
+                != [2, 0, 0, len(autotune.CARD_SHAPES)]
+                or child.get("verdicts") != [True, False, True]
+                or child.get("launches_on_verifies") != 0
+                or child.get("keys_built_by_verifies") != 0
+                or child.get("keys") != sorted([list(key), list(agg_key)], key=str)):
+            emit({"phase": "boot", "error": "unexpected second boot"})
+            return None
+    del bk1, default_prog, plan_prog
+    autotune.clear_plan()
+    torch.cuda.empty_cache()
+    emit({"phase": "boot", "step": "summary", "card": smi,
+          "seconds": time.perf_counter() - t_phase,
+          "host_rss_gib": {"first_boot_process": first_rss / 2**30,
+                           "second_boot_process": child["rss_bytes"] / 2**30}})
+    return True
+
+
+def second_boot(store_root: str, build_root: str, batches: str) -> int:
+    """The boot phase's second boot, in its own process: enable_compile_cache
+    on ``build_root``, aot.prewarm from the store at ``store_root``, then the
+    valid and one-bad verify batches and the aggregate batch saved at
+    ``batches`` through the prewarmed keys.  Prints one JSON line
+    ({"phase": "second_boot", ...}); exits 0 when it ran to its end."""
+    t_start = time.perf_counter()
+    import torch
+
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import _build, aot, backend
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as F
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import program as PG
+
+    cache_ok = backend.enable_compile_cache(build_root)
+    nvcc0 = _build.nvcc_runs
+    bk = backend.TorchBackend(device="cuda", device_h2c=True)
+    t0 = time.perf_counter()
+    report = aot.prewarm(bk, aot.AotStore(store_root))
+    prewarm_wall_s = time.perf_counter() - t0
+    saved = torch.load(batches, weights_only=True)
+    valid, one_bad, agg = (unpack_operands(F, saved[k]) for k in ("valid", "one_bad", "agg"))
+    keys0 = set(bk.builds)
+    agg_n = agg[-1].shape[-1]
+    backend.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")  # dispatch may only enqueue
+    try:
+        handles = [bk.dispatch(backend.MarshalledBatch(N_SETS, N_SETS, True, args))
+                   for args in (valid, one_bad)]
+        handles.append(bk._agg_program(agg_n)(*agg))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    verdicts = [bk.resolve(h) for h in handles]
+    print(json.dumps({
+        "phase": "second_boot", "pid": os.getpid(), "enable_compile_cache": cache_ok,
+        "build_dir": str(_build.build_dir()), "nvcc_runs": _build.nvcc_runs - nvcc0,
+        "report": report.to_row(), "prewarm_wall_s": prewarm_wall_s,
+        "plan_mxu_at_n_sets": F.mxu_for_batch(N_SETS),
+        "keys": sorted([list(k) for k in bk.builds], key=str), "verdicts": verdicts,
+        "launches_on_verifies": sum(backend.launch_counts().values()),
+        "keys_built_by_verifies": len(set(bk.builds) - keys0),
+        "rss_bytes": PG._host_rss_bytes(),
+        "process_s": time.perf_counter() - t_start}), flush=True)
+    return 0
+
+
 def aggregate_phase(c):
     """aggregate_verify on the card through its captured programs: AGG_SIZES
     messages on the default arm, AGG_ARM_SIZE on the other two; for each,
@@ -486,15 +751,6 @@ def aggregate_phase(c):
     failure."""
     torch, api, backend, bk, dev, smi, rng = c.torch, c.api, c.backend, c.bk, c.dev, c.smi, c.rng
     set_arm, products = c.set_arm, c.products
-    from lighthouse_tpu_torch.crypto.bls.curve import Fp2 as CFp2, from_jacobian, jac_add, \
-        to_jacobian
-
-    def g2_sum(points):
-        acc = to_jacobian(None, CFp2)
-        for pt in points:
-            acc = jac_add(acc, to_jacobian(pt, CFp2), CFp2)
-        return from_jacobian(acc, CFp2)
-
     n_agg = max(AGG_SIZES + (AGG_ARM_SIZE,)) + 1
     agg_sks = [api.SecretKey(rng.randrange(1, api.params.R)) for _ in range(n_agg)]
     agg_msgs = [rng.randbytes(32) for _ in range(n_agg)]
@@ -1030,6 +1286,8 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--second-boot"]:
+        return second_boot(*sys.argv[2:5])
 
     dev = torch.device("cuda")
     rng = random.Random(SEED)
@@ -1455,6 +1713,18 @@ def main() -> int:
         if (verdicts != [True, False, True, False] or verdicts != eager
                 or any(replay_counts.values()) or rebuilt):
             return 1
+
+    # -- warm boot: the arm plan, the store, a second boot in a fresh process --
+    ctx = types.SimpleNamespace(
+        torch=torch, api=api, backend=backend, bk=bk, dev=dev, smi=smi, F=F, PG=PG,
+        entry_points=entry_points, keep_steps=keep_steps, eager_dispatch=eager_dispatch,
+        hold=hold)
+    # the marshal does not depend on the arm: the default arm's batches serve
+    if boot_phase(ctx, marshalled["default"]) is None:
+        return 1
+    if {key: rec["capture_s"] for key, rec in bk.builds.items()} != built_keys:
+        emit({"phase": "boot", "error": "the boot phase built a key of the main backend"})
+        return 1
     del marshalled
 
     # -- aggregate_verify and the epoch batch, through their programs --------

@@ -3,9 +3,12 @@
 Each ``csrc/*.cu`` source compiles with nvcc into its own shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds, not minutes).  Libraries go to
-``lighthouse_tpu_torch/_build/<hash>/``, keyed by a hash of every file in
-``csrc/`` plus the flags, and are built at first use; all missing
-libraries are compiled in parallel, one nvcc process each.
+``<root>/<hash>/``, keyed by a hash of every file in ``csrc/`` plus the
+flags, and are built at first use; all missing libraries are compiled in
+parallel, one nvcc process each.  The root is ``lighthouse_tpu_torch/_build/``
+unless ``set_build_root`` (``backend.enable_compile_cache``) points it at a
+cache directory that outlives the checkout; ``nvcc_runs`` counts the nvcc
+processes started, so a warm boot can show that it started none.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
+nvcc_runs = 0  # nvcc processes started by build_all in this process
 
 
 def _nvcc() -> str:
@@ -55,6 +59,26 @@ def build_dir() -> Path:
     return BUILD_ROOT / source_hash()
 
 
+def set_build_root(root) -> Path:
+    """Build and load the libraries under ``root`` from now on (made if
+    missing; it must be writable).  Libraries are cached by name once
+    loaded, so moving the root after one has loaded would leave a handle
+    from the old root beside libraries from the new one: that raises, as
+    does a root that cannot be made or written."""
+    global BUILD_ROOT
+    root = Path(root).resolve()
+    with _LOCK:
+        if _LOADED and root != Path(BUILD_ROOT).resolve():
+            raise RuntimeError(f"libraries {sorted(_LOADED)} are loaded from {BUILD_ROOT}; "
+                               f"the build root cannot move to {root}")
+        root.mkdir(parents=True, exist_ok=True)
+        probe = root / f".write-probe.{os.getpid()}"
+        probe.write_bytes(b"")
+        probe.unlink()
+        BUILD_ROOT = root
+    return root
+
+
 def build_all() -> dict:
     """Compile every library that is not built yet, all nvcc processes
     started together.  Returns {"seconds": wall time, "built": [names],
@@ -62,6 +86,7 @@ def build_all() -> dict:
     stack/spill lines]}}; raises with nvcc's output if any compile fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    global nvcc_runs
     t0 = time.perf_counter()
     procs = {}
     for name in LIBRARIES:
@@ -74,6 +99,7 @@ def build_all() -> dict:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, target)
+        nvcc_runs += 1
     ptxas, failures = {}, []
     for name, (proc, tmp, target) in procs.items():
         log, _ = proc.communicate()

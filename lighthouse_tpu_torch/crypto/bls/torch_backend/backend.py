@@ -27,6 +27,13 @@ or an installed plan, ``fp.install_mxu_plan``) runs every Montgomery
 product on the 13-bit plane: kernel 7 and the MXU variants of kernels 2-5,
 the WSM steps staying on the 15-bit core as in the reference.
 
+Warm boot (the counterpart of ``enable_compile_cache``, ``attach_aot_store``
+and ``install_kernel``): ``enable_compile_cache`` keeps the kernels' nvcc
+libraries in a directory that outlives the process; an attached AOT store
+(aot.py) records each verify and aggregate key's operand skeleton when the
+key is first built, and ``aot.prewarm`` builds those keys at the next boot
+through ``install_program``, before the first batch.
+
 Two more device programs, keyed and captured the same way:
 ``_aggregate_verify_kernel`` (``aggregate_verify``: distinct-message
 aggregate verification, blst.rs:244-255, on n padded to a power of two) and
@@ -38,7 +45,9 @@ mainnet-epoch attestation batch).
 from __future__ import annotations
 
 import functools
+import logging
 import secrets
+import threading
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -49,6 +58,9 @@ from .. import params
 from ..curve import Fp, G1_GENERATOR, affine_neg, from_jacobian, jac_add, to_jacobian
 from ..hash_to_curve import hash_to_field_fp2, hash_to_g2
 from ....utils import faults
+from ....utils.metrics import COMPILE_CACHE_ERRORS
+from . import _build
+from . import aot as AOT
 from . import chain_kernel as CK
 from . import fp as F
 from . import miller_kernel as ML
@@ -59,6 +71,30 @@ from . import points as P
 from . import program as PG
 from . import tower as T
 from . import wsm_kernel as W
+
+
+log = logging.getLogger("lighthouse_tpu_torch.backend")
+
+
+def enable_compile_cache(cache_dir: str) -> bool:
+    """Build and load the kernels' nvcc libraries under ``cache_dir`` (made
+    if missing), keyed there by ``_build.source_hash()``, so that a restart
+    on the same sources starts no nvcc (jax_backend/backend.py:
+    enable_compile_cache, which points JAX's compilation cache).  Call it
+    before the first kernel loads: the loaded libraries are cached by name,
+    so moving the root afterwards is refused.  Never raises: on any failure
+    (the root cannot be made or written, or a library is loaded already) it
+    returns False, counts ``compile_cache_errors_total`` and logs, and the
+    libraries stay where they were."""
+    try:
+        _build.set_build_root(cache_dir)
+        return True
+    except Exception as exc:  # noqa: BLE001 — the cache is an optimization,
+        # but a dead one re-pays every nvcc build on every boot: count it
+        COMPILE_CACHE_ERRORS.inc()
+        log.warning("persistent kernel build cache unavailable: cache_dir=%s error=%s",
+                    cache_dir, exc)
+        return False
 
 
 # kernel name -> (module, its launch counter)
@@ -319,12 +355,16 @@ class TorchBackend:
         self.device = device
         self.min_batch = min_batch
         self.device_h2c = device_h2c
-        # program key -> callable; key -> build record (fingerprint, and on
-        # the card the warm-up, capture and instantiate seconds, the
-        # launches counted at capture, the graph's nodes by type, memory)
+        # program key -> program (program.CapturedProgram on the card,
+        # program.EagerProgram on the CPU); key -> build record (fingerprint,
+        # build seconds, and on the card the warm-up, capture and instantiate
+        # seconds, the launches counted at capture, the graph's nodes by
+        # type, memory)
         self._programs = {}
         self.builds = {}
         self._pool = None  # the keys' shared graph memory pool, on the card
+        self._lock = threading.Lock()  # makes each key's program once
+        self._aot_store = None
 
     # -- the compiled programs: one per key (jax_backend/backend.py:_kernel) -
 
@@ -334,17 +374,41 @@ class TorchBackend:
         wsm): every gate the program reads while it is traced, the mxu plane
         as ``fp.mxu_for_batch(B)`` resolves it, so flipping an arm never
         replays another arm's graph."""
-        chains, wsm, mxu = arm = self._arm(B)
-        fn = self.local_verify_fn()
-        return self._keyed((B, self.device_h2c, mxu, chains, wsm), fn.__name__, fn, arm,
-                           B=B, device_h2c=self.device_h2c)
+        chains, wsm, mxu = self._arm(B)
+        return self._program_for((B, self.device_h2c, mxu, chains, wsm))
 
     def _agg_program(self, n: int):
         """The aggregate-verify program for ``n`` lanes (a power of two),
         key ("agg", n, mxu, chains, wsm)."""
-        chains, wsm, mxu = arm = self._arm(n)
-        return self._keyed(("agg", n, mxu, chains, wsm), "_aggregate_verify_kernel",
-                           _aggregate_verify_kernel, arm, n=n)
+        chains, wsm, mxu = self._arm(n)
+        return self._program_for(("agg", n, mxu, chains, wsm))
+
+    @staticmethod
+    def _spec(key: tuple):
+        """(name, device program, arm, fingerprint attributes) of a verify
+        key (B, device_h2c, mxu, chains, wsm) or an aggregate key ("agg", n,
+        mxu, chains, wsm)."""
+        if key[0] == "agg":
+            _, n, mxu, chains, wsm = key
+            return "_aggregate_verify_kernel", _aggregate_verify_kernel, (chains, wsm, mxu), {
+                "n": n}
+        B, device_h2c, mxu, chains, wsm = key
+        fn = _verify_kernel_h2c if device_h2c else _verify_kernel
+        return fn.__name__, fn, (chains, wsm, mxu), {"B": B, "device_h2c": device_h2c}
+
+    def _program_for(self, key: tuple):
+        name, fn, arm, attrs = self._spec(key)
+        return self._keyed(key, name, fn, arm, **attrs)
+
+    def fingerprint_for(self, key: tuple) -> str:
+        """The fingerprint the program of a verify or aggregate key has in
+        this process (``program.program_fingerprint``)."""
+        name, _, arm, attrs = self._spec(tuple(key))
+        return self._fingerprint(name, arm, attrs)
+
+    def _fingerprint(self, name: str, arm: tuple, attrs: dict) -> str:
+        chains, wsm, mxu = arm
+        return PG.program_fingerprint(name, self.device, **attrs, mxu=mxu, chains=chains, wsm=wsm)
 
     def epoch_program(self, B: int, positions: int):
         """The epoch batch program for ``B`` sets of ``positions`` committee
@@ -371,29 +435,70 @@ class TorchBackend:
         eager device program, named ``name`` in its fingerprint with
         ``attrs`` and the arm).  On the card a ``program.CapturedProgram``
         (its first call captures it; a failed capture raises, nothing falls
-        back to the eager program); on the CPU the eager program with its
-        arm pinned."""
-        prog = self._programs.get(key)
-        if prog is not None:
-            return prog
-        chains, wsm, mxu = arm
-        rec = {"fingerprint": PG.program_fingerprint(
-            name, self.device, **attrs, mxu=mxu, chains=chains, wsm=wsm)}
-        if self.device.type == "cuda":
-            if self._pool is None:
-                self._pool = PG.GraphPool(self.device)
-            prog = PG.CapturedProgram(fn, key, arm, self._pool, rec, launch_counts)
-        else:
-            device = self.device
-
-            def prog(*host_args):
-                args = _to_device(host_args, device)
-                with torch.inference_mode(), F.pinned_arm(*arm):
-                    return fn(*args)
-
-        self._programs[key] = prog
-        self.builds[key] = rec
+        back to the eager program); on the CPU a ``program.EagerProgram``,
+        the eager program with its arm pinned.  Either way the first build
+        of a program of ``aot.AOT_KERNELS`` is recorded in the attached AOT
+        store, if any."""
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                return prog
+            rec = {"fingerprint": self._fingerprint(name, arm, attrs)}
+            hook = self._aot_capture(key, name)
+            if self.device.type == "cuda":
+                if self._pool is None:
+                    self._pool = PG.GraphPool(self.device)
+                prog = PG.CapturedProgram(fn, key, arm, self._pool, rec, launch_counts,
+                                          on_build=hook)
+            else:
+                prog = PG.EagerProgram(fn, key, arm, self.device, rec, on_build=hook)
+            self._programs[key] = prog
+            self.builds[key] = rec
         return prog
+
+    # -- AOT program store seams (aot.py; jax_backend/backend.py:451-490) --
+
+    def attach_aot_store(self, store) -> None:
+        """Attach an ``aot.AotStore``: the first build of each verify and
+        aggregate key records the key's operand skeleton in it (the
+        counterpart of ``traced_jit``'s capture hook), so normal operation
+        fills the store the next boot prewarms from.  The reference also
+        looks in the store on a cache miss before it compiles
+        (``_install_from_store``); here the store holds no program to load,
+        only what a build needs, so a miss builds from the traffic's own
+        operands, as without a store.  Keys are built ahead of traffic by
+        ``aot.prewarm`` instead."""
+        self._aot_store = store
+
+    def _aot_capture(self, key, kernel: str):
+        """The first-build hook bound to this key, or None when no store is
+        attached or the program is not one of ``aot.AOT_KERNELS``."""
+        store = self._aot_store
+        if store is None or kernel not in AOT.AOT_KERNELS:
+            return None
+
+        def hook(prog, host_args):
+            store.capture(prog, key, host_args, kernel=kernel)
+
+        return hook
+
+    def install_program(self, cache_key, fingerprint: str, skeleton) -> None:
+        """Build the program of a verify or aggregate key now, from an
+        operand skeleton (``aot.AotStore.load``'s tree): zeros of its shapes,
+        dtypes and bounds on this backend's device, through the same path as
+        traffic (on the card warm-up, capture, instantiate; no replay), and
+        without recording it in the store again.  The counterpart of
+        ``install_kernel``.  ``fingerprint`` must be the one the key's
+        program has here (``fingerprint_for``), else ValueError; a build
+        that fails raises."""
+        key = tuple(cache_key)
+        if self.fingerprint_for(key) != fingerprint:
+            raise ValueError(f"program {key} has fingerprint {self.fingerprint_for(key)} "
+                             f"here, not {fingerprint}")
+        prog = self._program_for(key)
+        if not prog.built:
+            prog.build(AOT.operands(skeleton, self.device), capture=False)
+            self.builds[key]["aot"] = True
 
     def warm_compile(self, B: int) -> bool:
         """Build the program for padded size ``B`` ahead of traffic (on the

@@ -16,7 +16,11 @@ device constant, sets the kernels' shared-memory attributes and loads their
 modules, none of which may happen inside a capture), then the capture under
 ``torch.cuda.graph`` and the instantiation, each timed into the key's build
 record.  The kernel wrappers' launch counters tick during the warm-up and
-the capture and never on a replay.
+the capture and never on a replay.  On the CPU a key's program is the eager
+one (``EagerProgram``), and its first call is its build.  Either way a build
+is timed into ``JIT_COMPILE_SECONDS`` (the counterpart of ``traced_jit``'s
+first-call timing) and then calls the program's ``on_build`` hook, which the
+AOT store's capture uses (torch_backend/aot.py).
 """
 
 from __future__ import annotations
@@ -25,21 +29,29 @@ import ctypes
 import hashlib
 import json
 import os
+import threading
 import time
 
 import torch
 
+from ....utils.metrics import JIT_COMPILE_SECONDS
 from . import fp as F
+
+
+def device_name(device) -> str:
+    """The name programs and store entries carry for ``device``: the card's
+    name on CUDA, else the device type (``"cpu"``)."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
 
 
 def program_fingerprint(kernel: str, device, **attrs) -> str:
     """Stable per-program fingerprint: the program's name, the key's
     attributes, the PyTorch and CUDA versions and the device's name.  12 hex
     characters, sha256-derived (jax_backend/backend.py:program_fingerprint)."""
-    device = torch.device(device)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
     blob = json.dumps({"kernel": kernel, "torch": torch.__version__,
-                       "cuda": torch.version.cuda, "device": name, **attrs}, sort_keys=True)
+                       "cuda": torch.version.cuda, "device": device_name(device), **attrs},
+                      sort_keys=True)
     return hashlib.sha256(blob.encode()).hexdigest()[:12]
 
 
@@ -136,12 +148,85 @@ class GraphPool:
                    if tuple(seg["segment_pool_id"]) == tuple(self.handle))
 
 
-class CapturedProgram:
+class _Program:
+    """What both forms of a key's program share: the key, its arm, its build
+    record (``fingerprint`` and the build's numbers), a build made once, also
+    when threads race to it, and the ``on_build(program, host_args)`` hook
+    called after the build."""
+
+    def __init__(self, fn, key: tuple, arm: tuple, record: dict, on_build=None):
+        self.fn = fn
+        self.key = key
+        self.arm = arm  # (chains, wsm, mxu), held around every run of fn
+        self.record = record  # the key's build record, filled by the build
+        self.on_build = on_build
+        self._lock = threading.Lock()
+
+    @property
+    def fingerprint(self) -> str:
+        return self.record["fingerprint"]
+
+    @property
+    def built(self) -> bool:
+        raise NotImplementedError
+
+    def build(self, host_args, capture: bool = True):
+        """Build the program from operands shaped like ``host_args`` unless it
+        is built already; then, if ``capture``, call ``on_build``.  Returns
+        the build's own output where the build runs the program (on the CPU),
+        else None."""
+        with self._lock:
+            if self.built:
+                return None
+            t0 = time.perf_counter()
+            out = self._build(host_args)
+            self.record["build_s"] = time.perf_counter() - t0
+        JIT_COMPILE_SECONDS.observe(self.record["build_s"])
+        if capture and self.on_build is not None:
+            self.on_build(self, host_args)
+        return out
+
+    def __call__(self, *host_args):
+        if not self.built:
+            out = self.build(host_args)
+            if out is not None:
+                return out
+        return self._run(host_args)
+
+
+class EagerProgram(_Program):
+    """One key's program on the CPU: the eager program under the key's arm on
+    the operands copied to the device.  Its first call is its build (the
+    reference's first call traces, compiles and runs)."""
+
+    def __init__(self, fn, key: tuple, arm: tuple, device, record: dict, on_build=None):
+        super().__init__(fn, key, arm, record, on_build)
+        self.device = torch.device(device)
+        self._built = False
+
+    @property
+    def built(self) -> bool:
+        return self._built
+
+    def _build(self, host_args):
+        out = self._run(host_args)
+        self._built = True
+        return out
+
+    def _run(self, host_args):
+        args = map_operands(lambda t, _: F.upload(t, self.device), host_args)
+        with torch.inference_mode(), F.pinned_arm(*self.arm):
+            return self.fn(*args)
+
+
+class CapturedProgram(_Program):
     """One key's captured program.  Calling it with the host operands of a
     marshalled batch builds the graph on the first call, then copies the
     operands into the static inputs, replays the graph and returns a fresh
     copy of its one-element verdict tensor, all enqueued on the current
-    stream without waiting for the device.
+    stream without waiting for the device.  ``build`` makes the graph without
+    a replay, from any operands of the key's shapes (warm boot builds it from
+    zeros on the card).
 
     Ordering: the input copies and the replay run on the caller's current
     stream after the backend's previous replay (``GraphPool.last_replay``),
@@ -150,23 +235,21 @@ class CapturedProgram:
     when dispatches come on different streams.  The returned tensor never
     aliases the static output."""
 
-    def __init__(self, fn, key: tuple, arm: tuple, pool: GraphPool, record: dict, counts):
-        self.fn = fn
-        self.key = key
-        self.arm = arm  # (chains, wsm, mxu), held around warm-up and capture
+    def __init__(self, fn, key: tuple, arm: tuple, pool: GraphPool, record: dict, counts,
+                 on_build=None):
+        super().__init__(fn, key, arm, record, on_build)
         self.pool = pool
-        self.record = record  # the key's build record, filled by the build
+        self.device = pool.device
         self.counts = counts  # the wrappers' launch counts (backend.launch_counts)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.static_in = None
         self.static_out = None
 
-    def __call__(self, *host_args):
-        if self.graph is None:
-            self._build(host_args)
-        return self._replay(host_args)
+    @property
+    def built(self) -> bool:
+        return self.graph is not None
 
-    def _replay(self, host_args):
+    def _run(self, host_args):
         stream = torch.cuda.current_stream(self.pool.device)
         if self.pool.last_replay is not None:
             stream.wait_event(self.pool.last_replay)

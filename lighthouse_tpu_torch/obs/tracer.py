@@ -1,7 +1,7 @@
 """Span tracer: a thread-safe ring buffer of timing spans.
 
 The port's own copy of the part of the JAX package's ``obs/tracer.py`` that
-the ingest engine uses: ``TRACER.span(name, **fields)`` as a context
+the ingest engine and warm boot use: ``TRACER.span(name, **fields)`` as a context
 manager, nested spans linked to their parent on the same thread, and the
 most recent ``CAPACITY`` spans kept for ``snapshot()``.  Span names are a
 closed set (``SPANS``).  Clocks are ``time.perf_counter()``: only deltas
@@ -22,6 +22,9 @@ SPANS: dict[str, str] = {
     "ingest.marshal": "IngestEngine vectorized marshal of one batch",
     "ingest.expand": "batched SHA-256 hash-to-field draws for the batch",
     "ingest.encode": "pubkey cache resolve + operand limb assembly",
+    "aot.capture": "AOT store: one program's operand skeleton written after its first build",
+    "prewarm.load": "warm boot: one store entry read, verified and its program built",
+    "autotune.trial": "autotune: one arm's timed Montgomery-product trial at one batch shape",
 }
 
 

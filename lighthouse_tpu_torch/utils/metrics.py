@@ -1,11 +1,14 @@
-"""Process-global counters and gauges of the ingest engine.
+"""Process-global counters, gauges and histograms of the port.
 
-The port's own copy of the part of the JAX package's ``utils/metrics.py``
-that ``lighthouse_tpu_torch.ingest`` reads: the cache counters prove that
-repeat signers skip aggregation and limb encode, the rate gauge and the pool
-depth say whether the marshal keeps pace with the card, and the fallback
-counter counts every degradation of the vectorized marshal.  Each metric is
-thread-safe and has ``inc``, ``set`` and ``value()``.
+The port's own copy of the parts of the JAX package's ``utils/metrics.py``
+that it reads.  The ingest engine's: the cache counters prove that repeat
+signers skip aggregation and limb encode, the rate gauge and the pool depth
+say whether the marshal keeps pace with the card, and the fallback counter
+counts every degradation of the vectorized marshal.  Warm boot's: the
+program build histogram, the AOT store's hit, miss and reject counters and
+the compile-cache error counter.  Each counter and gauge is thread-safe and
+has ``inc``, ``set`` and ``value()``; a histogram has ``observe`` and
+``count()``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,28 @@ class Gauge(_Metric):
     kind = "gauge"
 
 
+class Histogram:
+    """Observations of one quantity, counted (the reference's buckets and sum
+    are not kept: nothing in the port reads them; a build's seconds are in
+    its build record)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help_: str):
+        self.name = name
+        self.help = help_
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._count += 1
+
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+
 INGEST_CACHE_HITS = Counter(
     "ingest_pubkey_cache_hits_total",
     "Signer sets whose aggregated-pubkey limbs came from the cache "
@@ -72,4 +97,37 @@ INGEST_FALLBACKS = Counter(
     "ingest_fallbacks_total",
     "Ingest marshal degradations: the vectorized path fell back to the scalar "
     "marshal, or the scalar fallback itself failed (invalid batch)",
+)
+
+# Warm boot (torch_backend/aot.py, backend.enable_compile_cache).  A program
+# build is one key's first call: on the card its warm-up, capture and
+# instantiation, on the CPU its first eager run (the counterpart of the
+# reference's first traced-and-compiled call per kernel cache key).
+JIT_COMPILE_SECONDS = Histogram(
+    "jit_compile_seconds",
+    "Program build wall time (first call per program key: warm-up, capture "
+    "and instantiate on the card), one observation per build",
+)
+# hits = an entry's skeleton read and verified, misses = no entry for the
+# program or an entry stale for this process, rejects = an entry present
+# that fails integrity (manifest or plan signature, skeleton sha256, skeleton
+# parse): a reject costs the next traffic a build, never an error.
+AOT_CACHE_HITS = Counter(
+    "aot_cache_hits_total",
+    "AOT store entries whose operand skeleton was read and verified",
+)
+AOT_CACHE_MISSES = Counter(
+    "aot_cache_misses_total",
+    "AOT store lookups with no usable entry (absent, or stale for this "
+    "torch / CUDA version, device or arm)",
+)
+AOT_CACHE_REJECTS = Counter(
+    "aot_cache_rejects_total",
+    "AOT store entries rejected by integrity checks (manifest signature, "
+    "skeleton sha256, skeleton parse)",
+)
+COMPILE_CACHE_ERRORS = Counter(
+    "compile_cache_errors_total",
+    "Failures pointing the kernel libraries' build root at a cache directory: "
+    "a dead cache re-pays every nvcc build on every boot",
 )

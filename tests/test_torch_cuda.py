@@ -23,7 +23,9 @@ tests/test_torch_backend.py (built here from the same seeded specs), and
 the aggregate-verify and epoch graphs against their eager programs at small
 sizes under each arm.  The ingest engine's registry gather on the card
 equals host assembly (and dispatches through the B = 8 graph), and the epoch
-balance pipeline on the card equals its CPU run.
+balance pipeline on the card equals its CPU run.  Warm boot (aot.py): a
+key captured into an AOT store is prewarmed by a fresh backend from its
+operand skeleton and replays the same verdicts.
 """
 
 import random
@@ -392,6 +394,45 @@ def test_cuda_aggregate_and_epoch_graphs_match_eager(arm, monkeypatch):
     assert len(bk.builds) == 2 and bk.epoch_program(4, 4) is prog
     assert [eager(lambda *a: TB._epoch_verify_kernel(*a, 4), *args)
             for args in batches] == graph
+
+
+@pytest.mark.cuda
+def test_cuda_prewarm_builds_the_stored_keys_from_their_skeletons(tmp_path, monkeypatch):
+    """Warm boot at B = 8 under the mxu plane with chains and WSM off (the
+    combination a tuned plan picks; chip_smoke's program phase does not run
+    it): a backend with an AOT store attached builds the verify key from
+    traffic, a fresh backend prewarms it from the store (one build from zeros
+    of the skeleton's shapes), and its replays give True, False, True with
+    no launch counted and no key built."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import aot
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+
+    monkeypatch.setattr(F, "_CHAINS_MODE", False)
+    monkeypatch.setattr(F, "_WSM_MODE", False)
+    monkeypatch.setattr(F, "_MXU_MODE", True)
+    store = aot.AotStore(str(tmp_path / "aot_cache"))
+    first = TB.TorchBackend(device="cuda", min_batch=8)
+    first.attach_aot_store(store)
+    corpora = _graph_corpora()
+    mbs = {c: first.marshal_sets(corpora[c]) for c in ("valid", "one_invalid")}
+    assert first.verify_marshalled(mbs["valid"]) is True
+    key = (8, True, True, False, False)
+    assert list(first.builds) == [key]
+    (meta,) = store.entries().values()
+    assert meta["cache_key"] == list(key) and meta["device"] == torch.cuda.get_device_name()
+
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    report = aot.prewarm(bk, store)
+    assert len(report.loaded) == 1 and not report.rejected and not report.stale
+    rec = report.builds[report.loaded[0]]
+    assert rec["capture_s"] > 0 and rec["instantiate_device_bytes"] >= 0
+    assert bk.builds[key]["launches"] == first.builds[key]["launches"]
+    TB.reset_launch_counts()
+    handles = [bk.dispatch(mbs[c]) for c in ("valid", "one_invalid", "valid")]
+    assert [bk.resolve(h) for h in handles] == [True, False, True]
+    assert set(TB.launch_counts().values()) == {0} and list(bk.builds) == [key]
 
 
 class _Registry:

@@ -27,8 +27,15 @@ for kernel in ("mont_kernel", "miller_kernel", "chain_kernel", "wsm_kernel", "mx
     assert f"lighthouse_tpu_torch.crypto.bls.torch_backend.{kernel}" in names, kernel
 for module in ("ingest.sha", "ingest.pool", "ingest.cache", "ingest.engine",
                "consensus.state_processing.arrays", "consensus.state_processing.per_epoch_torch",
-               "utils.metrics", "obs.tracer"):
+               "utils.metrics", "obs.tracer", "crypto.bls.torch_backend.aot",
+               "crypto.bls.torch_backend.autotune"):
     assert f"lighthouse_tpu_torch.{module}" in names, module
+from lighthouse_tpu_torch.utils import device_kind
+assert isinstance(device_kind(), str) and device_kind() != "host"
+# the tuner's legality gate reads the JAX package's waivers as a data file
+from lighthouse_tpu_torch.crypto.bls.torch_backend import autotune
+assert autotune.proven_arms(), "the gate read no proof"
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "lighthouse_tpu") for m in sys.modules)
 import chip_smoke
 assert callable(chip_smoke.main)
 print(len(names), "modules")
@@ -42,7 +49,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    assert int(proc.stdout.split()[0]) >= 29
+    assert int(proc.stdout.split()[0]) >= 31
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
