@@ -122,6 +122,29 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    MAINNET values, finalizing and leaking: the card's output equals the
    CPU run's exactly; upload, pipeline (median of BALANCE_RUNS) and
    download ms.
+   mesh (mesh_phase): the mesh (parallel/, torch_backend/multichip.py) on
+   the one card, a 2-seat mesh on cuda:0 whose seats share the main
+   backend: (a) the sharded program (ShardedVerifyProgram over
+   TorchBackend.seat_program: one 2,048-set key, its build record and the
+   wrapper launches of the mesh path's first run) on the valid, one-bad and
+   bad-at-0 batches, verdict vectors [T, T], [T, F], [F, T], and its
+   dispatch + resolve time beside the single-device 4,096 key's; (b) the
+   same in registry mode over the registry phase's 2^20 slots partitioned
+   on the validator axis (per-seat bytes half the mirror's; the gathered
+   planes byte-equal to the host take; the gather timed); (c) multichip's
+   make_verify_sharded at MC_SETS sets (True, and False with one set's
+   message point replaced) against the eager single-device program, and
+   make_pair_sharded_aggregate_verify at AGG_MESH and AGG_MESH - 1 pairs
+   (and one bad key) against TorchBackend.aggregate_verify; (d) a PodVerifier
+   over the seats with a stand-in ladder, its seat key built before traffic
+   (PodVerifier.warm_compile) and its shard deadline POD_SHARD_TIMEOUT_S:
+   a clean 4,096 batch in one
+   sharded dispatch, a POD_SETS batch with one bad set (only its seat's
+   half re-verified, per-set verdicts equal to the stand-in's), a dropped
+   shard rescued by a retry, a seat excluded and the batch re-sharded to
+   width 1; (e) two threads dispatching THREAD_BATCHES alternating valid
+   and bad 2,048-set batches each through one key on their own streams,
+   every verdict right; the phase's seconds and host memory.
 7. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches, queued while the card sleeps so that the host's
    wrapper time stays out.  mont_mul at every width of the default path
@@ -156,7 +179,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 
 Then the kernels line (with each kernel's launches at capture per program
 and arm: the verify's, the aggregate's at AGG_ARM_SIZE messages and the
-epoch's; kernels 1 and 7 also timed at the epoch tree's widths), the
+epoch's; launches_mesh, the mesh path's first run on the default arm, its
+seat key's warm-up and capture; kernels 1 and 7 also timed at the epoch
+tree's widths), the
 nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -172,6 +197,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -253,6 +279,19 @@ MARSHAL_REPS = 3  # marshal timings per form; the median is kept
 GATHER_LAUNCHES = 50  # gathers per timing window
 # the epoch balance pipeline: validators, and the pipeline runs timed (median)
 BALANCE_VALIDATORS = 2**20
+MC_SETS = 512  # multichip's sharded verify: the path pool's operands tiled
+MC_BAD = 300  # the set whose message point is replaced
+AGG_MESH = 64  # pairs of the pair-sharded aggregate verify (and 63, padded)
+POD_SETS = 64  # the pod's one-bad batch: the path pool
+POD_BAD = 40  # its one bad set (seat 1's half)
+# the pod's shard deadline (its sharded one is 4x, as by default): on the one
+# card the seats' replays run one after another, about 1.2 s for two
+# 2,048-set shards, so the reference's 2 s default leaves too little room; a
+# key's first build (tens of seconds) would still time out, so the pod's keys
+# are built before it takes traffic (PodVerifier.warm_compile)
+POD_SHARD_TIMEOUT_S = 5.0
+THREAD_JOIN_S = 600  # (e)'s wait for its threads
+THREAD_BATCHES = 20  # dispatches per thread through one key
 BALANCE_RUNS = 5
 
 STEP_NAMES = ("miller_step_dbl", "miller_step_add")
@@ -1182,7 +1221,8 @@ def registry_phase(c):
     if not ok:
         emit({"phase": "registry", "error": "a registry check failed"})
         return None
-    eng.close()
+    # the mesh phase shards this registry and marshals these batches
+    c.registry = types.SimpleNamespace(eng=eng, sets=sets, bad=bad)
     return True
 
 
@@ -1265,6 +1305,340 @@ def epoch_balance_phase(c):
         emit({"phase": "epoch_balance", "error": "the card's output differs from the CPU's"})
         return None
     return True
+
+
+def mesh_phase(c):
+    """The mesh (parallel/, torch_backend/multichip.py) on the one card: a
+    2-seat mesh on cuda:0, both seats on the main backend.  (a) the sharded
+    program over the seats' keyed programs (one 2,048-set key), on the
+    valid, one-bad and bad-at-0 batches, against the single-device 4,096
+    key; (b) registry mode over the 2^20-slot registry of the registry
+    phase, partitioned on the validator axis; (c) multichip's two programs
+    against the single-device verdicts; (d) the pod over the seats with a
+    stand-in ladder, its keys built before traffic: clean, one bad, a
+    dropped shard retried, a seat excluded; (e) two threads dispatching through one key on their own
+    streams.  Returns the launch counts of the mesh path (the sharded
+    program's first run, which builds its key), or None on a failure."""
+    import resource
+
+    import numpy as np
+
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import multichip as MC
+    from lighthouse_tpu_torch.parallel import make_mesh, partition as PP, pod as POD
+    from lighthouse_tpu_torch.utils import faults as FA, metrics as M
+
+    torch, api, backend, bk, smi, PG = c.torch, c.api, c.backend, c.bk, c.smi, c.PG
+    t_phase = time.perf_counter()
+    rss0 = PG._host_rss_bytes()
+    c.set_arm("default")
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+        return ok
+
+    mesh = make_mesh(2, device="cuda:0")
+    shared = all(bk.for_device(seat) is bk for seat in mesh.seats)
+    emit({"phase": "mesh", "step": "mesh", "seats": [str(s) for s in mesh.seats],
+          "width": mesh.width, "shared_backend": shared})
+    check(shared, "the seats do not share the backend")
+    mbs, half = c.mesh_batches, N_SETS // mesh.width
+    seat_key = (half, True, False, False, False)
+
+    # -- (a) the sharded program -------------------------------------------
+    prog = PP.ShardedVerifyProgram(mesh, seat_program=bk.seat_program, pk_wrap=bk.registry_pk_wrap)
+    keys0 = set(bk.builds)
+    backend.reset_launch_counts()  # the counts just before the mesh path
+    first = prog.verdict_vector(mbs["valid"].args)  # builds the seat key
+    mesh_counts = backend.launch_counts()  # read just after: the build's
+    order = ("valid", "one_bad", "bad_at_0")
+    backend.reset_launch_counts()
+    handles = [prog.dispatch(mbs[name].args) for name in order]  # all in flight first
+    vectors = [prog.resolve(h).tolist() for h in handles]
+    replay_launches = sum(backend.launch_counts().values())
+    new_keys = sorted(set(bk.builds) - keys0, key=str)
+    rec = bk.builds.get(seat_key, {})
+    timings = {"sharded": [], "single": [], "placement": []}
+    for _ in range(3):
+        for path in ("sharded", "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = (prog.resolve(prog.dispatch(mbs["valid"].args)).all() if path == "sharded"
+                  else bk.resolve(bk.dispatch(mbs["valid"])))
+            timings[path].append(time.perf_counter() - t0)
+            check(bool(ok), f"{path} verify of the valid batch")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.shard_operands(prog.pad_operands(mbs["valid"].args))
+        torch.cuda.synchronize()
+        timings["placement"].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in timings.items()}
+    emit({"phase": "mesh", "step": "sharded", "card": smi, "batches": order,
+          "verdict_vectors": vectors, "first_vector": first.tolist(), "new_keys": new_keys,
+          "build": {k: v for k, v in rec.items() if k != "launches"},
+          "launches_at_capture": rec.get("launches"),
+          "launches_build_total": sum(mesh_counts.values()),
+          "launches_on_replay": replay_launches,
+          "sharded_s": med["sharded"], "single_s": med["single"],
+          "placement_s": med["placement"],
+          "sharded_sets_per_s": N_SETS / med["sharded"], "single_sets_per_s": N_SETS / med["single"],
+          "sharded_over_single": med["single"] / med["sharded"],
+          "sharded_s_each": timings["sharded"], "single_s_each": timings["single"]})
+    check(vectors == [[True, True], [True, False], [False, True]] and first.tolist() == [True, True],
+          "sharded verdict vectors")
+    check(new_keys == [seat_key] and replay_launches == 0, "sharded keys or replay launches")
+    check(all(mesh_counts[k] > 0 for k in ("mont_mul", "miller_step_dbl", "miller_step_add")),
+          "the mesh path did not launch the default arm's kernels")
+
+    # -- (b) registry mode ---------------------------------------------------
+    reg = c.registry
+    cache = reg.eng.cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reg_x, reg_y = cache.registry_device_sharded(mesh)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    per_seat = [x.nbytes + y.nbytes for x, y in zip(reg_x, reg_y)]
+    other = reg.sets[1].signature
+    bad0 = list(reg.sets)
+    bad0[0] = api.SignatureSet(other, reg.sets[0].signing_keys, reg.sets[0].message)
+    mesh_mbs = [reg.eng.marshal_for_mesh(b) for b in (reg.sets, reg.bad, bad0)]
+    slots = mesh_mbs[0].slots
+    seat_slots = [slots.to(seat) for seat in mesh.seats]
+    xs, ys = PP._registry_gather(reg_x, reg_y, seat_slots, mesh)
+    host_x, host_y = cache.registry_columns(slots.numpy())
+    gathered_equal = (np.array_equal(torch.cat(xs, 1).cpu().numpy(), host_x)
+                      and np.array_equal(torch.cat(ys, 1).cpu().numpy(), host_y))
+    gather_ms = time_ms(torch, lambda: PP._registry_gather(reg_x, reg_y, seat_slots, mesh),
+                        GATHER_LAUNCHES)
+    keys0 = set(bk.builds)
+    reg_vectors = [prog.resolve(prog.dispatch_registry((reg_x, reg_y), m.slots, m.args)).tolist()
+                   for m in mesh_mbs]
+    emit({"phase": "mesh", "step": "registry", "card": smi, "slots": cache.registry_size(),
+          "mirror_bytes": cache.device_bytes(), "per_seat_bytes": per_seat,
+          "upload_s": upload_s, "deferred": all(m.slots is not None for m in mesh_mbs),
+          "gathered_equal": gathered_equal, "gather_ms": gather_ms,
+          "bad_sets": [None, REGISTRY_BAD, 0], "verdict_vectors": reg_vectors,
+          "keys_built": len(set(bk.builds) - keys0)})
+    check(all(2 * b == cache.device_bytes() for b in per_seat) and gathered_equal
+          and all(m.slots is not None for m in mesh_mbs) and set(bk.builds) == keys0
+          and reg_vectors == [[True, True], [True, False], [False, True]], "registry mode")
+    reg.eng.close()
+    # the 2^20 registry's Python objects go before the rest of the phase
+    c.registry = None
+    del reg, cache, reg_x, reg_y, xs, ys, mesh_mbs, seat_slots
+
+    # -- (c) multichip ---------------------------------------------------------
+    bk_h = backend.TorchBackend(device="cuda", device_h2c=False)  # host H(m): marshal only
+    mb64 = bk_h.marshal_sets(c.pool)
+    reps = MC_SETS // len(c.pool)
+    pk, sig, h, _ = PG.map_operands(lambda t, _: t.repeat(*([1] * (t.dim() - 1)), reps),
+                                    mb64.args)
+    wbits = backend._pack_wbits([c.rng.getrandbits(64) | 1 for _ in range(MC_SETS)])
+
+    def one_bad_h(hh):
+        """set MC_BAD's message point replaced by its neighbour's"""
+        def cut(t, _):
+            t = t.clone()
+            t[..., MC_BAD] = t[..., MC_BAD + 1]
+            return t
+        return PG.map_operands(cut, hh)
+
+    def eager_single(*args):
+        with torch.inference_mode():
+            return bool(bk_h.local_verify_fn()(*backend._to_device(args, c.dev)))
+
+    sharded_verify = MC.make_verify_sharded(mesh)
+    mc = {}
+    for name, hh in (("valid", h), ("one_bad", one_bad_h(h))):
+        args = (pk, sig, hh, wbits)
+        t0 = time.perf_counter()
+        got = bool(sharded_verify(*args))
+        mc[name] = {"sharded": got, "sharded_s": time.perf_counter() - t0,
+                    "single_eager": eager_single(*args)}
+    keys0 = set(bk.builds)
+    sks = [api.SecretKey(c.rng.randrange(1, api.params.R)) for _ in range(AGG_MESH)]
+    msgs = [c.rng.randbytes(32) for _ in range(AGG_MESH)]
+    sig_pts = [sk.sign(m).point for sk, m in zip(sks, msgs)]
+    pks = [sk.public_key() for sk in sks]
+    h_pts = [c.hash_to_g2(m) for m in msgs]
+    pair_verify = MC.make_pair_sharded_aggregate_verify(mesh)
+    host = torch.device("cpu")
+    stranger = api.SecretKey(c.rng.randrange(1, api.params.R)).public_key()
+    for name, n, keys in (("n64", AGG_MESH, pks), ("n63", AGG_MESH - 1, pks),
+                          ("n64_one_bad", AGG_MESH, [stranger] + pks[1:])):
+        sig_n = api.Signature(g2_sum(sig_pts[:n]))
+        t0 = time.perf_counter()
+        got = bool(pair_verify(c.P.g1_encode([k.point for k in keys[:n]], host),
+                               c.P.g2_encode(h_pts[:n], host),
+                               c.P.g2_encode([sig_n.point], host)))
+        mc[name] = {"pair_sharded": got, "pair_sharded_s": time.perf_counter() - t0,
+                    "single": bk.aggregate_verify(keys[:n], msgs[:n], sig_n)}
+    emit({"phase": "mesh", "step": "multichip", "card": smi, "sets": MC_SETS, "bad_set": MC_BAD,
+          "pairs": AGG_MESH, **mc, "keys_built": len(set(bk.builds) - keys0)})
+    check(mc["valid"] == {**mc["valid"], "sharded": True, "single_eager": True}
+          and mc["one_bad"] == {**mc["one_bad"], "sharded": False, "single_eager": False}
+          and all(mc[k]["pair_sharded"] is mc[k]["single"] is (k != "n64_one_bad")
+                  for k in ("n64", "n63", "n64_one_bad"))
+          and set(bk.builds) == keys0, "multichip verdicts")
+    del pk, sig, h, wbits, mb64
+
+    # -- (d) the pod over the seats, with a stand-in ladder ------------------
+    class StandIn:
+        """The single-device ladder's surface (verify_batch, breaker,
+        journal): the batch verified through the main backend and, where it
+        fails, bisected down to each bad set alone.  A group of fewer than
+        ``lanes`` sets runs padded with copies of its first set, through the
+        pod's seat key of that many lanes, not a key of its own; each
+        group's verdict is kept.  Its breaker always allows."""
+
+        def __init__(self, lanes):
+            self.lanes = lanes
+            self.seconds = 0.0  # spent in verify_batch
+            self.calls = 0  # device verifies
+            self.journal = []
+            self.groups = {}  # the groups' set ids -> their verdict
+            self.breaker = types.SimpleNamespace(allow_device=lambda: True,
+                                                 record_success=lambda: None,
+                                                 record_failure=lambda: None)
+
+        def group(self, sets):
+            key = tuple(id(s) for s in sets)
+            if key not in self.groups:
+                self.calls += 1
+                pad = sets[:1] * (self.lanes - len(sets))
+                self.groups[key] = bk.verify_signature_sets(sets + pad)
+            return self.groups[key]
+
+        def verdicts(self, sets):
+            if self.group(sets):
+                return [True] * len(sets)
+            if len(sets) == 1:
+                return [False]
+            mid = len(sets) // 2
+            return self.verdicts(sets[:mid]) + self.verdicts(sets[mid:])
+
+        def verify_batch(self, sets):
+            self.journal.append(("device", len(sets)))
+            t0, calls0 = time.perf_counter(), self.calls
+            got = self.verdicts(list(sets))
+            self.seconds += time.perf_counter() - t0
+            return POD.BatchOutcome(got, self.calls - calls0)
+
+    class SeatFaults(FA.FaultInjector):
+        """pod.dispatch faults delivered only in the shard thread of seat 1."""
+
+        def fire(self, site, payload=None):
+            if site == "pod.dispatch" and threading.current_thread().name != "pod-shard-1":
+                return payload
+            return super().fire(site, payload)
+
+    def pod_for(**kw):
+        return POD.PodVerifier(standin, backend=bk, devices=list(mesh.seats),
+                               shard_timeout=POD_SHARD_TIMEOUT_S, backoff_base=0.0, **kw)
+
+    standin = StandIn(POD_SETS // mesh.width)
+    keys0 = set(bk.builds)
+    pod_rows = {}
+    # the seat key of the one-bad batch, built before the pods take traffic
+    # (the 4,096-set batches' keys, 2,048 and 4,096, are built already)
+    t0 = time.perf_counter()
+    warmed = pod_for().warm_compile([POD_SETS], widths=(mesh.width,))
+    warm_s = time.perf_counter() - t0
+    pod_key = (POD_SETS // mesh.width, True, False, False, False)
+    pod_rows["warm"] = {"s": warm_s, "warmed": [[str(d), b] for d, b in warmed],
+                        "build": {k: v for k, v in bk.builds.get(pod_key, {}).items()
+                                  if k != "launches"}}
+
+    def run(name, pod, sets):
+        m0 = {k: getattr(M, k).value() for k in ("POD_RETRIES", "POD_RESHARDS", "POD_EXCLUSIONS",
+                                                  "POD_FALLBACKS")}
+        t0 = time.perf_counter()
+        out = pod.verify_batch(sets)
+        row = {"s": time.perf_counter() - t0, "device_calls": out.device_calls,
+               "all_true": all(out.verdicts), "false_at": [i for i, v in enumerate(out.verdicts)
+                                                          if not v],
+               "excluded": pod.health.excluded() if pod.health else [],
+               **{k.lower(): getattr(M, k).value() - v for k, v in m0.items()}}
+        pod_rows[name] = row
+        return out, row
+
+    _, row = run("clean", pod_for(injector=FA.FaultInjector()), c.batches["valid"])
+    check(row["all_true"] and row["device_calls"] == 2 and standin.journal == [("pod", N_SETS)],
+          "pod clean")
+    sets64 = list(c.pool[:POD_SETS])
+    sets64[POD_BAD] = api.SignatureSet(c.pool[POD_BAD + 1].signature, c.pool[POD_BAD].signing_keys,
+                                       c.pool[POD_BAD].message)
+    del standin.journal[:]
+    ladder_s0 = standin.seconds
+    out, row = run("one_bad", pod_for(injector=FA.FaultInjector()), sets64)
+    ladder = list(standin.journal)
+    row.update(ladder_s=standin.seconds - ladder_s0, ladder_calls=out.device_calls - 2)
+    t0 = time.perf_counter()
+    # the stand-in's own verdicts on all 64, half by half (its key)
+    half_pod = POD_SETS // mesh.width
+    oracle = [v for i in range(0, POD_SETS, half_pod)
+              for v in standin.verify_batch(sets64[i:i + half_pod]).verdicts]
+    row.update(ladder=ladder, oracle_s=time.perf_counter() - t0,
+               identical=out.verdicts == oracle)
+    check(out.verdicts == oracle and ladder == [("device", half_pod)]
+          and row["false_at"] == [POD_BAD], "pod one bad")
+    inj = FA.FaultInjector()
+    inj.arm("pod.dispatch", "shard-drop", times=1)
+    _, row = run("retry", pod_for(injector=inj, sharded=False, max_shard_retries=2,
+                                  exclusion_threshold=2), c.batches["valid"])
+    check(row["all_true"] and row["device_calls"] == 2 and row["pod_retries"] == 1
+          and row["excluded"] == [], "pod retry")
+    inj = SeatFaults()
+    inj.arm("pod.dispatch", "shard-drop")
+    _, row = run("exclusion", pod_for(injector=inj, sharded=False, max_shard_retries=1,
+                                      exclusion_threshold=2), c.batches["valid"])
+    check(row["all_true"] and row["device_calls"] == 1 and row["excluded"] == [1]
+          and row["pod_reshards"] == 1, "pod exclusion")
+    new_keys = sorted(set(bk.builds) - keys0, key=str)
+    emit({"phase": "mesh", "step": "pod", "card": smi, "rows": pod_rows, "bad_set": POD_BAD,
+          "new_keys": new_keys})
+    check(new_keys == [pod_key] and [b for _, b in warmed] == [pod_key[0]], "pod keys")
+
+    # -- (e) two threads through one key ---------------------------------------
+    good = bk.marshal_sets(c.batches["valid"][:half])
+    bad = bk.marshal_sets(c.batches["bad_at_0"][:half])
+    results, errors = {}, []
+
+    def dispatcher(tid):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                want = [(i + tid) % 2 == 0 for i in range(THREAD_BATCHES)]
+                handles = [bk.dispatch(good if ok else bad) for ok in want]
+                results[tid] = ([bk.resolve(h) for h in handles], want)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    keys0 = set(bk.builds)
+    threads = [threading.Thread(target=dispatcher, args=(t,)) for t in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(THREAD_JOIN_S)
+    threads_s = time.perf_counter() - t0
+    right = sum(g == w for got, want in results.values() for g, w in zip(got, want))
+    emit({"phase": "mesh", "step": "threads", "card": smi, "key": seat_key,
+          "dispatches": 2 * THREAD_BATCHES, "right": right, "errors": errors,
+          "seconds": threads_s, "keys_built": len(set(bk.builds) - keys0)})
+    check(right == 2 * THREAD_BATCHES and not errors and set(bk.builds) == keys0,
+          "concurrent dispatches")
+
+    emit({"phase": "mesh", "step": "cost", "card": smi,
+          "seconds": time.perf_counter() - t_phase,
+          "host_rss_gib_start": rss0 / 2**30, "host_rss_gib_end": PG._host_rss_bytes() / 2**30,
+          "host_maxrss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+          "failures": failures})
+    if failures:
+        emit({"phase": "mesh", "error": "a mesh check failed", "failures": failures})
+        return None
+    return mesh_counts
 
 
 def main() -> int:
@@ -1725,6 +2099,7 @@ def main() -> int:
     if {key: rec["capture_s"] for key, rec in bk.builds.items()} != built_keys:
         emit({"phase": "boot", "error": "the boot phase built a key of the main backend"})
         return 1
+    mesh_batches = marshalled["default"]
     del marshalled
 
     # -- aggregate_verify and the epoch batch, through their programs --------
@@ -1732,7 +2107,7 @@ def main() -> int:
         torch=torch, api=api, backend=backend, bk=bk, dev=dev, smi=smi, rng=rng,
         set_arm=set_arm, products=products, funcs=funcs, checked=checked,
         max_abs_err=max_abs_err, bound_ms=bound_ms, hash_to_g2=hash_to_g2, F=F, P=P, PG=PG,
-        MK=MK, X=X, pool=pool)
+        MK=MK, X=X, pool=pool, mesh_batches=mesh_batches, batches=batches)
     agg_counts = aggregate_phase(ctx)
     if agg_counts is None:
         return 1
@@ -1743,6 +2118,11 @@ def main() -> int:
     # -- the ingest engine with the resident registry; the epoch balances -----
     if registry_phase(ctx) is None or epoch_balance_phase(ctx) is None:
         return 1
+    # -- the mesh: two seats on the card --------------------------------------
+    mesh_counts = mesh_phase(ctx)
+    if mesh_counts is None:
+        return 1
+    del ctx.mesh_batches, ctx.registry
     built_keys = {key: rec["capture_s"] for key, rec in bk.builds.items()}  # with the new keys
 
     # -- the kernels on the path's own operands ----------------------------
@@ -2046,7 +2426,8 @@ def main() -> int:
         row = {"name": name, **rec, "launches": counts[home[name]][name],
                "launches_by_arm": {arm: counts[arm][name] for arm in ARMS},
                "launches_aggregate_by_arm": {arm: agg_counts[arm][name] for arm in ARMS},
-               "launches_epoch_by_arm": {arm: ep_counts[arm][name] for arm in ARMS}}
+               "launches_epoch_by_arm": {arm: ep_counts[arm][name] for arm in ARMS},
+               "launches_mesh": mesh_counts[name]}
         if name in epoch_widths:  # the epoch tree's widest calls
             row["epoch_widths"] = [r for r in epoch_widths[name]["by_width"]
                                    if r["n"] in EPOCH_CHECK_WIDTHS]

@@ -309,6 +309,14 @@ def _pack_wbits(weights: list[int]) -> torch.Tensor:
     return torch.as_tensor(np.concatenate([hi_bits, lo_bits], axis=0).astype(np.int32))
 
 
+def _seat(device) -> torch.device:
+    """``device`` with its index: a bare "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _to_device(x, device):
     if isinstance(x, F.LFp):
         return F.LFp(F.upload(x.limbs, device), x.bound)
@@ -352,7 +360,10 @@ class TorchBackend:
             raise RuntimeError(
                 "TorchBackend: CUDA is not available; pass device='cpu' to run "
                 "the plain PyTorch versions of the kernels")
-        self.device = device
+        # with its index: a bare "cuda" names the card current now, and a
+        # seat made current later (for_device, the pod's threads) must not
+        # change which card this backend's programs live on
+        self.device = _seat(device)
         self.min_batch = min_batch
         self.device_h2c = device_h2c
         # program key -> program (program.CapturedProgram on the card,
@@ -365,6 +376,7 @@ class TorchBackend:
         self._pool = None  # the keys' shared graph memory pool, on the card
         self._lock = threading.Lock()  # makes each key's program once
         self._aot_store = None
+        self._siblings = {}  # device -> the backend of that device (for_device)
 
     # -- the compiled programs: one per key (jax_backend/backend.py:_kernel) -
 
@@ -521,6 +533,35 @@ class TorchBackend:
         args = PG.map_operands(lambda t, _: t.repeat(*([1] * (t.dim() - 1)), reps), mb.args)
         self._program(B)(*args)
         return True
+
+    # -- seats of a mesh (parallel/): one backend per device -------------
+
+    def for_device(self, device) -> "TorchBackend":
+        """The backend whose programs run on ``device``: this one for its own
+        device, else a sibling made once per device with the same
+        ``min_batch`` and ``device_h2c`` and its own programs and graph pool
+        (the counterpart of the reference placing one jitted program on any
+        device).  Seats that repeat a device share its backend, and so one
+        program per key."""
+        device = _seat(device)
+        if device == self.device:
+            return self
+        with self._lock:
+            sib = self._siblings.get(device)
+            if sib is None:
+                sib = self._siblings[device] = TorchBackend(
+                    device, min_batch=self.min_batch, device_h2c=self.device_h2c)
+            return sib
+
+    def seat_program(self, device, B: int):
+        """The keyed batch-verify program a seat on ``device`` runs for its
+        ``B`` columns (``for_device(device)._program(B)``, a CUDA graph on the
+        card): the seam of ``parallel.partition.ShardedVerifyProgram``.  Its
+        arm is the one for B, ``fp.mxu_for_batch(B)`` with B the seat's
+        batch; the reference's sharded program traces its unpinned
+        ``local_verify_fn`` under the global gate instead.  Both compute
+        the same function."""
+        return self.for_device(device)._program(B)
 
     def local_verify_fn(self):
         """The raw device program (``_verify_kernel_h2c`` or

@@ -563,8 +563,7 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
                               void* stream) {{
   constexpr int kShared = {extra}{words} * 2 * lh::kGroupLanes;
   static_assert(kShared <= {SHARED_LIMIT}, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      {name}_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit({name}_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {{
     {name}_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, {group} * lh::kGroupLanes,
@@ -961,8 +960,7 @@ extern "C" int lh_{name}({sig["c_args"]}, {sig["c_outs"]}, int n,
                               void* stream) {{
   constexpr int kShared = kCoopShared<{sched.n_slots}> * 4;
   static_assert(kShared <= {SHARED_LIMIT}, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      {name}_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit({name}_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {{
     {name}_kernel<<<(n + kCoopLanes - 1) / kCoopLanes, kCoopRanks * kCoopLanes, kShared,

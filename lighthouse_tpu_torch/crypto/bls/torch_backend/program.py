@@ -34,6 +34,7 @@ import time
 
 import torch
 
+from ....parallel.mesh import host_pinned, seat_context
 from ....utils.metrics import JIT_COMPILE_SECONDS
 from . import fp as F
 
@@ -73,6 +74,15 @@ def _leaves(tree):
     return [leaf for c in tree for leaf in _leaves(c)]
 
 
+def _pinned(host, device):
+    """The operand tree with every host leaf contiguous in pinned memory when
+    ``device`` is a card, so that its copy there neither blocks nor waits (a
+    slice of a batch, as the pod's shards are, is strided)."""
+    if torch.device(device).type != "cuda":
+        return host
+    return map_operands(lambda t, _: host_pinned(t), host)
+
+
 def _copy_into(static, host) -> None:
     """Enqueue the copies of the host operands into the static buffers on the
     current stream, from pinned memory and without a host sync.  The
@@ -86,8 +96,6 @@ def _copy_into(static, host) -> None:
             raise ValueError(f"program operand {tuple(s.shape)} {s.dtype} bound {s_bound}; "
                              f"the program takes {tuple(d.shape)} {d.dtype} bound {d_bound}")
     for (d, _), (s, _) in zip(dst, src):
-        if s.device.type == "cpu" and not s.is_pinned():
-            s = s.pin_memory()
         d.copy_(s, non_blocking=True)
 
 
@@ -129,17 +137,23 @@ def _host_rss_bytes() -> int:
 
 
 class GraphPool:
-    """The memory pool every key of one backend captures into, and the event
-    recorded after the backend's last replay.  Keys share the pool, so a
-    replay's temporaries may lie where another key's were: every replay
-    waits for the one before it (an event, no host sync), whatever stream
-    it comes on, and each replay's static output is copied out right after
-    it, before another replay can run."""
+    """The memory pool every key of one backend captures into, the event
+    recorded after the backend's last replay, and the lock that orders the
+    replays.  Keys share the pool, so a replay's temporaries may lie where
+    another key's were: every replay waits for the one before it (an event,
+    no host sync), whatever stream or thread it comes from, and each
+    replay's static output is copied out right after it, before another
+    replay can run.  ``lock`` makes that sequence one step for each caller:
+    a dispatch holds it from reading ``last_replay`` through setting it
+    again, and a build holds it for the whole build, so no replay runs
+    beside a capture.  A dispatch holds it across no host sync, so a hung
+    card never keeps it from another thread."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.handle = torch.cuda.graph_pool_handle()
         self.last_replay: torch.cuda.Event | None = None
+        self.lock = threading.Lock()
 
     def reserved_bytes(self) -> int:
         """Device memory the pool holds: the graphs' working set."""
@@ -232,8 +246,11 @@ class CapturedProgram(_Program):
     stream after the backend's previous replay (``GraphPool.last_replay``),
     so dispatch N + 1 overwrites the static inputs only once replay N has
     read them, and replays of keys sharing the pool never overlap, also
-    when dispatches come on different streams.  The returned tensor never
-    aliases the static output."""
+    when dispatches come on different streams.  Concurrent callers (the
+    pod's shard threads, seats that share a backend) enqueue one at a time
+    under ``GraphPool.lock``: each one's copies, replay and output copy
+    are enqueued together, so no caller replays with another's operands.
+    The returned tensor never aliases the static output."""
 
     def __init__(self, fn, key: tuple, arm: tuple, pool: GraphPool, record: dict, counts,
                  on_build=None):
@@ -250,19 +267,32 @@ class CapturedProgram(_Program):
         return self.graph is not None
 
     def _run(self, host_args):
-        stream = torch.cuda.current_stream(self.pool.device)
-        if self.pool.last_replay is not None:
-            stream.wait_event(self.pool.last_replay)
-        with torch.inference_mode():
-            _copy_into(self.static_in, host_args)
-            self.graph.replay()
-            out = self.static_out.clone()
-        done = torch.cuda.Event()
-        done.record(stream)
-        self.pool.last_replay = done
+        # the graph's card made current: a replay goes to the current
+        # card's stream, whichever card the calling thread had current
+        with seat_context(self.pool.device), torch.inference_mode():
+            stream = torch.cuda.current_stream(self.pool.device)
+            # pinning, the output's allocation and the event's creation stay
+            # outside the lock: under it only enqueues
+            host_args = _pinned(host_args, self.pool.device)
+            done = torch.cuda.Event()
+            out = torch.empty_like(self.static_out)
+            with self.pool.lock:
+                if self.pool.last_replay is not None:
+                    stream.wait_event(self.pool.last_replay)
+                _copy_into(self.static_in, host_args)
+                self.graph.replay()
+                out.copy_(self.static_out)
+                done.record(stream)
+                self.pool.last_replay = done
         return out
 
     def _build(self, host_args) -> None:
+        # once per key, before it serves traffic: the build's synchronizes
+        # run under the pool's lock, so no replay overlaps the capture
+        with self.pool.lock, seat_context(self.pool.device):
+            self._build_locked(_pinned(host_args, self.pool.device))
+
+    def _build_locked(self, host_args) -> None:
         dev = self.pool.device
         rec = self.record
         self.static_in = map_operands(
@@ -290,8 +320,12 @@ class CapturedProgram(_Program):
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self.pool.handle), torch.inference_mode(), \
-                    F.pinned_arm(*self.arm):
+            # thread_local: another thread's work on the card (another
+            # backend's seat, a marshal's gather) neither fails the capture
+            # nor is captured into it
+            with torch.cuda.graph(graph, pool=self.pool.handle,
+                                  capture_error_mode="thread_local"), \
+                    torch.inference_mode(), F.pinned_arm(*self.arm):
                 out = self.fn(*self.static_in)
         except Exception as exc:
             raise RuntimeError(f"capture of program {self.key} failed: {exc}") from exc

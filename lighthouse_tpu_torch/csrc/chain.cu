@@ -425,13 +425,12 @@ fp2_chain_mxu_group_kernel(const int32_t* __restrict__ tape, int n_digits,
 #ifdef __CUDACC__
 // Launch a group chain kernel of G threads per lane in blocks of L lanes with
 // `words` of dynamic shared memory per block (the attribute set once per
-// kernel).
+// kernel and device, lh::set_shared_limit).
 template <int G, int L, int Words, class Kernel, class... Args>
 int launch_group(Kernel kernel, int n, cudaStream_t stream, Args... args) {
   constexpr int kShared = Words * 4;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<(n + L - 1) / L, G * L, kShared, stream>>>(args..., n);
   return static_cast<int>(cudaGetLastError());

@@ -28,6 +28,11 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#ifdef __CUDACC__
+#include <mutex>
+#include <set>
+#include <tuple>
+#endif
 
 namespace lh {
 
@@ -53,6 +58,32 @@ __device__ __forceinline__ int group_lane() {
 }
 template <int L = 32>
 __device__ __forceinline__ int group_rank() { return threadIdx.x / kLanes<L>; }
+
+#ifdef __CUDACC__
+// Raise a kernel's dynamic shared-memory limit to `bytes` on the current
+// device, the one its launch goes to.  The attribute belongs to each
+// device's context, so it is set once per (kernel, device, bytes): a process
+// whose seats sit on several cards sets it on each card, at its first launch
+// there (a launch on a card where it was never set fails above 48 KB).
+// Thread-safe; a table lookup under a mutex on every later launch.
+inline cudaError_t set_shared_limit(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::set<std::tuple<const void*, int, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(kernel, dev, bytes);
+  std::lock_guard<std::mutex> hold(mu);
+  if (done.count(key)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.insert(key);
+  return err;
+}
+template <class Kernel>
+inline cudaError_t set_shared_limit(Kernel kernel, int bytes) {
+  return set_shared_limit(reinterpret_cast<const void*>(kernel), bytes);
+}
+#endif
 
 }  // namespace lh
 

@@ -2036,8 +2036,7 @@ extern "C" int lh_miller_step_dbl_g16(const void* f, const void* t, const void* 
                               void* stream) {
   constexpr int kShared = 2392 * 2 * lh::kGroupLanes;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      miller_step_dbl_g16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(miller_step_dbl_g16_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
     miller_step_dbl_g16_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 16 * lh::kGroupLanes,
@@ -3322,8 +3321,7 @@ extern "C" int lh_miller_step_add_g16(const void* f, const void* t, const void* 
                               void* stream) {
   constexpr int kShared = 2808 * 2 * lh::kGroupLanes;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      miller_step_add_g16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(miller_step_add_g16_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
     miller_step_add_g16_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 16 * lh::kGroupLanes,

@@ -2168,8 +2168,7 @@ extern "C" int lh_miller_step_dbl_mxu_g8(const void* f, const void* t, const voi
                               void* stream) {
   constexpr int kShared = static_cast<int>(sizeof(lh::MxuShared<8, 32>)) + 2028 * 2 * lh::kGroupLanes;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      miller_step_dbl_mxu_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(miller_step_dbl_mxu_g8_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
     miller_step_dbl_mxu_g8_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 8 * lh::kGroupLanes,
@@ -3492,8 +3491,7 @@ extern "C" int lh_miller_step_add_mxu_g8(const void* f, const void* t, const voi
                               void* stream) {
   constexpr int kShared = static_cast<int>(sizeof(lh::MxuShared<8, 16>)) + 2392 * 2 * lh::kGroupLanes;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      miller_step_add_mxu_g8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(miller_step_add_mxu_g8_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
     miller_step_add_mxu_g8_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 8 * lh::kGroupLanes,

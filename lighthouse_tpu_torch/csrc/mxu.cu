@@ -99,8 +99,7 @@ extern "C" int lh_mont_mul_mxu(const void* a, const void* b, void* out, int n, i
   auto* o = static_cast<uint32_t*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   if (group == G && lanes == 32) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        mont_mul_mxu_group_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+    const cudaError_t attr = lh::set_shared_limit(mont_mul_mxu_group_kernel<G>, kShared);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     if (n > 0) mont_mul_mxu_group_kernel<G><<<(n + 31) / 32, G * 32, kShared, s>>>(x, y, o, n);
   } else if (group == 1 && lanes == kBlock) {

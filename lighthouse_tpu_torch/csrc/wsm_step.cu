@@ -1190,8 +1190,7 @@ extern "C" int lh_wsm_step_g2_g16(const void* acc, const void* inf_acc, const vo
                               void* stream) {
   constexpr int kShared = 910 * 2 * lh::kGroupLanes;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wsm_step_g2_g16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(wsm_step_g2_g16_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
     wsm_step_g2_g16_kernel<<<(n + lh::kGroupLanes - 1) / lh::kGroupLanes, 16 * lh::kGroupLanes,
@@ -1370,8 +1369,7 @@ extern "C" int lh_wsm_step_g1_coop(const void* acc, const void* inf_acc, const v
                               void* stream) {
   constexpr int kShared = kCoopShared<13> * 4;
   static_assert(kShared <= 232448, "one block's shared memory on sm_90");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wsm_step_g1_coop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kShared);
+  const cudaError_t attr = lh::set_shared_limit(wsm_step_g1_coop_kernel, kShared);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (n > 0) {
     wsm_step_g1_coop_kernel<<<(n + kCoopLanes - 1) / kCoopLanes, kCoopRanks * kCoopLanes, kShared,

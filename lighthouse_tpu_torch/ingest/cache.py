@@ -24,6 +24,11 @@ object, so an id cannot be recycled while its entry lives.  Equal but
 distinct key objects miss and repopulate; correctness never depends on a
 hit.
 
+A mesh (parallel/mesh.py) gets its own mirror, split on the validator axis
+(``registry_device_sharded``): each seat holds a contiguous shard of its own,
+so per-seat bytes shrink with the mesh's width; the sharded program gathers
+from it (parallel/partition.py).
+
 Thread-safe: one lock, taken once per batch-level call.  The mirror is
 replaced on growth, never written into, so a gather in flight keeps
 reading the mirror it was launched on.
@@ -61,6 +66,7 @@ class PubkeyLimbCache:
         self._lru: OrderedDict = OrderedDict()
         self._epoch: int | None = None
         self._dev = None  # the registry's mirror on the device, made lazily
+        self._dev_sharded: dict = {}  # mesh -> its validator-axis-sharded mirror
 
     # -- registry tier -----------------------------------------------------
 
@@ -81,7 +87,8 @@ class PubkeyLimbCache:
             for off, pk in enumerate(new):
                 self._slot_by_id[id(pk)] = start + off
             self._reg_keys.extend(new)
-            self._dev = None  # the mirror is stale
+            self._dev = None  # the mirrors are stale
+            self._dev_sharded.clear()
             M.INGEST_CACHE_KEYS.set(len(self._reg_keys) + len(self._lru))
             return end - start
 
@@ -99,6 +106,35 @@ class PubkeyLimbCache:
                 self._dev = (F.upload(torch.from_numpy(self._reg_x), self.device),
                              F.upload(torch.from_numpy(self._reg_y), self.device))
             return self._dev
+
+    def registry_device_sharded(self, mesh) -> tuple:
+        """The mirror partitioned over ``mesh``: (x, y), each a tuple of the
+        seats' (N, n_padded / width) int32 shards, seat i holding validators
+        ``[i * n_local, (i + 1) * n_local)``.  The validator axis is padded
+        with zero columns to a multiple of the width (no slot points
+        there).  Each shard is its own tensor on its seat, uploaded through
+        ``fp.upload`` (never inside a capture), so a seat holds 1 / width of
+        the registry.  Cached per mesh; dropped on growth, as the mirror
+        is."""
+        with self._lock:
+            cached = self._dev_sharded.get(mesh)
+            if cached is None:
+                width = len(mesh.seats)
+                n = self._reg_x.shape[1]
+                n_local = (n + width - 1) // width
+                pad = n_local * width - n
+                rx, ry = self._reg_x, self._reg_y
+                if pad:
+                    z = np.zeros((rx.shape[0], pad), dtype=rx.dtype)
+                    rx, ry = np.hstack([rx, z]), np.hstack([ry, z])
+                xs, ys = [], []
+                for i, seat in enumerate(mesh.seats):
+                    cols = slice(i * n_local, (i + 1) * n_local)
+                    xs.append(F.upload(torch.from_numpy(np.ascontiguousarray(rx[:, cols])), seat))
+                    ys.append(F.upload(torch.from_numpy(np.ascontiguousarray(ry[:, cols])), seat))
+                cached = (tuple(xs), tuple(ys))
+                self._dev_sharded[mesh] = cached
+            return cached
 
     def device_bytes(self) -> int:
         """Bytes the mirror takes (or will take) on the device."""

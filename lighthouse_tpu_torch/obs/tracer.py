@@ -1,9 +1,10 @@
 """Span tracer: a thread-safe ring buffer of timing spans.
 
 The port's own copy of the part of the JAX package's ``obs/tracer.py`` that
-the ingest engine and warm boot use: ``TRACER.span(name, **fields)`` as a context
-manager, nested spans linked to their parent on the same thread, and the
-most recent ``CAPACITY`` spans kept for ``snapshot()``.  Span names are a
+the ingest engine, warm boot and the pod use: ``TRACER.span(name, **fields)``
+as a context manager, ``TRACER.instant(name, **fields)`` for a point event,
+nested spans linked to their parent on the same thread, and the most recent
+``CAPACITY`` spans kept for ``snapshot()``.  Span names are a
 closed set (``SPANS``).  Clocks are ``time.perf_counter()``: only deltas
 mean anything.
 """
@@ -25,6 +26,9 @@ SPANS: dict[str, str] = {
     "aot.capture": "AOT store: one program's operand skeleton written after its first build",
     "prewarm.load": "warm boot: one store entry read, verified and its program built",
     "autotune.trial": "autotune: one arm's timed Montgomery-product trial at one batch shape",
+    "verify.batch": "PodVerifier.verify_batch: one batch through the pod and its ladder",
+    "pod.dispatch": "pod: one dispatch round over the mesh (sharded program or shard threads)",
+    "pod.reshard": "pod: a round lost a seat and the batch re-shards onto the survivors",
 }
 
 
@@ -86,6 +90,18 @@ class Tracer:
         if name not in SPANS:
             raise ValueError(f"unknown span name {name!r}")
         return _LiveSpan(self, name, fields)
+
+    def instant(self, name: str, **fields) -> None:
+        """Record a zero-duration point event (a state transition)."""
+        if name not in SPANS:
+            raise ValueError(f"unknown span name {name!r}")
+        sp = _LiveSpan(self, name, fields)
+        sp.sid = next(self._ids)
+        stack = self._stack()
+        if stack:
+            sp.parent = stack[-1]
+        sp.t0 = time.perf_counter()
+        self._commit(sp, 0.0)
 
     def _stack(self) -> list:
         stack = getattr(self._tls, "stack", None)

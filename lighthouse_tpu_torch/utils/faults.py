@@ -2,14 +2,20 @@
 
 The port's own copy of the part of the JAX package's ``utils/faults.py``
 that its sites need.  A site is a string; code on a hot path calls
-``fire(site)`` there, which is a no-op (one dict lookup) unless a fault is
-armed at the site.  The port's sites:
+``fire(site)`` there (or ``fire(site, payload)`` where a verdict passes),
+which is a no-op (one dict lookup) unless a fault is armed at the site.
+The port's sites:
 
   ``bls.device_verify``  the head of ``TorchBackend.verify_signature_sets``,
                          before the marshal: device errors, hung devices
   ``ingest.marshal``     the head of ``IngestEngine.marshal_sets`` and
                          ``marshal_for_mesh`` (ingest/engine.py): a failed
                          vectorized marshal, which degrades to the scalar one
+  ``pod.dispatch``       ``PodVerifier``'s per-shard dispatch and its sharded
+                         program's dispatch (parallel/pod.py): shard loss,
+                         hung seats mid-batch
+  ``pod.gather``         ``PodVerifier``'s per-shard verdict on its way back,
+                         fired with the verdict as payload: corrupted results
 
 Fault kinds:
 
@@ -18,17 +24,30 @@ Fault kinds:
 * ``crash``        raise :class:`InjectedCrash` (task death)
 * ``slow``, ``stall``, ``device-hang``
                    sleep ``delay`` seconds, then pass
+* ``shard-drop``   raise :class:`DeviceFault`: the seat behind this shard went
+                   away mid-batch
+* ``corrupt-shard-result``
+                   apply ``mutate`` to the payload, by default inverting a
+                   shard verdict; the spec argument ``:stuck-true`` selects
+                   the targeted ``False -> True`` lie instead
+* ``silent-stuck-true``
+                   force a boolean verdict payload to True (anything else
+                   passes untouched); it never raises
 
-``times=N`` disarms a site after N firings; every firing is counted in
-``injected`` and logged in order in ``fired`` as ``(site, kind)``.
+``times=N`` disarms a site after N firings; ``probability`` gates each
+firing on a draw from the injector's own stream (``FaultInjector(seed=N)``
+makes two identically armed injectors fire the same sequence).  Every
+firing is counted in ``injected`` and logged in order in ``fired`` as
+``(site, kind)``.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 
 class FaultError(RuntimeError):
@@ -43,34 +62,47 @@ class InjectedCrash(FaultError):
     """Injected task death."""
 
 
-_RAISING = {"error": DeviceFault, "crash": InjectedCrash}
+def _stuck_true(ok):
+    """The targeted ``False -> True`` verdict lie (the wrong accept)."""
+    return True if isinstance(ok, bool) else ok
+
+
+_RAISING = {"error": DeviceFault, "crash": InjectedCrash, "shard-drop": DeviceFault}
 _DELAYS = ("slow", "stall", "device-hang")
-_KINDS = (*_RAISING, *_DELAYS)
+# kind -> its default payload mutator
+_MUTATING = {"corrupt-shard-result": lambda ok: not ok, "silent-stuck-true": _stuck_true}
+_KINDS = (*_RAISING, *_DELAYS, *_MUTATING)
 
 
 @dataclass
 class Fault:
     kind: str
     delay: float = 0.0
+    mutate: Callable[[Any], Any] | None = None
     remaining: int | None = None  # None = until disarmed
+    probability: float = 1.0
 
 
 class FaultInjector:
     """Thread-safe switchboard of armed faults, keyed by site."""
 
-    def __init__(self):
+    def __init__(self, seed: int | None = None):
         self._armed: dict[str, Fault] = {}
         self._lock = threading.Lock()
+        self._rng = random.Random(seed).random if seed is not None else random.random
+        self.seed = seed
         self.injected = 0
         #: every firing, in order, as (site, kind)
         self.fired: list[tuple[str, str]] = []
 
     def arm(self, site: str, kind: str = "error", *, delay: float = 0.0,
-            times: int | None = None) -> None:
+            mutate: Callable[[Any], Any] | None = None, times: int | None = None,
+            probability: float = 1.0) -> None:
         if kind not in _KINDS:
             raise ValueError(f"unknown fault kind {kind!r}; have {_KINDS}")
         with self._lock:
-            self._armed[site] = Fault(kind=kind, delay=delay, remaining=times)
+            self._armed[site] = Fault(kind=kind, delay=delay, mutate=mutate, remaining=times,
+                                      probability=probability)
 
     def disarm(self, site: str | None = None) -> None:
         """Disarm one site, or every site when ``site`` is None."""
@@ -85,9 +117,10 @@ class FaultInjector:
             return site in self._armed
 
     def arm_from_spec(self, spec: str) -> None:
-        """Arm from a command-line spec ``site=kind[:delay][xN]``, for
-        example ``bls.device_verify=errorx3`` or
-        ``bls.device_verify=slow:0.5``."""
+        """Arm from a command-line spec ``site=kind[:arg][xN]``, for
+        example ``bls.device_verify=errorx3``, ``bls.device_verify=slow:0.5``,
+        ``pod.dispatch=shard-dropx1`` or
+        ``pod.gather=corrupt-shard-result:stuck-true``."""
         site, _, rest = spec.partition("=")
         if not site or not rest:
             raise ValueError(f"bad fault spec {spec!r}; want site=kind[:arg][xN]")
@@ -98,12 +131,15 @@ class FaultInjector:
         kind, _, arg = rest.partition(":")
         kind = kind.strip()
         delay = float(arg) if arg and kind in _DELAYS else 0.0
-        self.arm(site.strip(), kind, delay=delay, times=times)
+        mutate = _stuck_true if kind == "corrupt-shard-result" and arg == "stuck-true" else None
+        self.arm(site.strip(), kind, delay=delay, mutate=mutate, times=times)
 
     def _take(self, site: str) -> Fault | None:
         with self._lock:
             f = self._armed.get(site)
             if f is None:
+                return None
+            if f.probability < 1.0 and self._rng() >= f.probability:
                 return None
             if f.remaining is not None:
                 f.remaining -= 1
@@ -113,15 +149,23 @@ class FaultInjector:
             self.fired.append((site, f.kind))
             return f
 
+    def fired_sequence(self) -> tuple[tuple[str, str], ...]:
+        """Every firing so far, in order: the same across runs with the same
+        seed and the same arming."""
+        with self._lock:
+            return tuple(self.fired)
+
     def fire(self, site: str, payload: Any = None) -> Any:
-        """Apply the fault armed at ``site`` (raise or sleep) and return the
-        payload; an unarmed site returns it untouched."""
+        """Apply the fault armed at ``site`` (raise, sleep or mutate) and
+        return the payload; an unarmed site returns it untouched."""
         f = self._take(site)
         if f is None:
             return payload
         if f.kind in _DELAYS:
             time.sleep(f.delay)
             return payload
+        if f.kind in _MUTATING:
+            return (f.mutate or _MUTATING[f.kind])(payload)
         raise _RAISING[f.kind](f"injected {f.kind} at {site}")
 
 

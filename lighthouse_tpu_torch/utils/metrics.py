@@ -6,14 +6,17 @@ signers skip aggregation and limb encode, the rate gauge and the pool depth
 say whether the marshal keeps pace with the card, and the fallback counter
 counts every degradation of the vectorized marshal.  Warm boot's: the
 program build histogram, the AOT store's hit, miss and reject counters and
-the compile-cache error counter.  Each counter and gauge is thread-safe and
-has ``inc``, ``set`` and ``value()``; a histogram has ``observe`` and
-``count()``.
+the compile-cache error counter.  The pod's (parallel/pod.py): the live mesh
+width, exclusions, re-arms, re-shards, retries and ladder fallbacks, and the
+batch latency.  Each counter and gauge is thread-safe and has ``inc``,
+``set`` and ``value()``; a histogram has ``observe``, ``count()`` and
+``timer()``.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 
 class _Metric:
@@ -66,6 +69,24 @@ class Histogram:
     def count(self) -> int:
         with self._lock:
             return self._count
+
+    def timer(self):
+        """A context manager observing the seconds of its block."""
+        return _Timer(self)
+
+
+class _Timer:
+    def __init__(self, hist: Histogram):
+        self._hist = hist
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.observe(time.perf_counter() - self._t0)
+        return False
 
 
 INGEST_CACHE_HITS = Counter(
@@ -130,4 +151,39 @@ COMPILE_CACHE_ERRORS = Counter(
     "compile_cache_errors_total",
     "Failures pointing the kernel libraries' build root at a cache directory: "
     "a dead cache re-pays every nvcc build on every boot",
+)
+
+# The pod (parallel/pod.py PodVerifier): the live mesh width (8/4/2/1 after
+# exclusions), the device health tracker's exclusions and re-arms, the
+# recovery work the fault domains absorbed (re-shards, retries), and the
+# batches handed down the ladder to the single-device verifier.
+VERIFY_BATCH_LATENCY = Histogram(
+    "verify_batch_latency_seconds",
+    "verify_batch wall time per batch (the pod's rounds and its ladder included)",
+)
+POD_ACTIVE_SHARDS = Gauge(
+    "pod_active_shards",
+    "Seats the pod verifier is dispatching across (mesh width after exclusions: "
+    "8/4/2/1, 0 before first use)",
+)
+POD_EXCLUSIONS = Counter(
+    "pod_device_exclusions_total",
+    "Seats excluded from the pod mesh after consecutive shard failures",
+)
+POD_RESHARDS = Counter(
+    "pod_reshards_total",
+    "Batches re-sharded onto a reduced mesh after shard failures",
+)
+POD_RETRIES = Counter(
+    "pod_shard_retries_total",
+    "Per-shard dispatch attempts past the first (timeout or device fault)",
+)
+POD_REARMS = Counter(
+    "pod_device_rearms_total",
+    "Excluded seats re-admitted to the mesh after a probe batch succeeded",
+)
+POD_FALLBACKS = Counter(
+    "pod_fallbacks_total",
+    "Batches the pod handed to the single-device verifier's ladder (mesh "
+    "exhausted, breaker open, or a shard verdict False)",
 )

@@ -25,7 +25,11 @@ sizes under each arm.  The ingest engine's registry gather on the card
 equals host assembly (and dispatches through the B = 8 graph), and the epoch
 balance pipeline on the card equals its CPU run.  Warm boot (aot.py): a
 key captured into an AOT store is prewarmed by a fresh backend from its
-operand skeleton and replays the same verdicts.
+operand skeleton and replays the same verdicts.  The mesh (parallel/): two
+threads dispatching through one key on their own streams keep their own
+verdicts (the replay lock), a ShardedVerifyProgram on a 2-seat mesh of one
+card matches the single-device verdicts, and the partitioned registry's
+gather equals the host take.
 """
 
 import random
@@ -525,3 +529,105 @@ def test_cuda_epoch_pipeline_matches_cpu():
         card = PT.epoch_balance_pipeline(*args, **kw)  # the card by default
         cpu = PT.epoch_balance_pipeline(*args, **kw, device="cpu")
         assert all(np.array_equal(a, b) for a, b in zip(card, cpu))
+
+
+def _mesh_sets(n, bad=()):
+    """n single-signer sets under distinct keys; the sets at ``bad`` carry a
+    signature of another message."""
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    sks = [api.SecretKey(7100 + 13 * i) for i in range(n)]
+    sets = []
+    for i, sk in enumerate(sks):
+        msg = b"mesh %d" % i
+        sig = sk.sign(b"other" if i in bad else msg)
+        sets.append(api.SignatureSet(sig, [sk.public_key()], msg))
+    return sets
+
+
+@pytest.mark.cuda
+def test_cuda_two_threads_through_one_key_keep_their_verdicts():
+    """The replay lock (program.GraphPool.lock): two threads, each on its own
+    stream, dispatch 20 alternating valid and bad B = 8 batches through the
+    same key, all in flight before the first resolve; every verdict is the
+    batch's own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    import threading
+
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    good, bad = bk.marshal_sets(_mesh_sets(8)), bk.marshal_sets(_mesh_sets(8, bad=(5,)))
+    assert bk.resolve(bk.dispatch(good)) is True  # builds the key
+    results, errors = {}, []
+
+    def run(tid):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                order = [(i + tid) % 2 == 0 for i in range(20)]
+                handles = [bk.dispatch(good if ok else bad) for ok in order]
+                results[tid] = ([bk.resolve(h) for h in handles], order)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errors and len(results) == 2
+    for got, want in results.values():
+        assert got == want
+    assert len(bk.builds) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_program_on_two_seats_matches_single_device():
+    """ShardedVerifyProgram over a 2-seat mesh on one card at B = 16: both
+    seats share the backend and its B = 8 key; the verdict vector is
+    [True, True] on a valid batch and [True, False] with set 10 bad, and its
+    conjunction equals the single-device verdict."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+    from lighthouse_tpu_torch.parallel import make_mesh
+    from lighthouse_tpu_torch.parallel.partition import ShardedVerifyProgram
+
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    mesh = make_mesh(2, device="cuda:0")
+    assert bk.for_device(mesh.seats[0]) is bk and bk.for_device(mesh.seats[1]) is bk
+    prog = ShardedVerifyProgram(mesh, seat_program=bk.seat_program, pk_wrap=bk.registry_pk_wrap)
+    for bad, want in (((), [True, True]), ((10,), [True, False])):
+        mb = bk.marshal_sets(_mesh_sets(16, bad=bad))
+        assert list(prog.verdict_vector(mb.args)) == want
+        assert bk.verify_marshalled(mb) is all(want)
+    assert sorted(k[0] for k in bk.builds) == [8, 16]
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_registry_gather_is_byte_equal_to_host_take():
+    """The partitioned registry on a 2-seat mesh of one card: each seat holds
+    half the mirror's bytes, and the seats' gathered pubkey planes equal the
+    host take of the slots, column for column."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    import numpy as np
+
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.ingest import PubkeyLimbCache
+    from lighthouse_tpu_torch.parallel import make_mesh
+    from lighthouse_tpu_torch.parallel import partition as PP
+
+    keys = [api.SecretKey(5000 + 7 * i).public_key() for i in range(40)]
+    cache = PubkeyLimbCache(device="cuda")
+    cache.sync_registry(_Registry(keys))
+    mesh = make_mesh(2, device="cuda:0")
+    reg_x, reg_y = cache.registry_device_sharded(mesh)
+    assert all(x.nbytes + y.nbytes == cache.device_bytes() // 2 for x, y in zip(reg_x, reg_y))
+    slots = torch.as_tensor([37, 2, 19, 0, 25, 11, 39, 20], dtype=torch.int64)
+    xs, ys = PP._registry_gather(reg_x, reg_y, [slots.cuda()] * 2, mesh)
+    hx, hy = cache.registry_columns(slots.numpy())
+    got_x = np.concatenate([x.cpu().numpy() for x in xs], axis=1)
+    got_y = np.concatenate([y.cpu().numpy() for y in ys], axis=1)
+    assert np.array_equal(got_x, hx) and np.array_equal(got_y, hy)

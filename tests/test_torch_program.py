@@ -201,3 +201,164 @@ def test_registry_seams_as_in_the_reference():
     assert x.limbs is limbs and torch.equal(y.limbs, limbs + 1)
     assert TB.MarshalledBatch(0, 0, True).slots is None
     assert JB.MarshalledBatch(0, 0, True).slots is None
+
+
+class _FakeEvent:
+    def record(self, stream=None):
+        pass
+
+
+class _FakeStream:
+    def __init__(self, log, pool):
+        self.log, self.pool = log, pool
+
+    def wait_event(self, event):
+        self.log.append(("wait_event", self.pool.lock.locked()))
+
+
+def _fake_captured(monkeypatch, log):
+    """A CapturedProgram on the CPU with the card's calls faked: its graph
+    replay computes static_out = 3 * static_in + 1, reading the static input
+    and writing the output at two moments, as a replay on the card does."""
+    import threading
+    import time
+    import types
+
+    pool = types.SimpleNamespace(device=torch.device("cpu"), last_replay=None,
+                                 lock=threading.Lock())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream(log, pool))
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: log.append(("synchronize", pool.lock.locked())))
+    prog = PG.CapturedProgram(None, ("k",), (False, False, False), pool, {}, lambda: {})
+    prog.static_in = (torch.zeros(4, dtype=torch.int64),)
+    prog.static_out = torch.zeros(4, dtype=torch.int64)
+
+    class Graph:
+        def replay(self):
+            log.append(("replay", pool.lock.locked()))
+            seen = prog.static_in[0].clone()
+            time.sleep(0.0005)
+            prog.static_out.copy_(3 * seen + 1)
+
+    prog.graph = Graph()
+    real_copy = PG._copy_into
+
+    def copy_into(static, host):
+        log.append(("copy_into", pool.lock.locked()))
+        real_copy(static, host)
+
+    monkeypatch.setattr(PG, "_copy_into", copy_into)
+    return prog, pool
+
+
+def test_replays_enqueue_under_the_pool_lock_and_sync_nothing(monkeypatch):
+    """A dispatch waits on the last replay, copies its operands in, replays
+    and copies the output out all under its pool's lock, and makes no host
+    sync; the output never aliases the static output."""
+    log = []
+    prog, pool = _fake_captured(monkeypatch, log)
+    out = prog._run((torch.arange(4),))
+    assert torch.equal(out, 3 * torch.arange(4) + 1) and out is not prog.static_out
+    out2 = prog._run((torch.ones(4, dtype=torch.int64),))
+    assert torch.equal(out, 3 * torch.arange(4) + 1) and torch.equal(out2, torch.full((4,), 4))
+    assert [e for e, _ in log] == ["copy_into", "replay", "wait_event", "copy_into", "replay"]
+    assert all(held for _, held in log)
+    assert not pool.lock.locked() and pool.last_replay is not None
+
+
+def test_concurrent_dispatches_through_one_key_keep_their_operands(monkeypatch):
+    """Threads dispatching through the same key, more threads than cores
+    and a short switch interval: each gets the output of its own operands
+    (without the lock, one thread's copy lands between another's copy and
+    replay)."""
+    import os
+    import sys
+    import threading
+
+    log = []
+    prog, _ = _fake_captured(monkeypatch, log)
+    n_threads = max(4, 2 * (os.cpu_count() or 1))
+    results, errors = {t: [] for t in range(n_threads)}, []
+
+    def run(tid):
+        try:
+            for i in range(30):
+                v = torch.full((4,), 1000 * tid + i, dtype=torch.int64)
+                results[tid].append((v, prog._run((v,))))
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(t,)) for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    for pairs in results.values():
+        assert len(pairs) == 30
+        assert all(torch.equal(out, 3 * v + 1) for v, out in pairs)
+
+
+def test_a_build_holds_the_pool_lock(monkeypatch):
+    """_build orders itself against replays through the same lock."""
+    log = []
+    prog, pool = _fake_captured(monkeypatch, log)
+    monkeypatch.setattr(PG.CapturedProgram, "_build_locked",
+                        lambda self, host: log.append(("build", pool.lock.locked())))
+    prog._build((torch.zeros(4, dtype=torch.int64),))
+    assert log == [("build", True)] and not pool.lock.locked()
+
+
+def test_for_device_gives_one_backend_per_device():
+    """for_device: the backend itself on its own device, else one sibling
+    per device with its min_batch and device_h2c; seat_program is the
+    sibling's keyed program for the seat's batch."""
+    bk = TB.TorchBackend(device="cpu", min_batch=4, device_h2c=False)
+    assert bk.for_device("cpu") is bk and bk.for_device(torch.device("cpu")) is bk
+    assert bk.seat_program("cpu", 8) is bk._program(8)
+    sib = bk.for_device("meta")
+    assert sib is not bk and bk.for_device("meta") is sib
+    assert (sib.min_batch, sib.device_h2c, sib.device) == (4, False, torch.device("meta"))
+    assert sib._programs == {} and sib.seat_program("meta", 8) is sib._program(8)
+    assert bk.seat_program("meta", 8) is sib._program(8)
+
+
+def test_a_bare_cuda_backend_keeps_the_card_current_when_made(monkeypatch):
+    """TorchBackend("cuda") holds the card current at its making, with its
+    index: a seat on cuda:1, whose seat_context makes cuda:1 current, gets
+    the cuda:1 sibling from for_device, never the cuda:0 backend."""
+    current = [0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+    bk = TB.TorchBackend()
+    assert bk.device == torch.device("cuda", 0)
+    current[0] = 1
+    sib = bk.for_device(torch.device("cuda", 1))
+    assert sib is not bk and sib.device == torch.device("cuda", 1)
+    assert bk.for_device("cuda") is sib and bk.for_device("cuda:0") is bk
+
+
+def test_a_seat_runs_the_arm_of_its_own_batch(monkeypatch):
+    """The seat program's key is resolved for the seat's batch B / width
+    (fp.mxu_for_batch of that B).  The reference's sharded program traces
+    its unpinned local_verify_fn under the global gate instead: with a plan
+    that puts 4 lanes on mxu13 and 8 on vpu15 (no default), an 8-set batch
+    on two seats runs the mxu key at B = 4 per seat here, and the 15-bit
+    plane in the reference.  Both compute the same function."""
+    bk = TB.TorchBackend(device="cpu", min_batch=4)
+    monkeypatch.delenv("LIGHTHOUSE_TPU_MXU", raising=False)
+    plan = {4: True, 8: False}
+    monkeypatch.setattr(F, "_MXU_MODE", None)
+    monkeypatch.setattr(F, "_MXU_PLAN", plan)
+    assert bk.seat_program("cpu", 4).key == (4, True, True, False, False)
+    assert bk._program(8).key == (8, True, False, False, False)
+    # the reference's sharded program reads the global gate, off under it
+    monkeypatch.setattr(JF, "_MXU_MODE", None)
+    monkeypatch.setattr(JF, "_MXU_PLAN", plan)
+    assert JF.mxu_enabled() is False and JF.mxu_for_batch(4) is True
