@@ -145,6 +145,40 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    width 1; (e) two threads dispatching THREAD_BATCHES alternating valid
    and bad 2,048-set batches each through one key on their own streams,
    every verdict right; the phase's seconds and host memory.
+   serve (serve_phase): the front door (beacon/processor.py, integrity/,
+   serve/) over the main backend on the default arm, registered as
+   "torch", reusing the earlier phases' keys (4,096, 2,048, 32) and
+   building the 8-set key before traffic (the canaries' and the child's
+   key); every key it builds printed with its seconds and host memory:
+   (a) SERVE_PIPE_BATCHES valid 4,096-set batches through
+   PipelinedVerifier.for_backend over the ingest engine, then in series:
+   wall, marshal busy, device busy, occupancy, equal verdicts; (b) one bad
+   set in a SERVE_BISECT_SETS batch through ResilientVerifier: per-set
+   verdicts, the keys the bisection built (the 16-set key) and its device
+   calls; (c)
+   build_verify_stack (integrity auto, k = 2) -> VerifyService ->
+   ServeApiServer on port 0, the tick pump running: an honest tenant posts
+   SERVE_HTTP_REQS requests of SERVE_HTTP_REQ sets over HTTP (one bad set)
+   while a greedy one posts at ten times its pace; polled verdicts equal
+   the truth and the bare ResilientVerifier on the same FIFO batches, only
+   the greedy tenant shed (429); then SERVE_BIG_REPS batches of SERVE_BIG
+   sets through the service at k = 2 and k = 0 and bare: sets/s and
+   p50 / p99 end-to-end latency, and the canary overhead against the
+   reference's 2% bar (printed, not gated); (d) the 2-seat pod of the mesh
+   phase wrapped in the guard (its marshal padding to N_SETS, so the seats
+   replay the mesh phase's 2,048-set key), pod.gather=silent-stuck-true
+   armed on a SERVE_LIE_SETS batch with a bad set: distrusted, the truth
+   released from the CPU rung, then clean traffic back on the device; (e)
+   the cross-arm audit (fraction 1.0, arms vpu15 then mxu13) on a
+   SERVE_AUDIT_SETS batch, each audit's mode read from INTEGRITY_AUDITS
+   (the card's arms, never the CPU floor), the mxu13 key's build printed;
+   (f) run_selfcheck, its default corpus, over every verify key the
+   backend holds; (g) ``python -m lighthouse_tpu_torch.serve --port 0`` in
+   a child process (started first, so its own key builds beside the
+   phase): /health and one POST / poll round trip of SERVE_CHILD_SETS sets,
+   then interrupted, exit 0.  Every clean batch must be journaled to the
+   device rung with the breaker closed and no CPU-rung run; only (d)'s lie
+   takes the CPU rung.
 7. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches, queued while the card sleeps so that the host's
    wrapper time stays out.  mont_mul at every width of the default path
@@ -180,8 +214,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
 Then the kernels line (with each kernel's launches at capture per program
 and arm: the verify's, the aggregate's at AGG_ARM_SIZE messages and the
 epoch's; launches_mesh, the mesh path's first run on the default arm, its
-seat key's warm-up and capture; kernels 1 and 7 also timed at the epoch
-tree's widths), the
+seat key's warm-up and capture; launches_serve, the serve phase's run:
+the warm-up and capture of the keys it builds; kernels 1 and 7 also timed
+at the epoch tree's widths), the
 nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
 It exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -293,6 +328,25 @@ POD_SHARD_TIMEOUT_S = 5.0
 THREAD_JOIN_S = 600  # (e)'s wait for its threads
 THREAD_BATCHES = 20  # dispatches per thread through one key
 BALANCE_RUNS = 5
+SERVE_PIPE_BATCHES = 4  # (a) 4,096-set batches through the pipeline, then in series
+SERVE_BISECT_SETS = 32  # (b) the ladder's one-bad batch: the 32-, 16- and 8-set keys
+SERVE_BISECT_BAD = 21
+SERVE_HTTP_REQS = 3  # (c) the honest tenant's requests of SERVE_HTTP_REQ sets
+SERVE_HTTP_REQ = 8
+SERVE_HTTP_BAD = 13  # the honest tenant's one bad set (its request 1)
+SERVE_HTTP_PERIOD_S = 0.4  # the honest tenant's pace; the greedy one's is ten times it
+SERVE_HTTP_GREEDY_THREADS = 2  # the greedy tenant's posting threads (a post decodes 8 keys)
+SERVE_HTTP_RATE = 24.0  # both tenants' policy: sets/s and a burst of two requests
+SERVE_HTTP_SIZES = (8,)  # the service's fill threshold: every flush pads to the 8-set key
+SERVE_BIG = 2048  # (c) the throughput batches, SERVE_BIG_REPS of them for each k
+SERVE_BIG_REPS = 2
+SERVE_LIE_SETS = 8  # (d) the lie's batch and its bad set
+SERVE_LIE_BAD = 3
+SERVE_AUDIT_SETS = 32  # (e)
+SERVE_CHILD_SETS = 8  # (g) the child's round trip, one bad set at SERVE_CHILD_BAD
+SERVE_CHILD_BAD = 5
+SERVE_CHILD_RUN_S = 400  # the child's --run-secs; it is interrupted once its round trip is done
+SERVE_POLL_S = 300  # the longest wait for a verdict over HTTP
 
 STEP_NAMES = ("miller_step_dbl", "miller_step_add")
 WSM_NAMES = ("wsm_step_g1", "wsm_step_g2")
@@ -430,10 +484,16 @@ def capture_kernel_operands(entry_points, mxu_active, keep_steps, run):
 def profile_trace(torch, run, cpu=False):
     """run() (one verify, True expected) under torch.profiler: the card's
     activity and, with ``cpu``, the host's.  Returns (the verify's wall
-    time, the trace's events)."""
-    import os
-    import tempfile
-
+    time, the trace's events).  The events are read from the profiler's own
+    records, not from its chrome-trace export (writing and parsing that
+    file costs several times the read of the records), in the export's
+    form: "cat" kernel (a kernel the card ran), cuda_runtime (a CUDA
+    runtime call on the host) or user_annotation (a record_function range
+    on the host); "name"; "ts" and "dur" in microseconds; args.correlation,
+    which ties a kernel to the runtime call that launched it.  The card's
+    copies and fills and the card's spans of the host's ranges are left
+    out, as the export files them under other categories."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
@@ -444,11 +504,26 @@ def profile_trace(torch, run, cpu=False):
         wall_s = time.perf_counter() - t0
     if ok is not True:
         raise RuntimeError("the profiled verify returned False")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            return wall_s, json.load(fh)["traceEvents"]
+    kept, ranges = [], set()
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if name.startswith(("Memcpy", "Memset")):
+                continue
+            cat = "kernel"
+        elif e.is_user_annotation():
+            cat = "user_annotation"
+            ranges.add(name)
+        elif name.startswith("cuda"):
+            cat = "cuda_runtime"
+        else:
+            continue
+        kept.append((cat, name, e.start_ns(), e.duration_ns(), e.correlation_id()))
+    base = min((start for _, _, start, _, _ in kept), default=0)
+    return wall_s, [{"cat": cat, "name": name, "ts": (start - base) / 1e3, "dur": dur / 1e3,
+                     "args": {"correlation": corr}}
+                    for cat, name, start, dur, corr in kept
+                    if not (cat == "kernel" and name in ranges)]
 
 
 def _kernel_name(e) -> str:
@@ -1641,6 +1716,442 @@ def mesh_phase(c):
     return mesh_counts
 
 
+def serve_phase(c):
+    """The front door over the main backend on the default arm: (a) the
+    pipelined stream against the same batches in series; (b) bisection of
+    one bad set by the ladder; (c) the guarded service behind its HTTP edge,
+    two tenants, then 2,048-set batches at k = 2 and k = 0; (d) a silent
+    lie through the 2-seat pod caught by the canaries; (e) the cross-arm
+    audit; (f) the selfcheck over every verify key; (g) the entry point in
+    a child process.  Returns the launch counts of the phase's run (the
+    builds of its keys), or None on a failure."""
+    import re
+    import signal
+    import urllib.error
+    import urllib.request
+
+    from lighthouse_tpu_torch.beacon.processor import (
+        CircuitBreaker, PipelinedVerifier, ResilientVerifier)
+    from lighthouse_tpu_torch.ingest import IngestEngine
+    from lighthouse_tpu_torch.integrity import CrossArmAuditor, IntegrityGuard, run_selfcheck
+    from lighthouse_tpu_torch.parallel import make_mesh, pod as POD
+    from lighthouse_tpu_torch.serve import ServeApiServer, TenantPolicy, VerifyService
+    from lighthouse_tpu_torch.serve.stack import build_verify_stack
+    from lighthouse_tpu_torch.utils import faults as FA, metrics as M
+
+    torch, api, backend, bk, smi, PG = c.torch, c.api, c.backend, c.bk, c.smi, c.PG
+    t_phase = time.perf_counter()
+    rss0 = PG._host_rss_bytes()
+    c.set_arm("default")
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+        return ok
+
+    def oracle(sets):
+        return api.cpu_backend().verify_signature_sets(list(sets))
+
+    def one_bad(sets, i):
+        """``sets`` with set i's signature swapped for its neighbour's"""
+        out = list(sets)
+        out[i] = api.SignatureSet(sets[i + 1].signature, sets[i].signing_keys, sets[i].message)
+        return out
+
+    def built(keys_before, step):
+        """Emit every key built since ``keys_before`` with its seconds and
+        host memory; returns the new keys."""
+        new = sorted(set(bk.builds) - keys_before, key=str)
+        for key in new:
+            rec = bk.builds[key]
+            emit({"phase": "serve", "step": "key_built", "by": step, "key": key,
+                  **{k: rec.get(k) for k in ("build_s", "warmup_s", "capture_s", "instantiate_s",
+                                             "capture_host_bytes", "instantiate_host_bytes")},
+                  "host_rss_gib": PG._host_rss_bytes() / 2**30})
+        return new
+
+    def device_only(journal):
+        return bool(journal) and all(kind in ("device", "pod") for kind, _ in journal)
+
+    api.register_backend(bk)  # the main backend is "torch" for the stack
+    api.set_backend("torch")
+    single = [s for s in c.pool if len(s.signing_keys) == 1]  # 60 single-signer sets
+    backend.reset_launch_counts()  # the counts just before the serve path
+
+    # -- (g), started first: the entry point in a child process --------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    err_log = tempfile.NamedTemporaryFile("w+", suffix=".log", delete=False)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "lighthouse_tpu_torch.serve", "--port", "0",
+         "--run-secs", str(SERVE_CHILD_RUN_S)],
+        cwd=root, stdout=subprocess.PIPE, stderr=err_log, text=True)
+    child_lines = []
+    reader = threading.Thread(target=lambda: child_lines.extend(iter(child.stdout.readline, "")),
+                              daemon=True)
+    reader.start()
+
+    def http(port, path, doc=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", method="POST" if doc is not None else "GET",
+            data=None if doc is None else json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    def wire(sets):
+        return [{"signature": "0x" + s.signature.to_bytes().hex(),
+                 "pubkeys": ["0x" + k.to_bytes().hex() for k in s.signing_keys],
+                 "message": "0x" + s.message.hex()} for s in sets]
+
+    def poll(port, rid, until):
+        while time.perf_counter() < until:
+            status, doc = http(port, f"/eth/v1/verify/batch/{rid}")
+            if status == 200 and doc["data"]["status"] == "done":
+                return doc["data"]
+            time.sleep(0.05)
+        return None
+
+    # -- the canaries' key (and the lie's seats'), built before traffic -------
+    keys0 = set(bk.builds)
+    bk.warm_compile(8)
+    built(keys0, "warm_compile(8)")
+
+    child_sets = one_bad(single[:SERVE_CHILD_SETS + 1], SERVE_CHILD_BAD)[:SERVE_CHILD_SETS]
+    child_row = {}
+    t_up = time.perf_counter() + 120
+    while time.perf_counter() < t_up and not child_lines and child.poll() is None:
+        time.sleep(0.1)
+    m = re.search(r"127\.0\.0\.1:(\d+)/", child_lines[0]) if child_lines else None
+    child_rid = None
+    if check(m is not None, "the child did not come up"):
+        child_port = int(m.group(1))
+        child_row["up_s"] = time.perf_counter() - t_child
+        child_row["health"] = http(child_port, "/health")
+        status, doc = http(child_port, "/eth/v1/verify/batch",
+                           {"tenant": "smoke", "deadline_ms": 2000, "sets": wire(child_sets)})
+        child_row["post_status"] = status
+        child_rid = doc.get("data", {}).get("request_id") if status == 202 else None
+        child_row["posted_s"] = time.perf_counter() - t_child
+        check(child_row["health"] == (200, {"status": "ok"}) and child_rid is not None,
+              "the child's health or post")
+
+    # -- (b) bisection of one bad set by the ladder ---------------------------
+    calls = []
+
+    def device_verify(sets):
+        calls.append(len(sets))
+        return bk.verify_signature_sets(sets)
+
+    rv_b = ResilientVerifier(device_verify=device_verify, cpu_verify=oracle,
+                             breaker=CircuitBreaker())
+    sets_b = one_bad(single[:SERVE_BISECT_SETS + 1], SERVE_BISECT_BAD)[:SERVE_BISECT_SETS]
+    keys0 = set(bk.builds)
+    t0 = time.perf_counter()
+    out_b = rv_b.verify_batch(sets_b)
+    bisect_s = time.perf_counter() - t0
+    new_b = built(keys0, "bisection")
+    held = sorted(k[0] for k in bk.builds if isinstance(k[0], int) and not k[2] and not k[3])
+    need_4096 = [1 << e for e in range(11, 2, -1)]  # 2,048 down to the 8-set key
+    emit({"phase": "serve", "step": "bisection", "card": smi, "sets": SERVE_BISECT_SETS,
+          "bad_set": SERVE_BISECT_BAD, "seconds": bisect_s, "device_calls": len(calls),
+          "call_sizes": calls, "keys_built": new_b, "journal": rv_b.journal,
+          "false_at": [i for i, v in enumerate(out_b.verdicts) if not v],
+          "keys_a_4096_bisection_needs": need_4096,
+          "of_them_not_held": [b for b in need_4096 if b not in held],
+          "calls_at_4096": 1 + 2 * 12})
+    check(out_b.verdicts == [i != SERVE_BISECT_BAD for i in range(SERVE_BISECT_SETS)]
+          and rv_b.journal == [("device", SERVE_BISECT_SETS)] and rv_b.breaker.is_closed,
+          "bisection verdicts")
+    check(new_b == [(SERVE_BISECT_SETS // 2, True, False, False, False)],
+          "the bisection's keys: the 16-set key built, no other")
+
+    # -- (d) a silent lie through the 2-seat pod, caught by the canaries ------
+    mesh = make_mesh(2, device="cuda:0")
+    # the pod's marshal pads to N_SETS lanes, so each seat runs the mesh
+    # phase's 2,048-set key and a canary probe on one seat the 4,096-set key:
+    # no key is built for the pod's batches
+    bk_pad = backend.TorchBackend(device="cuda", min_batch=N_SETS)
+    rv_d = ResilientVerifier(device_verify=bk.verify_signature_sets, cpu_verify=oracle,
+                             breaker=CircuitBreaker())
+    inj = FA.FaultInjector()
+    pod = POD.PodVerifier(rv_d, backend=bk, marshal=bk_pad.marshal_sets, devices=list(mesh.seats),
+                          shard_timeout=POD_SHARD_TIMEOUT_S, backoff_base=0.0, injector=inj)
+    guard_d = IntegrityGuard(pod, rv_d)
+    guard_d.attach_pod(pod)
+    lie = one_bad(single[8:8 + SERVE_LIE_SETS + 1], SERVE_LIE_BAD)[:SERVE_LIE_SETS]
+    truth = [i != SERVE_LIE_BAD for i in range(SERVE_LIE_SETS)]
+    keys0 = set(bk.builds)
+    inj.arm("pod.gather", "silent-stuck-true")
+    t0 = time.perf_counter()
+    out_lie = guard_d.verify_batch(lie)
+    lie_s = time.perf_counter() - t0
+    unguarded = pod.verify_batch(lie).verdicts  # what the pod alone released
+    inj.disarm()
+    journal_lie = list(rv_d.journal)
+    del rv_d.journal[:]
+    t0 = time.perf_counter()
+    out_clean = guard_d.verify_batch(single[8:8 + SERVE_LIE_SETS])
+    clean_s = time.perf_counter() - t0
+    emit({"phase": "serve", "step": "lie", "card": smi, "sets": SERVE_LIE_SETS,
+          "bad_set": SERVE_LIE_BAD, "armed": "pod.gather=silent-stuck-true",
+          "lie_s": lie_s, "released": out_lie.verdicts, "truth": truth,
+          "pod_alone_released": unguarded, "journal_lie": journal_lie,
+          "clean_s": clean_s, "clean_all_true": all(out_clean.verdicts),
+          "journal_clean": list(rv_d.journal), "stats": guard_d.stats(),
+          "strikes": {str(k): v for k, v in guard_d.trust.snapshot().items()},
+          "breaker": rv_d.breaker.state.name, "keys_built": built(keys0, "lie")})
+    check(out_lie.verdicts == truth and guard_d.distrusted >= 1
+          and ("cpu", SERVE_LIE_SETS) in journal_lie and unguarded == [True] * SERVE_LIE_SETS,
+          "the lie was not caught")
+    check(all(out_clean.verdicts) and device_only(rv_d.journal) and rv_d.breaker.is_closed
+          and guard_d.distrusted == 1, "clean traffic after the lie")
+
+    # -- (e) the cross-arm audit: vpu15, then mxu13 (its key built here) ------
+    rv_e = ResilientVerifier(device_verify=bk.verify_signature_sets, cpu_verify=oracle,
+                             breaker=CircuitBreaker())
+    auditor = CrossArmAuditor(oracle, backend=bk, arms=("vpu15", "mxu13"), fraction=1.0)
+    guard_e = IntegrityGuard(rv_e, rv_e, k=0, auditor=auditor)  # the audit alone
+    sets_e = single[:SERVE_AUDIT_SETS]
+    keys0 = set(bk.builds)
+    modes = ("vpu15", "mxu13", "cpu")
+    audits0 = {m: M.INTEGRITY_AUDITS.value((m,)) for m in modes}
+    rows = []
+    for arm in ("vpu15", "mxu13"):
+        t0 = time.perf_counter()
+        out = guard_e.verify_batch(sets_e)
+        rows.append({"arm": arm, "s": time.perf_counter() - t0, "all_true": all(out.verdicts)})
+    new_e = built(keys0, "audit")
+    audit_modes = {m: M.INTEGRITY_AUDITS.value((m,)) - audits0[m] for m in modes}
+    mxu_key = (SERVE_AUDIT_SETS, True, True, False, False)
+    emit({"phase": "serve", "step": "audit", "card": smi, "sets": SERVE_AUDIT_SETS,
+          "rows": rows, "stats": guard_e.stats(), "modes": audit_modes, "keys_built": new_e,
+          "mxu13_key_build_s": bk.builds.get(mxu_key, {}).get("build_s"),
+          "journal": rv_e.journal, "gates_after": [c.F.chains_active(), c.F.wsm_fused_active(),
+                                                   c.F.mxu_active()]})
+    check(all(r["all_true"] for r in rows) and guard_e.audits == 2 and guard_e.sdc_events == 0
+          and audit_modes == {"vpu15": 1, "mxu13": 1, "cpu": 0} and new_e == [mxu_key]
+          and device_only(rv_e.journal) and not c.F.mxu_active(),
+          "cross-arm audit")
+
+    # -- (f) the selfcheck over every verify key held ---------------------------
+    keys0 = set(bk.builds)
+    t0 = time.perf_counter()
+    report = run_selfcheck(bk)
+    emit({"phase": "serve", "step": "selfcheck", "card": smi, "ok": report.ok,
+          "seconds": time.perf_counter() - t0, "checked": report.checked,
+          "batch_sizes": report.batch_sizes, "keys": report.keys, "skipped": report.skipped,
+          "mismatches": report.mismatches, "keys_built": len(set(bk.builds) - keys0)})
+    check(report.ok and set(report.keys) == {k for k in bk._programs if isinstance(k[0], int)}
+          and set(bk.builds) == keys0, "selfcheck")
+
+    # -- (c) the front door: the guarded stack behind its HTTP edge -------------
+    stack = build_verify_stack()  # integrity auto: the guard at k = 2 over the ladder
+
+    class Recorder:
+        """The stack's verifier, each FIFO batch and its outcome kept."""
+
+        def __init__(self, inner):
+            self.inner, self.batches = inner, []
+
+        def verify_batch(self, sets):
+            out = self.inner.verify_batch(sets)
+            self.batches.append((list(sets), list(out.verdicts)))
+            return out
+
+    rec = Recorder(stack.verifier)
+    policy = TenantPolicy(rate=SERVE_HTTP_RATE, burst=2 * SERVE_HTTP_REQ)
+    svc = VerifyService(rec, breaker=stack.breaker, compiled_sizes=SERVE_HTTP_SIZES,
+                        flush_margin=0.05, default_deadline_s=5.0,
+                        policies={"honest": policy, "greedy": policy}).start()
+    server = ServeApiServer(svc, port=0).start()
+    n_honest = SERVE_HTTP_REQS * SERVE_HTTP_REQ
+    honest = one_bad([single[(4 + i) % len(single)] for i in range(n_honest + 1)],
+                     SERVE_HTTP_BAD)[:n_honest]
+    honest_wire = [wire(honest[i:i + SERVE_HTTP_REQ])
+                   for i in range(0, len(honest), SERVE_HTTP_REQ)]
+    greedy_wire = wire(single[:SERVE_HTTP_REQ])
+    posted = {"honest": [], "greedy": []}  # (status, body) per post, list.append is atomic
+    keys0 = set(bk.builds)
+    keys_in_stack = set(bk.builds)
+
+    def tenant(name, docs, period):
+        t_next = time.perf_counter()
+        for sets in docs:
+            posted[name].append(http(server.port, "/eth/v1/verify/batch",
+                                     {"tenant": name, "deadline_ms": 5000, "sets": sets}))
+            t_next += period
+            time.sleep(max(0.0, t_next - time.perf_counter()))
+
+    t0 = time.perf_counter()
+    g = SERVE_HTTP_GREEDY_THREADS  # together ten times the honest pace
+    tenants = [threading.Thread(target=tenant, args=("honest", honest_wire, SERVE_HTTP_PERIOD_S))]
+    tenants += [threading.Thread(target=tenant, args=(
+        "greedy", [greedy_wire] * (10 * SERVE_HTTP_REQS // g), g * SERVE_HTTP_PERIOD_S / 10))
+        for _ in range(g)]
+    for t in tenants:
+        t.start()
+    for t in tenants:
+        t.join(120)
+    rids = [doc["data"]["request_id"] for status, doc in posted["honest"] if status == 202]
+    until = time.perf_counter() + SERVE_POLL_S
+    polled = [poll(server.port, rid, until) for rid in rids]
+    http_s = time.perf_counter() - t0
+    served = [v for doc in polled if doc for v in doc["verdicts"]]
+    greedy_status = [status for status, _ in posted["greedy"]]
+    _, stats_doc = http(server.port, "/eth/v1/verify/tenants")
+    server.stop()
+    svc.stop()
+    bare = [(stack.resilient.verify_batch(sets).verdicts, got) for sets, got in rec.batches]
+    emit({"phase": "serve", "step": "front_door", "card": smi, "seconds": http_s,
+          "honest_requests": len(honest_wire), "honest_accepted": len(rids),
+          "honest_status": sorted({status for status, _ in posted["honest"]}),
+          "greedy_posted": len(greedy_status), "greedy_accepted": greedy_status.count(202),
+          "greedy_shed_429": greedy_status.count(429),
+          "greedy_other": [s for s in greedy_status if s not in (202, 429)],
+          "tenants": stats_doc.get("data"), "batches": [len(s) for s, _ in rec.batches],
+          "flushes": {"full": svc.batcher.flushes_full, "deadline": svc.batcher.flushes_deadline},
+          "served_equals_truth": served == [i != SERVE_HTTP_BAD for i in range(len(honest))],
+          "bare_equals_served": all(b == g for b, g in bare),
+          "guard": stack.integrity.stats(), "deadline_misses": svc.deadline_misses,
+          "journal_kinds": sorted({k for k, _ in stack.resilient.journal}),
+          "keys_built": built(keys0, "front_door")})
+    check(len(rids) == len(honest_wire) and all(p is not None for p in polled)
+          and served == [i != SERVE_HTTP_BAD for i in range(len(honest))]
+          and all(b == g for b, g in bare) and greedy_status.count(429) > 0
+          and set(greedy_status) <= {202, 429} and stack.integrity.distrusted == 0
+          and device_only(stack.resilient.journal) and stack.breaker.is_closed,
+          "the front door over HTTP")
+
+    # -- (g) the child's verdicts, then its exit ------------------------------
+    if child_rid is not None:
+        doc = poll(child_port, child_rid, time.perf_counter() + SERVE_POLL_S)
+        child_row["round_trip_s"] = time.perf_counter() - t_child
+        child_row["verdicts"] = doc and doc["verdicts"]
+        child_row["deadline_missed"] = doc and doc["deadline_missed"]
+        check(doc is not None and doc["verdicts"] == [i != SERVE_CHILD_BAD
+                                                     for i in range(SERVE_CHILD_SETS)],
+              "the child's verdicts")
+    if child.poll() is None:
+        child.send_signal(signal.SIGINT)
+    try:
+        child_row["exit"] = child.wait(60)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child_row["exit"] = child.wait()
+    reader.join(5)
+    err_log.seek(0)
+    child_err = err_log.read()
+    err_log.close()
+    os.unlink(err_log.name)
+    emit({"phase": "serve", "step": "entry_point", "card": smi, **child_row,
+          "stdout": child_lines[:3], "stderr_tail": child_err[-1500:] if child_row.get(
+              "exit") else child_err[-300:]})
+    check(child_row.get("exit") == 0, "the child's exit")
+
+    # -- (c) 2,048-set batches through the service, k = 2 and k = 0, and bare --
+    big = [single[i % len(single)] for i in range(SERVE_BIG)]
+    rows = {}
+    for name, verifier in (("k2", stack.verifier),
+                           ("k0", IntegrityGuard(stack.resilient, stack.resilient, k=0)),
+                           ("bare", None)):
+        lat, j0 = [], len(stack.resilient.journal)
+        t0 = time.perf_counter()
+        if verifier is None:
+            for _ in range(SERVE_BIG_REPS):
+                t1 = time.perf_counter()
+                ok = all(stack.resilient.verify_batch(big).verdicts)
+                lat.append(time.perf_counter() - t1)
+                check(ok, "bare 2,048-set verify")
+        else:
+            svc = VerifyService(verifier, breaker=stack.breaker, compiled_sizes=(SERVE_BIG,),
+                                default_deadline_s=10.0,
+                                default_policy=TenantPolicy(rate=1e9, burst=1e9,
+                                                            max_queue=SERVE_BIG)).start()
+            for _ in range(SERVE_BIG_REPS):
+                res = svc.submit("bulk", big)
+                doc = None
+                until = time.perf_counter() + SERVE_POLL_S
+                while time.perf_counter() < until:
+                    doc = svc.result(res.request_id)
+                    if doc["status"] == "done":
+                        break
+                    time.sleep(0.002)
+                req = svc._requests[res.request_id]
+                lat.append(req.done_at - req.submitted_at)
+                check(doc["status"] == "done" and all(doc["verdicts"]),
+                      f"2,048-set batch through the service ({name})")
+            svc.stop()
+        wall = time.perf_counter() - t0
+        lat.sort()
+        rows[name] = {"sets_per_s": SERVE_BIG * SERVE_BIG_REPS / wall, "wall_s": wall,
+                      "p50_s": statistics.median(lat), "p99_s": lat[-1], "latencies_s": lat,
+                      "journal": stack.resilient.journal[j0:]}
+        check(device_only(stack.resilient.journal[j0:]), f"the {name} batches' rung")
+    overhead = rows["k2"]["wall_s"] / rows["k0"]["wall_s"] - 1
+    emit({"phase": "serve", "step": "throughput", "card": smi, "sets": SERVE_BIG,
+          "reps": SERVE_BIG_REPS, **rows, "canary_overhead": overhead,
+          "reference_bar_at_default_k": 0.02, "within_bar": overhead <= 0.02,
+          "keys_built": built(keys_in_stack, "throughput")})
+
+    # -- (a) the pipelined stream against the same batches in series ----------
+    engine = IngestEngine(bk)
+    rv_a = ResilientVerifier(device_verify=bk.verify_signature_sets, cpu_verify=oracle,
+                             breaker=CircuitBreaker())
+    valid = c.batches["valid"]
+    stream = [valid[i * 7:] + valid[:i * 7] for i in range(SERVE_PIPE_BATCHES)]
+    pv = PipelinedVerifier.for_backend(rv_a, bk, ingest=engine)
+    engine.marshal_sets(stream[0])  # the engine's caches filled once, outside both timings
+    gm0, gd0 = M.PIPELINE_MARSHAL_SECONDS.value(), M.PIPELINE_DEVICE_SECONDS.value()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = pv.verify_stream(stream)
+    pipe_s = time.perf_counter() - t0
+    pipe = {"wall_s": pipe_s, "marshal_busy_s": M.PIPELINE_MARSHAL_SECONDS.value() - gm0,
+            "device_busy_s": M.PIPELINE_DEVICE_SECONDS.value() - gd0,
+            "occupancy_pct": M.PIPELINE_OCCUPANCY.value(),
+            "sets_per_s": N_SETS * SERVE_PIPE_BATCHES / pipe_s}
+    serial = {"marshal_s": 0.0, "device_s": 0.0}
+    serial_verdicts = []
+    t0 = time.perf_counter()
+    for sets in stream:
+        t1 = time.perf_counter()
+        mb = engine.marshal_sets(sets)
+        t2 = time.perf_counter()
+        serial_verdicts.append(bk.resolve(bk.dispatch(mb)))
+        serial["device_s"] += time.perf_counter() - t2
+        serial["marshal_s"] += t2 - t1
+    serial["wall_s"] = time.perf_counter() - t0
+    serial["sets_per_s"] = N_SETS * SERVE_PIPE_BATCHES / serial["wall_s"]
+    engine.close()
+    pipe_verdicts = [all(o.verdicts) and len(o.verdicts) == N_SETS for o in outs]
+    emit({"phase": "serve", "step": "pipeline", "card": smi, "batches": SERVE_PIPE_BATCHES,
+          "sets": N_SETS, "pipelined": pipe, "serial": serial,
+          "pipelined_over_serial": serial["wall_s"] / pipe_s,
+          "verdicts_pipelined": pipe_verdicts, "verdicts_serial": serial_verdicts,
+          "journal": rv_a.journal})
+    check(pipe_verdicts == serial_verdicts == [True] * SERVE_PIPE_BATCHES
+          and rv_a.journal == [("device", N_SETS)] * SERVE_PIPE_BATCHES, "pipelined stream")
+
+    serve_counts = backend.launch_counts()  # read just after the serve path
+    emit({"phase": "serve", "step": "cost", "card": smi,
+          "seconds": time.perf_counter() - t_phase, "keys": len(bk.builds),
+          "host_rss_gib_start": rss0 / 2**30, "host_rss_gib_end": PG._host_rss_bytes() / 2**30,
+          "launches": serve_counts, "failures": failures})
+    check(all(serve_counts[k] > 0 for k in ("mont_mul", "miller_step_dbl", "miller_step_add",
+                                            "mont_mul_mxu", "miller_step_dbl_mxu",
+                                            "miller_step_add_mxu")),
+          "the serve path did not launch the default and mxu13 arms' kernels")
+    if failures:
+        emit({"phase": "serve", "error": "a serve check failed", "failures": failures})
+        return None
+    return serve_counts
+
+
 def main() -> int:
     import torch
 
@@ -2123,6 +2634,10 @@ def main() -> int:
     if mesh_counts is None:
         return 1
     del ctx.mesh_batches, ctx.registry
+    # -- the front door: the ladder, the guard and the service -----------------
+    serve_counts = serve_phase(ctx)
+    if serve_counts is None:
+        return 1
     built_keys = {key: rec["capture_s"] for key, rec in bk.builds.items()}  # with the new keys
 
     # -- the kernels on the path's own operands ----------------------------
@@ -2427,7 +2942,7 @@ def main() -> int:
                "launches_by_arm": {arm: counts[arm][name] for arm in ARMS},
                "launches_aggregate_by_arm": {arm: agg_counts[arm][name] for arm in ARMS},
                "launches_epoch_by_arm": {arm: ep_counts[arm][name] for arm in ARMS},
-               "launches_mesh": mesh_counts[name]}
+               "launches_mesh": mesh_counts[name], "launches_serve": serve_counts[name]}
         if name in epoch_widths:  # the epoch tree's widest calls
             row["epoch_widths"] = [r for r in epoch_widths[name]["by_width"]
                                    if r["n"] in EPOCH_CHECK_WIDTHS]

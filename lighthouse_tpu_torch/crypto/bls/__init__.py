@@ -2,11 +2,14 @@
 PyTorch verification backend (torch_backend/)."""
 
 from .api import (  # noqa: F401
+    AggregatePublicKey,
+    AggregateSignature,
     BlsError,
     PublicKey,
     SecretKey,
     Signature,
     SignatureSet,
+    cpu_backend,
     get_backend,
     register_backend,
     set_backend,

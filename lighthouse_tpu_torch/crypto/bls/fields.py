@@ -440,3 +440,14 @@ class Fp12:
             base = base.square()
             e >>= 1
         return result
+
+
+def fp12_from_fp2_coeffs(coeffs: list[Fp2]) -> Fp12:
+    """Build an Fp12 element from coefficients of w^0..w^5 over Fp2, using the
+    basis identification Fp12 = Fp2[w]/(w^6 - xi):
+        1, w, w^2, w^3, w^4, w^5
+    maps to the tower as (c0 = (a0, a2, a4) in v-basis, c1 = (a1, a3, a5)),
+    since v = w^2 and w*v = w^3 etc.  (The line evaluations of pairing.py.)
+    """
+    a0, a1, a2, a3, a4, a5 = coeffs
+    return Fp12(Fp6(a0, a2, a4), Fp6(a1, a3, a5))

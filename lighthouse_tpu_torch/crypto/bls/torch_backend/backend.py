@@ -44,6 +44,7 @@ mainnet-epoch attestation batch).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 import secrets
@@ -529,10 +530,26 @@ class TorchBackend:
         mb = self.marshal_sets([s], weights=[1])
         if mb.invalid:
             return False
-        reps = B // mb.B
-        args = PG.map_operands(lambda t, _: t.repeat(*([1] * (t.dim() - 1)), reps), mb.args)
-        self._program(B)(*args)
+        self._program(B)(*self.tile_batch(mb, B).args)
         return True
+
+    @staticmethod
+    def tile_batch(mb: MarshalledBatch, B: int) -> MarshalledBatch:
+        """``mb`` as a batch of padded size ``B``, for a batch whose columns
+        are copies of one set (a one-set marshal): its operands tiled along
+        the batch axis (every operand is batch-last) when ``B`` is a
+        multiple of ``mb.B``, cut to ``B`` columns when smaller (a seat's
+        key below ``min_batch``)."""
+        if B == mb.B:
+            return mb
+        if B < mb.B:
+            args = PG.map_operands(lambda t, _: t[..., :B].contiguous(), mb.args)
+        elif B % mb.B == 0:
+            reps = B // mb.B
+            args = PG.map_operands(lambda t, _: t.repeat(*([1] * (t.dim() - 1)), reps), mb.args)
+        else:
+            raise ValueError(f"cannot tile a batch of {mb.B} to {B}")
+        return dataclasses.replace(mb, B=B, args=args)
 
     # -- seats of a mesh (parallel/): one backend per device -------------
 
@@ -697,9 +714,9 @@ class TorchBackend:
         is the operands' copies into the graph's static inputs and one
         replay, enqueued on the current stream (``program.CapturedProgram``;
         the key's first dispatch builds it); on the CPU the eager program.
-        The arm is resolved for the padded batch (``fp.mxu_for_batch``: an
-        override, else the installed plan, else the gate) and held around
-        the program, the previous settings restored exactly
+        The arm is resolved for the padded batch (``fp.mxu_for_batch``: this
+        thread's ``fp.pinned_arm``, else an override, else the installed
+        plan, else the gate) and held around the program on this thread only
         (jax_backend/backend.py:_pin_mxu).  A batch that carries registry
         ``slots`` (``IngestEngine.marshal_for_mesh``) lacks its pubkey
         operand and raises ``ValueError``: only a mesh path may take it."""

@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import threading
 from fractions import Fraction
 
 import numpy as np
@@ -407,12 +408,22 @@ def fp_is_zero(a: LFp) -> torch.Tensor:
 
 _CHAINS_MODE: bool | None = None
 _WSM_MODE: bool | None = None
+# pinned_arm's (chains, wsm, mxu) on the thread that holds it: it beats every
+# process-wide setting there and is invisible to every other thread
+_PIN = threading.local()
+
+
+def _pin():
+    return getattr(_PIN, "arm", None)
 
 
 def chains_enabled() -> bool:
     """LIGHTHOUSE_TPU_CHAINS=1 routes static-exponent chains (fp_pow, so
     fp_inv, and h2c.fp2_pow_static) through kernels 4 and 5."""
     global _CHAINS_MODE
+    pin = _pin()
+    if pin is not None:
+        return pin[0]
     if _CHAINS_MODE is None:
         _CHAINS_MODE = os.environ.get("LIGHTHOUSE_TPU_CHAINS", "") == "1"
     return _CHAINS_MODE
@@ -433,6 +444,9 @@ def wsm_enabled() -> bool:
     """LIGHTHOUSE_TPU_WSM=1 runs the 64-bit weight scalar muls as one fused
     double-and-add step kernel per bit per curve (kernel 6)."""
     global _WSM_MODE
+    pin = _pin()
+    if pin is not None:
+        return pin[1]
     if _WSM_MODE is None:
         _WSM_MODE = os.environ.get("LIGHTHOUSE_TPU_WSM", "") == "1"
     return _WSM_MODE
@@ -460,9 +474,13 @@ _MXU_PLAN: dict | None = None
 
 def mxu_enabled() -> bool:
     """Whether the Montgomery products run on the 13-bit plane.  Precedence:
-    the ``set_mxu`` override > the LIGHTHOUSE_TPU_MXU env flag (read live,
-    never latched, so a plan installed later is not shadowed) > the
-    installed plan's ``"*"`` default > off."""
+    this thread's ``pinned_arm`` > the ``set_mxu`` override > the
+    LIGHTHOUSE_TPU_MXU env flag (read live, never latched, so a plan
+    installed later is not shadowed) > the installed plan's ``"*"`` default
+    > off."""
+    pin = _pin()
+    if pin is not None:
+        return pin[2]
     if _MXU_MODE is not None:
         return _MXU_MODE
     env = os.environ.get("LIGHTHOUSE_TPU_MXU")
@@ -493,9 +511,10 @@ def install_mxu_plan(shapes: dict | None) -> None:
 
 def mxu_planned(batch) -> bool | None:
     """The plan's arm for padded batch ``batch``; ``None`` when no plan
-    binds it or an override (set_mxu or the env flag) forces one arm for
-    every shape."""
-    if _MXU_MODE is not None or os.environ.get("LIGHTHOUSE_TPU_MXU") is not None:
+    binds it or an override (this thread's pin, set_mxu or the env flag)
+    forces one arm for every shape."""
+    if (_pin() is not None or _MXU_MODE is not None
+            or os.environ.get("LIGHTHOUSE_TPU_MXU") is not None):
         return None
     if _MXU_PLAN is None:
         return None
@@ -519,18 +538,17 @@ def mxu_active() -> bool:
 
 @contextlib.contextmanager
 def pinned_arm(chains: bool, wsm: bool, mxu: bool):
-    """Hold the three gates at one arm inside the block (a program traced or
-    captured there is that arm's); the previous settings, the mxu override
-    included, are restored exactly."""
-    global _CHAINS_MODE, _WSM_MODE
-    prev = (_CHAINS_MODE, _WSM_MODE)
-    _CHAINS_MODE, _WSM_MODE = chains, wsm
-    prev_mxu = set_mxu(mxu)
+    """Hold the three gates at one arm inside the block, on the calling
+    thread only (a program run, traced or captured there is that arm's); the
+    process-wide settings are never touched, so another thread dispatching
+    meanwhile (a pod shard, the serve pump) keeps its own arm.  Blocks nest;
+    the previous pin is restored exactly."""
+    prev = _pin()
+    _PIN.arm = (bool(chains), bool(wsm), bool(mxu))
     try:
         yield
     finally:
-        _CHAINS_MODE, _WSM_MODE = prev
-        set_mxu(prev_mxu)
+        _PIN.arm = prev
 
 
 # The fixpoint bound of a pow carry: 4.3 * 4.3 = 18.5 <= 2000 and

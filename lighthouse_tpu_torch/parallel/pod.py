@@ -40,7 +40,7 @@ seat, never the batch:
   an excluded device is re-armed after a later probe shard succeeds.
 * **degradation ladder** — pod → reduced mesh → the single-device
   verifier (``resilient``: anything with ``verify_batch``, ``breaker``
-  and ``journal``, injected; the reference's ``ResilientVerifier``) →
+  and ``journal``, injected; ``beacon.processor.ResilientVerifier``) →
   CPU.  The pod shares the resilient verifier's breaker (mesh exhaustion
   is a breaker failure; a completed round is a success), and its
   ``verify_batch`` never raises.
@@ -72,20 +72,12 @@ from typing import Any, Callable
 
 import torch
 
+from ..beacon.processor import BatchOutcome
 from ..obs.tracer import TRACER
 from ..utils import metrics as M
 from . import mesh as _mesh
 
 log = logging.getLogger("lighthouse_tpu_torch.parallel.pod")
-
-
-@dataclass
-class BatchOutcome:
-    """Per-set verdicts of one batch and the device calls they took (the
-    reference's ``beacon.processor.BatchOutcome``)."""
-
-    verdicts: list[bool]
-    device_calls: int
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,14 @@ The port's sites:
                          hung seats mid-batch
   ``pod.gather``         ``PodVerifier``'s per-shard verdict on its way back,
                          fired with the verdict as payload: corrupted results
+  ``processor.enqueue``  ``BeaconProcessor.try_send`` (beacon/processor.py),
+                         read with ``check``: a forced queue overflow
+  ``processor.verify``   the device call of ``ResilientVerifier`` and every
+                         dispatch of ``PipelinedVerifier``: device errors
+  ``serve.submit``       ``VerifyService`` ingress, fired with the submission
+                         payload (serve/service.py): slow or garbage clients
+  ``serve.dispatch``     ``VerifyService``'s device-batch dispatch: an
+                         infrastructure failure under a full batch
 
 Fault kinds:
 
@@ -33,6 +41,20 @@ Fault kinds:
 * ``silent-stuck-true``
                    force a boolean verdict payload to True (anything else
                    passes untouched); it never raises
+* ``silent-flip``  invert a boolean verdict payload (anything else passes
+                   untouched); it never raises.  Only a site that carries
+                   its verdict as payload can be lied through:
+                   ``pod.gather`` does, ``bls.device_verify`` fires before
+                   the marshal with no payload (as in the reference), so
+                   there the kind passes every verdict untouched
+* ``slow-client``  sleep ``delay`` seconds, then pass: a client dribbling
+                   its submission in
+* ``malformed-request``
+                   apply ``mutate`` to the payload, by default stripping the
+                   ``sets`` field of a submission dict (any other payload
+                   becomes None): a client sending garbage
+* ``overflow``     ``check(site)`` reports the site saturated; ``fire`` is a
+                   no-op for it
 
 ``times=N`` disarms a site after N firings; ``probability`` gates each
 firing on a draw from the injector's own stream (``FaultInjector(seed=N)``
@@ -67,11 +89,28 @@ def _stuck_true(ok):
     return True if isinstance(ok, bool) else ok
 
 
+def _silent_flip(ok):
+    """Invert a boolean verdict payload; anything else passes through."""
+    return (not ok) if isinstance(ok, bool) else ok
+
+
+def _malform_submission(payload):
+    """Strip the ``sets`` field of a submission dict; any other payload
+    shape becomes None."""
+    if isinstance(payload, dict):
+        bad = dict(payload)
+        bad.pop("sets", None)
+        return bad
+    return None
+
+
 _RAISING = {"error": DeviceFault, "crash": InjectedCrash, "shard-drop": DeviceFault}
-_DELAYS = ("slow", "stall", "device-hang")
+_DELAYS = ("slow", "stall", "device-hang", "slow-client")
 # kind -> its default payload mutator
-_MUTATING = {"corrupt-shard-result": lambda ok: not ok, "silent-stuck-true": _stuck_true}
-_KINDS = (*_RAISING, *_DELAYS, *_MUTATING)
+_MUTATING = {"corrupt-shard-result": lambda ok: not ok, "silent-stuck-true": _stuck_true,
+             "silent-flip": _silent_flip, "malformed-request": _malform_submission}
+_CHECKED = ("overflow",)  # read by check(site); fire passes them
+_KINDS = (*_RAISING, *_DELAYS, *_MUTATING, *_CHECKED)
 
 
 @dataclass
@@ -166,7 +205,19 @@ class FaultInjector:
             return payload
         if f.kind in _MUTATING:
             return (f.mutate or _MUTATING[f.kind])(payload)
+        if f.kind in _CHECKED:
+            return payload
         raise _RAISING[f.kind](f"injected {f.kind} at {site}")
+
+    def check(self, site: str) -> bool:
+        """Non-raising peek for saturation sites: True when an ``overflow``
+        fault fires at ``site`` (the site then behaves as if its resource
+        were exhausted).  A bounded arm counts down as in ``fire``."""
+        with self._lock:
+            f = self._armed.get(site)
+            if f is None or f.kind not in _CHECKED:
+                return False
+        return self._take(site) is not None
 
 
 # The process-wide injector every site of the port fires through.

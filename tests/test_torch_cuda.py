@@ -29,7 +29,11 @@ operand skeleton and replays the same verdicts.  The mesh (parallel/): two
 threads dispatching through one key on their own streams keep their own
 verdicts (the replay lock), a ShardedVerifyProgram on a 2-seat mesh of one
 card matches the single-device verdicts, and the partitioned registry's
-gather equals the host take.
+gather equals the host take.  The front door (beacon/processor.py,
+integrity/, serve/): the guarded stack at B = 8 gives the truth on a batch
+with one bad set, every batch on the device rung; the cross-arm audit under
+mxu13 runs its arm pinned while a second thread dispatches the default
+arm's key.
 """
 
 import random
@@ -631,3 +635,100 @@ def test_cuda_sharded_registry_gather_is_byte_equal_to_host_take():
     got_x = np.concatenate([x.cpu().numpy() for x in xs], axis=1)
     got_y = np.concatenate([y.cpu().numpy() for y in ys], axis=1)
     assert np.array_equal(got_x, hx) and np.array_equal(got_y, hy)
+
+
+def _serve_sets(n, bad=()):
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    out = []
+    for i in range(n):
+        sk = api.SecretKey(7000 + 11 * i)
+        msg = bytes([i % 251, 3]) * 16
+        sig = sk.sign(b"another message" if i in bad else msg)
+        out.append(api.SignatureSet(sig, [sk.public_key()], msg))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_stack_at_b8_matches_the_truth(monkeypatch):
+    """build_verify_stack over TorchBackend on the card (integrity auto: the
+    guard, k = 2): an 8-set batch with set 5 bad comes back with set 5
+    False and the rest True, every batch on the device rung (the canaries
+    included), no canary mismatch, the breaker closed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    from lighthouse_tpu_torch.crypto.bls import api
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+    from lighthouse_tpu_torch.integrity import IntegrityGuard
+    from lighthouse_tpu_torch.serve.stack import build_verify_stack
+
+    monkeypatch.setattr(F, "_CHAINS_MODE", False)
+    monkeypatch.setattr(F, "_WSM_MODE", False)
+    monkeypatch.setattr(F, "_MXU_MODE", False)
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    monkeypatch.setattr(api, "_BACKENDS", {**api._BACKENDS, "torch": bk})
+    monkeypatch.setattr(api, "_ACTIVE", [])
+    api.set_backend("torch")
+    assert bk.warm_compile(8)  # the canaries' key, before traffic
+    stack = build_verify_stack()
+    assert isinstance(stack.integrity, IntegrityGuard) and stack.pod is None
+    out = stack.verifier.verify_batch(_serve_sets(8, bad=(5,)))
+    assert out.verdicts == [i != 5 for i in range(8)]
+    assert stack.integrity.stats()["distrusted"] == 0
+    assert stack.resilient.journal and all(k == "device" for k, _ in stack.resilient.journal)
+    assert stack.breaker.is_closed
+    assert list(bk.builds) == [(8, True, False, False, False)]
+
+
+@pytest.mark.cuda
+def test_cuda_audit_runs_its_arm_pinned_while_another_thread_dispatches(monkeypatch):
+    """The cross-arm audit under mxu13 on one thread builds and replays the
+    mxu13 key (B = 8) while a second thread dispatches the default arm's key
+    on its own stream: the second thread's key never changes arm, every
+    verdict is right, and the process-wide gates stay on the default arm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs the same check there)")
+    import threading
+
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import backend as TB
+    from lighthouse_tpu_torch.integrity import CrossArmAuditor
+
+    monkeypatch.setattr(F, "_CHAINS_MODE", False)
+    monkeypatch.setattr(F, "_WSM_MODE", False)
+    monkeypatch.setattr(F, "_MXU_MODE", False)
+    bk = TB.TorchBackend(device="cuda", min_batch=8)
+    good, bad = _serve_sets(8), _serve_sets(8, bad=(2,))
+    mbs = [bk.marshal_sets(good), bk.marshal_sets(bad)]
+    assert bk.resolve(bk.dispatch(mbs[0])) is True  # the default key, built
+    auditor = CrossArmAuditor(lambda s: True, backend=bk, arms=("mxu13",), fraction=1.0)
+    done, seen, errors, audited = threading.Event(), [], [], {}
+
+    def audit():
+        try:
+            audited["good"] = auditor.maybe_audit(good)
+            audited["bad"] = auditor.maybe_audit(bad)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+        finally:
+            done.set()
+
+    def dispatcher():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                while not done.is_set() or len(seen) < 4:
+                    i = len(seen) % 2
+                    seen.append((bk._arm(8), bk.resolve(bk.dispatch(mbs[i])), i == 0))
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=audit), threading.Thread(target=dispatcher)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not errors
+    assert audited["good"] == ([True] * 8, "mxu13")
+    assert audited["bad"] == ([i != 2 for i in range(8)], "mxu13")
+    assert all(arm == (False, False, False) and got is want for arm, got, want in seen)
+    assert not F.mxu_active()
+    assert set(bk.builds) == {(8, True, False, False, False), (8, True, True, False, False)}

@@ -29,7 +29,10 @@ for module in ("ingest.sha", "ingest.pool", "ingest.cache", "ingest.engine",
                "consensus.state_processing.arrays", "consensus.state_processing.per_epoch_torch",
                "utils.metrics", "obs.tracer", "crypto.bls.torch_backend.aot",
                "crypto.bls.torch_backend.autotune", "parallel.mesh", "parallel.partition",
-               "parallel.pod", "crypto.bls.torch_backend.multichip"):
+               "parallel.pod", "crypto.bls.torch_backend.multichip", "crypto.bls.pairing",
+               "utils.logging", "beacon.processor", "integrity.corpus", "integrity.trust",
+               "integrity.audit", "integrity.guard", "integrity.selfcheck", "serve.admission",
+               "serve.batcher", "serve.service", "serve.stack", "serve.http", "serve.__main__"):
     assert f"lighthouse_tpu_torch.{module}" in names, module
 from lighthouse_tpu_torch.utils import device_kind
 assert isinstance(device_kind(), str) and device_kind() != "host"
@@ -50,7 +53,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    assert int(proc.stdout.split()[0]) >= 36
+    assert int(proc.stdout.split()[0]) >= 55
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

@@ -220,9 +220,9 @@ def test_double_failure_yields_invalid_batch_not_exception():
 
 @pytest.mark.chaos
 def test_pipelined_verifier_uses_engine_marshal():
-    """The JAX package's PipelinedVerifier.for_backend(ingest=...) wires the
-    port's engine as its marshal stage in front of the port's backend."""
-    from lighthouse_tpu.beacon.processor import PipelinedVerifier
+    """The port's PipelinedVerifier.for_backend(ingest=...) wires the port's
+    engine as its marshal stage in front of the port's backend."""
+    from lighthouse_tpu_torch.beacon.processor import PipelinedVerifier
 
     rng = np.random.default_rng(10)
     be = port_backend()

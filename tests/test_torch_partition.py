@@ -33,8 +33,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from lighthouse_tpu.beacon.processor import CircuitBreaker, ResilientVerifier
-from lighthouse_tpu.utils.faults import FaultInjector as JFaultInjector
+from lighthouse_tpu_torch.beacon.processor import CircuitBreaker, ResilientVerifier
 from lighthouse_tpu_torch.crypto.bls.torch_backend import fp as F
 from lighthouse_tpu_torch.parallel import mesh as M
 from lighthouse_tpu_torch.parallel import partition as P
@@ -419,7 +418,7 @@ def make_sharded_pod(**kw):
 
     resilient = ResilientVerifier(
         device_verify=_all, cpu_verify=_all, breaker=breaker,
-        now=lambda: clock[0], injector=JFaultInjector(),
+        now=lambda: clock[0], injector=FaultInjector(),
     )
     backend = kw.pop("backend", None) or ShardedStubBackend()
     pod = PodVerifier(

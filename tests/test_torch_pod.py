@@ -9,11 +9,10 @@ corrupt-shard-result (ladder re-verify), all seats down (CPU ladder),
 fault-sequence determinism under a pinned seed and randomized fault
 corpora against the single-device oracle.
 
-The injected ``resilient`` is the reference's ``ResilientVerifier`` (pure
-Python, imported by the test only: the port has none, the beacon processor
-is a later slice), and the guarded stuck-true test attaches the
-reference's ``IntegrityGuard``, which drives the pod through its surface
-unchanged.  The reference's never-raise-registry test waits for the port of
+The injected ``resilient`` is the port's own ``ResilientVerifier``
+(lighthouse_tpu_torch/beacon/processor.py), and the guarded stuck-true test
+attaches the port's ``IntegrityGuard`` (lighthouse_tpu_torch/integrity/),
+which drives the pod through its surface.  The reference's never-raise-registry test waits for the port of
 the analysis package.
 """
 
@@ -25,9 +24,7 @@ import torch
 
 torch.set_num_threads(1)
 
-from lighthouse_tpu.beacon.processor import CircuitBreaker, ResilientVerifier
-from lighthouse_tpu.utils.faults import DeviceFault as JDeviceFault
-from lighthouse_tpu.utils.faults import FaultInjector as JFaultInjector
+from lighthouse_tpu_torch.beacon.processor import CircuitBreaker, ResilientVerifier
 from lighthouse_tpu_torch.parallel import mesh as MESH
 from lighthouse_tpu_torch.parallel.pod import (
     DeviceHealth,
@@ -37,7 +34,7 @@ from lighthouse_tpu_torch.parallel.pod import (
     plan_shards,
 )
 from lighthouse_tpu_torch.utils import faults
-from lighthouse_tpu_torch.utils.faults import FaultInjector
+from lighthouse_tpu_torch.utils.faults import DeviceFault, FaultInjector
 
 pytestmark = pytest.mark.chaos
 
@@ -114,7 +111,7 @@ def make_pod(injector=None, backend=None, shard_verify=None,
         cpu_verify=_all,
         breaker=breaker,
         now=lambda: clock[0],
-        injector=JFaultInjector(),
+        injector=FaultInjector(),
     )
     if backend is None and shard_verify is None:
         backend = StubBackend()
@@ -354,7 +351,7 @@ class TestSilentStuckTrueGap:
         assert out.verdicts != _oracle(sets)
 
     def test_guarded_pod_catches_reladders_and_quarantines(self):
-        from lighthouse_tpu.integrity import IntegrityGuard
+        from lighthouse_tpu_torch.integrity import IntegrityGuard
 
         inj = FaultInjector()
         inj.arm("pod.gather", "silent-stuck-true")
@@ -387,12 +384,12 @@ class TestAllDevicesDown:
         breaker = CircuitBreaker(failure_threshold=3, now=lambda: clock[0])
         resilient = ResilientVerifier(
             device_verify=lambda s: (_ for _ in ()).throw(
-                JDeviceFault("device down")
+                DeviceFault("device down")
             ),
             cpu_verify=_all,
             breaker=breaker,
             now=lambda: clock[0],
-            injector=JFaultInjector(),
+            injector=FaultInjector(),
         )
         pod = PodVerifier(
             resilient, shard_verify=_all, devices=list(range(8)),
