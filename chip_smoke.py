@@ -149,7 +149,9 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    serve/) over the main backend on the default arm, registered as
    "torch", reusing the earlier phases' keys (4,096, 2,048, 32) and
    building the 8-set key before traffic (the canaries' and the child's
-   key); every key it builds printed with its seconds and host memory:
+   key), captured into an AOT store in a temporary datadir beside a copy of
+   the built kernel libraries; every key it builds printed with its seconds
+   and host memory:
    (a) SERVE_PIPE_BATCHES valid 4,096-set batches through
    PipelinedVerifier.for_backend over the ingest engine, then in series:
    wall, marshal busy, device busy, occupancy, equal verdicts; (b) one bad
@@ -173,12 +175,34 @@ steps stay on the 15-bit core).  Phases, one JSON line each:
    SERVE_AUDIT_SETS batch, each audit's mode read from INTEGRITY_AUDITS
    (the card's arms, never the CPU floor), the mxu13 key's build printed;
    (f) run_selfcheck, its default corpus, over every verify key the
-   backend holds; (g) ``python -m lighthouse_tpu_torch.serve --port 0`` in
-   a child process (started first, so its own key builds beside the
-   phase): /health and one POST / poll round trip of SERVE_CHILD_SETS sets,
-   then interrupted, exit 0.  Every clean batch must be journaled to the
-   device rung with the breaker closed and no CPU-rung run; only (d)'s lie
-   takes the CPU rung.
+   backend holds; (g) ``python -m lighthouse_tpu_torch.serve --port 0
+   --datadir <it> --prewarm --selfcheck`` in a child process (started
+   after the 8-set key's capture, so its boot runs beside (b)-(e)): no nvcc
+   (the copied libraries are its compile cache), the 8-set key built by its
+   prewarm before its "up" line, its selfcheck over that key passed; then,
+   on a thread beside (f), /health and one POST / poll round trip of
+   SERVE_CHILD_SETS sets (one bad at SERVE_CHILD_BAD), the seconds from the
+   POST to the verdicts; interrupted after (f), its exit (0) read at the
+   phase's end with the store unchanged (a key built inside the request
+   would have been captured).  Every clean batch must be
+   journaled to the device rung with the breaker closed and no CPU-rung
+   run; only (d)'s lie takes the CPU rung.
+   node (node_phase): the node layers (the copies of the JAX package's
+   beacon/, consensus/, network/) over the same backend: (a) on the default
+   arm, a signed block's six sets (the 8-set key) through
+   BlockSignatureVerifier, True, and False poisoned, as the oracle says;
+   (b) on the chain-and-WSM arm, SyncManager syncs NODE_SYNC_SLOTS slots of
+   an honest peer's chain as one batch, its bulk verify on the card (the
+   arm's 64-set key: the one key the phase builds, so its warm-up and
+   capture count the phase's launches), the head the peer's, and refuses
+   the same blocks with one signature swapped (stalled, the peer
+   greylisted); (c) process_epoch_altair on a NODE_EPOCH_VALIDATORS state,
+   device=True (per_epoch_torch on the card) against device=False: the
+   balances, inactivity scores, effective balances and exit epochs equal.
+   Its host set-up (the blocks, the peer's chain, the syncing nodes at
+   genesis, the epoch state and the host's transition) is made by
+   node_prepare in the boot phase, while that phase waits for its second
+   boot's process.
 7. kernel times, on the captured operands: CUDA events around runs of
    back-to-back launches, queued while the card sleeps so that the host's
    wrapper time stays out.  mont_mul at every width of the default path
@@ -215,7 +239,8 @@ Then the kernels line (with each kernel's launches at capture per program
 and arm: the verify's, the aggregate's at AGG_ARM_SIZE messages and the
 epoch's; launches_mesh, the mesh path's first run on the default arm, its
 seat key's warm-up and capture; launches_serve, the serve phase's run:
-the warm-up and capture of the keys it builds; kernels 1 and 7 also timed
+the warm-up and capture of the keys it builds; launches_node, the node
+phase's run: the capture of its one key; kernels 1 and 7 also timed
 at the epoch tree's widths), the
 nvidia-smi line and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -228,6 +253,7 @@ import contextlib
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -346,8 +372,14 @@ SERVE_AUDIT_SETS = 32  # (e)
 SERVE_CHILD_SETS = 8  # (g) the child's round trip, one bad set at SERVE_CHILD_BAD
 SERVE_CHILD_BAD = 5
 SERVE_CHILD_RUN_S = 400  # the child's --run-secs; it is interrupted once its round trip is done
+SERVE_CHILD_UP_S = 240  # the longest wait for the child's "up" line (its prewarm and selfcheck)
 SERVE_POLL_S = 300  # the longest wait for a verdict over HTTP
 
+NODE_VALIDATORS = 16  # the node phase's interop chain (the reference tests' width)
+NODE_SYNC_SLOTS = 8  # one epoch of the minimal preset, synced as one batch (44 sets: the 64 key)
+NODE_SYNC_ARM = "arm"  # the sync's arm: chains and WSM, whose key builds in about half the time
+NODE_EPOCH_VALIDATORS = 2**18  # the epoch state: the chain's interop validators and active copies
+NODE_SEED = SEED + 16
 STEP_NAMES = ("miller_step_dbl", "miller_step_add")
 WSM_NAMES = ("wsm_step_g1", "wsm_step_g2")
 MXU_NAMES = ("mont_mul_mxu", "miller_step_dbl_mxu", "miller_step_add_mxu", "fp_chain_mxu",
@@ -657,7 +689,9 @@ def boot_phase(c, mbs):
     process's build root, prewarm, the report (2 loaded, 0 rejected, 0 stale,
     3 plan shapes), no nvcc run, and the valid, one-bad and aggregate batches
     (saved host tensors) through the prewarmed keys: True, False, True, with
-    no key built and no wrapper launch counted.  Host memory of both
+    no key built and no wrapper launch counted; while it runs, this process
+    calls ``c.beside_child()`` (the node phase's host set-up) instead of
+    waiting, and prints its seconds beside the child's.  Host memory of both
     processes.  Returns True, or None on a failure."""
     torch, api, backend, dev, smi, F, PG = c.torch, c.api, c.backend, c.dev, c.smi, c.F, c.PG
     from lighthouse_tpu_torch.crypto.bls.torch_backend import _build, aot, autotune
@@ -776,21 +810,37 @@ def boot_phase(c, mbs):
         torch.save({"valid": pack_operands(F, mbs["valid"].args),
                     "one_bad": pack_operands(F, mbs["one_bad"].args),
                     "agg": pack_operands(F, agg_args)}, batches)
+        # while it runs, this process does a later phase's host work
+        # (c.beside_child) instead of waiting; the child's output goes to
+        # files, so that a full pipe cannot stall it meanwhile
+        out_f, err_f = (tempfile.TemporaryFile("w+") for _ in range(2))
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--second-boot", store.root,
              str(_build.BUILD_ROOT), batches],
-            capture_output=True, text=True, timeout=BOOT_CHILD_TIMEOUT_S,
+            stdout=out_f, stderr=err_f, text=True,
             cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            beside_s = c.beside_child()
+            rc = proc.wait(timeout=max(1.0, BOOT_CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         child_wall_s = time.perf_counter() - t0
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"phase": "second_boot"')]
+        out_f.seek(0)
+        err_f.seek(0)
+        stdout, stderr = out_f.read(), err_f.read()
+        out_f.close()
+        err_f.close()
+        lines = [ln for ln in stdout.splitlines() if ln.startswith('{"phase": "second_boot"')]
         child = json.loads(lines[-1]) if lines else {}
         child.pop("phase", None)
-        emit({"phase": "boot", "step": "second_boot", "card": smi, "rc": proc.returncode,
-              "wall_s": child_wall_s, **child,
-              "stderr_tail": proc.stderr[-3000:] if proc.returncode else None})
+        emit({"phase": "boot", "step": "second_boot", "card": smi, "rc": rc,
+              "wall_s": child_wall_s, "beside_s": beside_s, **child,
+              "stderr_tail": stderr[-3000:] if rc else None})
         report = child.get("report", {})
-        if (proc.returncode != 0 or child.get("enable_compile_cache") is not True
+        if (rc != 0 or child.get("enable_compile_cache") is not True
                 or child.get("nvcc_runs") != 0
                 or [report.get(k) for k in ("loaded", "rejected", "stale", "plan_shapes")]
                 != [2, 0, 0, len(autotune.CARD_SHAPES)]
@@ -1730,8 +1780,10 @@ def serve_phase(c):
     import urllib.error
     import urllib.request
 
+    from lighthouse_tpu_torch import cli as CLI
     from lighthouse_tpu_torch.beacon.processor import (
         CircuitBreaker, PipelinedVerifier, ResilientVerifier)
+    from lighthouse_tpu_torch.crypto.bls.torch_backend import _build, aot
     from lighthouse_tpu_torch.ingest import IngestEngine
     from lighthouse_tpu_torch.integrity import CrossArmAuditor, IntegrityGuard, run_selfcheck
     from lighthouse_tpu_torch.parallel import make_mesh, pod as POD
@@ -1779,19 +1831,6 @@ def serve_phase(c):
     single = [s for s in c.pool if len(s.signing_keys) == 1]  # 60 single-signer sets
     backend.reset_launch_counts()  # the counts just before the serve path
 
-    # -- (g), started first: the entry point in a child process --------------
-    root = os.path.dirname(os.path.abspath(__file__))
-    err_log = tempfile.NamedTemporaryFile("w+", suffix=".log", delete=False)
-    t_child = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, "-m", "lighthouse_tpu_torch.serve", "--port", "0",
-         "--run-secs", str(SERVE_CHILD_RUN_S)],
-        cwd=root, stdout=subprocess.PIPE, stderr=err_log, text=True)
-    child_lines = []
-    reader = threading.Thread(target=lambda: child_lines.extend(iter(child.stdout.readline, "")),
-                              daemon=True)
-    reader.start()
-
     def http(port, path, doc=None):
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}{path}", method="POST" if doc is not None else "GET",
@@ -1816,29 +1855,38 @@ def serve_phase(c):
             time.sleep(0.05)
         return None
 
-    # -- the canaries' key (and the lie's seats'), built before traffic -------
+    # -- the canaries' key (and the lie's seats' and the child's), built before
+    # traffic and captured into the datadir (g)'s child boots from, beside a
+    # copy of the built kernel libraries laid out as its compile cache
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    store = aot.AotStore(os.path.join(datadir, CLI.AOT_CACHE))
+    shutil.copytree(_build.build_dir(),
+                    os.path.join(datadir, CLI.KERNEL_CACHE, _build.source_hash()),
+                    ignore=shutil.ignore_patterns("*.log", "*.tmp"))
     keys0 = set(bk.builds)
+    bk.attach_aot_store(store)
     bk.warm_compile(8)
+    bk.attach_aot_store(None)
     built(keys0, "warm_compile(8)")
+    child_entries = sorted(m["cache_key"] for m in store.entries().values())
+    check(child_entries == [[8, True, False, False, False]], "the child's store")
 
-    child_sets = one_bad(single[:SERVE_CHILD_SETS + 1], SERVE_CHILD_BAD)[:SERVE_CHILD_SETS]
-    child_row = {}
-    t_up = time.perf_counter() + 120
-    while time.perf_counter() < t_up and not child_lines and child.poll() is None:
-        time.sleep(0.1)
-    m = re.search(r"127\.0\.0\.1:(\d+)/", child_lines[0]) if child_lines else None
-    child_rid = None
-    if check(m is not None, "the child did not come up"):
-        child_port = int(m.group(1))
-        child_row["up_s"] = time.perf_counter() - t_child
-        child_row["health"] = http(child_port, "/health")
-        status, doc = http(child_port, "/eth/v1/verify/batch",
-                           {"tenant": "smoke", "deadline_ms": 2000, "sets": wire(child_sets)})
-        child_row["post_status"] = status
-        child_rid = doc.get("data", {}).get("request_id") if status == 202 else None
-        child_row["posted_s"] = time.perf_counter() - t_child
-        check(child_row["health"] == (200, {"status": "ok"}) and child_rid is not None,
-              "the child's health or post")
+    # -- (g), started: the entry point in a child process, booting from the store
+    root = os.path.dirname(os.path.abspath(__file__))
+    err_log = tempfile.NamedTemporaryFile("w+", suffix=".log", delete=False)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "lighthouse_tpu_torch.serve", "--port", "0",
+         "--datadir", datadir, "--prewarm", "--selfcheck", "--run-secs", str(SERVE_CHILD_RUN_S)],
+        cwd=root, stdout=subprocess.PIPE, stderr=err_log, text=True)
+    child_lines = []  # (seconds since its start, line): the "up" line is its first
+
+    def read_child():
+        for line in iter(child.stdout.readline, ""):
+            child_lines.append((time.perf_counter() - t_child, line))
+
+    reader = threading.Thread(target=read_child, daemon=True)
+    reader.start()
 
     # -- (b) bisection of one bad set by the ladder ---------------------------
     calls = []
@@ -1938,6 +1986,46 @@ def serve_phase(c):
           and device_only(rv_e.journal) and not c.F.mxu_active(),
           "cross-arm audit")
 
+    # -- (g) the child's round trip, on a thread beside (f): it is up by now -----
+    child_sets = one_bad(single[:SERVE_CHILD_SETS + 1], SERVE_CHILD_BAD)[:SERVE_CHILD_SETS]
+    child_verdicts = [i != SERVE_CHILD_BAD for i in range(SERVE_CHILD_SETS)]
+    child_row = {}
+
+    def child_round_trip():
+        try:
+            round_trip_body()
+        except Exception as exc:  # a timeout, a refused connection, a malformed reply
+            child_row["error"] = repr(exc)
+            check(False, f"the child's round trip raised {exc!r}")
+
+    def round_trip_body():
+        t_up = time.perf_counter() + SERVE_CHILD_UP_S
+        while time.perf_counter() < t_up and not child_lines and child.poll() is None:
+            time.sleep(0.1)
+        m = re.search(r"127\.0\.0\.1:(\d+)/", child_lines[0][1]) if child_lines else None
+        if not check(m is not None, "the child did not come up"):
+            return
+        child_port = int(m.group(1))
+        child_row["up_s"] = child_lines[0][0]
+        child_row["up_seen_s"] = time.perf_counter() - t_child
+        child_row["health"] = http(child_port, "/health")
+        t0 = time.perf_counter()
+        status, doc = http(child_port, "/eth/v1/verify/batch",
+                           {"tenant": "smoke", "deadline_ms": 2000, "sets": wire(child_sets)})
+        child_row["post_status"] = status
+        child_rid = doc.get("data", {}).get("request_id") if status == 202 else None
+        if not check(child_row["health"] == (200, {"status": "ok"}) and child_rid is not None,
+                     "the child's health or post"):
+            return
+        doc = poll(child_port, child_rid, time.perf_counter() + SERVE_POLL_S)
+        child_row["post_to_verdict_s"] = time.perf_counter() - t0
+        child_row["verdicts"] = doc and doc["verdicts"]
+        child_row["deadline_missed"] = doc and doc["deadline_missed"]
+        check(doc is not None and doc["verdicts"] == child_verdicts, "the child's verdicts")
+
+    round_trip = threading.Thread(target=child_round_trip, daemon=True)
+    round_trip.start()
+
     # -- (f) the selfcheck over every verify key held ---------------------------
     keys0 = set(bk.builds)
     t0 = time.perf_counter()
@@ -1948,6 +2036,13 @@ def serve_phase(c):
           "mismatches": report.mismatches, "keys_built": len(set(bk.builds) - keys0)})
     check(report.ok and set(report.keys) == {k for k in bk._programs if isinstance(k[0], int)}
           and set(bk.builds) == keys0, "selfcheck")
+    round_trip.join(SERVE_CHILD_UP_S + SERVE_POLL_S)
+    # the thread's own checks may not have run: a round trip still going, or
+    # one that ended early, fails here too
+    check(not round_trip.is_alive(), "the child's round trip outlived its wait")
+    check(child_row.get("verdicts") == child_verdicts, "the child's verdicts, after the wait")
+    if child.poll() is None:
+        child.send_signal(signal.SIGINT)  # it exits while (c) and (a) run
 
     # -- (c) the front door: the guarded stack behind its HTTP edge -------------
     stack = build_verify_stack()  # integrity auto: the guard at k = 2 over the ladder
@@ -2026,32 +2121,6 @@ def serve_phase(c):
           and set(greedy_status) <= {202, 429} and stack.integrity.distrusted == 0
           and device_only(stack.resilient.journal) and stack.breaker.is_closed,
           "the front door over HTTP")
-
-    # -- (g) the child's verdicts, then its exit ------------------------------
-    if child_rid is not None:
-        doc = poll(child_port, child_rid, time.perf_counter() + SERVE_POLL_S)
-        child_row["round_trip_s"] = time.perf_counter() - t_child
-        child_row["verdicts"] = doc and doc["verdicts"]
-        child_row["deadline_missed"] = doc and doc["deadline_missed"]
-        check(doc is not None and doc["verdicts"] == [i != SERVE_CHILD_BAD
-                                                     for i in range(SERVE_CHILD_SETS)],
-              "the child's verdicts")
-    if child.poll() is None:
-        child.send_signal(signal.SIGINT)
-    try:
-        child_row["exit"] = child.wait(60)
-    except subprocess.TimeoutExpired:
-        child.kill()
-        child_row["exit"] = child.wait()
-    reader.join(5)
-    err_log.seek(0)
-    child_err = err_log.read()
-    err_log.close()
-    os.unlink(err_log.name)
-    emit({"phase": "serve", "step": "entry_point", "card": smi, **child_row,
-          "stdout": child_lines[:3], "stderr_tail": child_err[-1500:] if child_row.get(
-              "exit") else child_err[-300:]})
-    check(child_row.get("exit") == 0, "the child's exit")
 
     # -- (c) 2,048-set batches through the service, k = 2 and k = 0, and bare --
     big = [single[i % len(single)] for i in range(SERVE_BIG)]
@@ -2137,6 +2206,48 @@ def serve_phase(c):
     check(pipe_verdicts == serial_verdicts == [True] * SERVE_PIPE_BATCHES
           and rv_a.journal == [("device", N_SETS)] * SERVE_PIPE_BATCHES, "pipelined stream")
 
+    # -- (g) the child's exit and its boot, from its datadir and its log ------
+    try:
+        child_row["exit"] = child.wait(60)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child_row["exit"] = child.wait()
+    reader.join(5)
+    err_log.seek(0)
+    child_err = err_log.read()
+    err_log.close()
+    os.unlink(err_log.name)
+    # the boot row (prewarm's report, the nvcc processes it started) and the
+    # selfcheck's line; a key built inside a request would have been captured
+    # into the store
+    rows = []
+    with contextlib.suppress(OSError):
+        with open(os.path.join(datadir, CLI.BOOT_HISTORY), encoding="utf-8") as f:
+            rows = [json.loads(line) for line in f]
+    boot_row = rows[-1] if rows else {}
+    selfcheck = re.search(r"Integrity selfcheck done, ok: (\w+), checked: (\d+), "
+                          r"kernel_batches: ([\d,-]+), wall_s: ([\d.]+)", child_err)
+    child_row.update({
+        "nvcc_runs": boot_row.get("nvcc_runs"), "prewarm_loaded": boot_row.get("loaded"),
+        "prewarm_rejected": boot_row.get("rejected"), "prewarm_s": boot_row.get("wall_s"),
+        "prewarm_builds": boot_row.get("builds"),
+        "selfcheck": selfcheck and {"ok": selfcheck.group(1) == "True",
+                                    "checked": int(selfcheck.group(2)),
+                                    "kernel_batches": selfcheck.group(3),
+                                    "wall_s": float(selfcheck.group(4))},
+        "store_entries_after": sorted(m["cache_key"] for m in store.entries().values())})
+    shutil.rmtree(datadir, ignore_errors=True)
+    emit({"phase": "serve", "step": "entry_point", "card": smi, **child_row,
+          "stdout": [line for _, line in child_lines[:3]],
+          "stderr_tail": child_err[-1500:] if child_row.get("exit") else child_err[-300:]})
+    check(child_row.get("exit") == 0, "the child's exit")
+    check(child_row["nvcc_runs"] == 0 and child_row["prewarm_loaded"] == 1
+          and child_row["prewarm_rejected"] == 0 and len(child_row["prewarm_builds"] or ()) == 1
+          and (child_row["selfcheck"] or {}).get("ok") is True
+          and child_row["selfcheck"]["kernel_batches"] == "8"
+          and child_row["store_entries_after"] == child_entries,
+          "the child's boot: nvcc, prewarm, selfcheck, or a key built inside its request")
+
     serve_counts = backend.launch_counts()  # read just after the serve path
     emit({"phase": "serve", "step": "cost", "card": smi,
           "seconds": time.perf_counter() - t_phase, "keys": len(bk.builds),
@@ -2150,6 +2261,323 @@ def serve_phase(c):
         emit({"phase": "serve", "error": "a serve check failed", "failures": failures})
         return None
     return serve_counts
+
+
+def node_signed_block(spec, state, keypairs, api, slot=1):
+    """A signed block whose sets are those of tests/test_block_signatures.py:
+    the proposal, the randao reveal, an attestation signed by its committee,
+    a voluntary exit and a proposer slashing's two headers (six sets).
+    Returns the block, the epoch's committee cache and a pubkey getter."""
+    from lighthouse_tpu_torch.consensus import committees as cm
+    from lighthouse_tpu_torch.consensus import spec as S
+    from lighthouse_tpu_torch.consensus.containers import (
+        Attestation, AttestationData, BeaconBlockHeader, Checkpoint, ProposerSlashing,
+        SignedBeaconBlockHeader, SignedVoluntaryExit, SigningData, VoluntaryExit, types_for)
+    from lighthouse_tpu_torch.consensus.ssz import U64
+    from lighthouse_tpu_torch.consensus.state_processing import signature_sets as SS
+    from lighthouse_tpu_torch.consensus.testing import pubkey_getter
+
+    preset = spec.preset
+    T = types_for(preset)
+    cache = cm.CommitteeCache(state, 0, preset)
+    fork, gvr = state.fork, state.genesis_validators_root
+
+    def sign(sk, obj, domain):
+        return sk.sign(S.compute_signing_root(obj, domain)).to_bytes()
+
+    committee = cache.committee(0, 0)
+    data = AttestationData(slot=0, index=0, beacon_block_root=b"\x42" * 32,
+                           source=Checkpoint(epoch=0, root=bytes(32)),
+                           target=Checkpoint(epoch=0, root=b"\x10" * 32))
+    root = S.compute_signing_root(data, SS.get_domain(fork, gvr, S.DOMAIN_BEACON_ATTESTER, 0))
+    attestation = Attestation(
+        aggregation_bits=[True] * len(committee), data=data,
+        signature=api.AggregateSignature.aggregate(
+            [keypairs[v][0].sign(root) for v in committee]).to_bytes())
+    exit_msg = VoluntaryExit(epoch=0, validator_index=7)
+    signed_exit = SignedVoluntaryExit(message=exit_msg, signature=sign(
+        keypairs[7][0], exit_msg, SS.get_domain(fork, gvr, S.DOMAIN_VOLUNTARY_EXIT, 0)))
+    prop_domain = SS.get_domain(fork, gvr, S.DOMAIN_BEACON_PROPOSER, 0)
+    h1, h2 = (BeaconBlockHeader(slot=0, proposer_index=9, body_root=bytes([b]) * 32)
+              for b in (1, 2))
+    slashing = ProposerSlashing(
+        signed_header_1=SignedBeaconBlockHeader(message=h1, signature=sign(keypairs[9][0], h1,
+                                                                           prop_domain)),
+        signed_header_2=SignedBeaconBlockHeader(message=h2, signature=sign(keypairs[9][0], h2,
+                                                                           prop_domain)))
+    proposer = cm.get_beacon_proposer_index(state, slot, preset)
+    sk = keypairs[proposer][0]
+    epoch = slot // preset.slots_per_epoch
+    randao_root = SigningData(object_root=U64.hash_tree_root(epoch), domain=SS.get_domain(
+        fork, gvr, S.DOMAIN_RANDAO, epoch)).root()
+    body = T.BeaconBlockBody(randao_reveal=sk.sign(randao_root).to_bytes(),
+                             attestations=[attestation], voluntary_exits=[signed_exit],
+                             proposer_slashings=[slashing])
+    block = T.BeaconBlock(slot=slot, proposer_index=proposer, parent_root=b"\x33" * 32,
+                          body=body)
+    signed = T.SignedBeaconBlock(message=block, signature=sign(
+        sk, block, SS.get_domain(fork, gvr, S.DOMAIN_BEACON_PROPOSER, epoch)))
+    return signed, cache, pubkey_getter(state)
+
+
+def node_epoch_state(n: int, seed: int):
+    """An altair state of ``n`` validators at the epoch-8 boundary of the
+    minimal preset: the NODE_VALIDATORS interop validators (their keys made
+    once, by the sync's chains) and active copies of them (each a synthetic
+    pubkey: no epoch step reads a key), with random participation,
+    inactivity scores, balances and slashings, as tests/test_epoch_device.py
+    randomizes them (a finalizing chain)."""
+    from lighthouse_tpu_torch.consensus import spec as S
+    from lighthouse_tpu_torch.consensus.containers import Checkpoint, Validator
+    from lighthouse_tpu_torch.consensus.testing import (
+        FAR_FUTURE_EPOCH, interop_state, phase0_spec)
+
+    spec = phase0_spec(S.MINIMAL)
+    preset = spec.preset
+    rng = random.Random(seed)
+    state, _ = interop_state(NODE_VALIDATORS, spec, fork="altair")
+    current = 8
+    state.slot = current * preset.slots_per_epoch
+    validators = list(state.validators)
+    for i in range(len(validators), n):
+        slashed = rng.random() < 0.2
+        validators.append(Validator(
+            pubkey=b"\xfb" + i.to_bytes(8, "little") + b"\x00" * 39,
+            withdrawal_credentials=b"\x00" * 32, effective_balance=spec.max_effective_balance,
+            slashed=slashed, activation_eligibility_epoch=0, activation_epoch=0,
+            exit_epoch=FAR_FUTURE_EPOCH,
+            withdrawable_epoch=(current + (preset.epochs_per_slashings_vector // 2
+                                           if rng.random() < 0.5 else 5))
+            if slashed else FAR_FUTURE_EPOCH).freeze())
+    state.validators = validators
+    state.previous_epoch_participation = [rng.choice((0, 1, 3, 7, 2)) for _ in range(n)]
+    state.current_epoch_participation = [rng.choice((0, 7)) for _ in range(n)]
+    state.inactivity_scores = [rng.choice((0, 1, 4, 100)) for _ in range(n)]
+    state.balances = [rng.randrange(spec.ejection_balance, spec.max_effective_balance + 2 * 10**9)
+                      for _ in range(n)]
+    slashings = list(state.slashings)
+    slashings[0] = 64 * 10**9
+    state.slashings = slashings
+    state.finalized_checkpoint = Checkpoint(epoch=current - 2, root=b"\x01" * 32)
+    return state, spec
+
+
+def node_prepare(api, out):
+    """The node phase's host work, done ahead into the namespace ``out``
+    (the boot phase runs it while it waits for its second boot's process):
+    (a) the signed block and its randao-poisoned copy, with the oracle's
+    verdict on each one's sets; (b) the honest peer's chain of
+    NODE_SYNC_SLOTS slots, built over the oracle (the peer is not under
+    test; the active engine is restored after), and the two syncing nodes at
+    genesis; (c) the
+    NODE_EPOCH_VALIDATORS state, an untouched copy for the card, and
+    process_epoch_altair(device=False) on another copy (the host's result
+    the card's is held against).  It launches no kernel.  Returns its
+    seconds."""
+    from lighthouse_tpu_torch.beacon.harness import BeaconChainHarness
+    from lighthouse_tpu_torch.consensus import spec as S
+    from lighthouse_tpu_torch.consensus.state_processing import per_epoch as PE
+    from lighthouse_tpu_torch.consensus.state_processing.block_signature_verifier import (
+        BlockSignatureVerifier)
+    from lighthouse_tpu_torch.consensus.testing import interop_state, phase0_spec
+
+    t_prep = time.perf_counter()
+    # -- (a) the block and its poisoned copy, the oracle's verdicts -------------
+    out.block_spec = phase0_spec(S.MINIMAL)
+    out.block_state, keypairs = interop_state(32, out.block_spec)
+    out.blocks = []  # (poisoned, signed block, committee cache, pubkey getter, oracle)
+    for poison in (False, True):
+        signed, cache, get_pk = node_signed_block(out.block_spec, out.block_state, keypairs, api)
+        if poison:
+            signed.message.body.randao_reveal = keypairs[0][0].sign(b"\xee" * 32).to_bytes()
+        v = BlockSignatureVerifier(out.block_state, get_pk, out.block_spec)
+        v.include_all(signed, lambda epoch, cache=cache: cache)
+        out.blocks.append((poison, signed, cache, get_pk,
+                           api.cpu_backend().verify_signature_sets(v.sets)))
+    # -- (b) the honest peer's chain, its attestations on the oracle ------------
+    active = api._ACTIVE[:]
+    api.set_backend("python")
+    try:
+        t0 = time.perf_counter()
+        out.ahead = BeaconChainHarness(n_validators=NODE_VALIDATORS)
+        out.ahead.extend_chain(NODE_SYNC_SLOTS)
+        out.peer_chain_s = time.perf_counter() - t0
+        # the syncing nodes, at genesis: one for the honest peer, one for the forger
+        out.fresh = {name: BeaconChainHarness(n_validators=NODE_VALIDATORS)
+                     for name in ("honest", "forger")}
+    finally:
+        api._ACTIVE[:] = active
+    # -- (c) the epoch state; the host's transition of a copy -------------------
+    t0 = time.perf_counter()
+    state, out.epoch_spec = node_epoch_state(NODE_EPOCH_VALIDATORS, NODE_SEED)
+    out.epoch_state_s = time.perf_counter() - t0
+    out.epoch_host, out.epoch_dev = state.copy(), state.copy()
+    t0 = time.perf_counter()
+    PE.process_epoch_altair(out.epoch_host, out.epoch_spec, device=False)
+    out.epoch_host_s = time.perf_counter() - t0
+    out.epoch_validators = len(state.validators)
+    out.epoch_moved = sum(a != b for a, b in zip(out.epoch_host.balances, state.balances))
+    out.seconds = time.perf_counter() - t_prep
+    return out.seconds
+
+
+def node_phase(c):
+    """The node layers (the copies of beacon/, consensus/, network/) over the
+    main backend, registered as "torch" with the serve phase's keys.  (a)
+    on the default arm, a signed block's six sets (padded to the serve
+    phase's 8-set key) through BlockSignatureVerifier: True, and False with
+    the randao reveal poisoned, as the oracle says; (b) on NODE_SYNC_ARM,
+    SyncManager syncs NODE_SYNC_SLOTS slots of an honest peer's chain (built
+    over the oracle: the peer is not under test) as one batch, its bulk
+    verify on the card (the arm's 64-set key, the one key the phase builds,
+    whose warm-up and capture count the phase's launches): the head is the
+    peer's; a peer serving the same blocks with one signature swapped is
+    refused, greylisted, and the sync stalls; (c)
+    process_epoch_altair with device=True (per_epoch_torch on the card)
+    against device=False on a NODE_EPOCH_VALIDATORS-validator state:
+    balances, inactivity scores, effective and exit epochs equal.  The
+    blocks, the peer's chain, the syncing nodes at genesis, the epoch state
+    and the host's transition come from node_prepare (``c.node_prep``), made ahead.  Returns the
+    launch counts of the phase's run, or None on a failure."""
+    from lighthouse_tpu_torch.beacon.sync import SyncManager, SyncPeer, serve_blocks_by_range
+    from lighthouse_tpu_torch.consensus.state_processing import per_epoch as PE
+    from lighthouse_tpu_torch.consensus.state_processing.block_signature_verifier import (
+        BlockSignatureVerifier)
+    from lighthouse_tpu_torch.network import rpc
+    from lighthouse_tpu_torch.network.peer_manager import PeerManager
+    from lighthouse_tpu_torch.utils import metrics as M
+
+    torch, api, backend, bk, smi, PG = c.torch, c.api, c.backend, c.bk, c.smi, c.PG
+    prep = c.node_prep
+    t_phase = time.perf_counter()
+    c.set_arm("default")
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+        return ok
+
+    calls = []  # (sets, verdict) of each verify the copies hand the backend
+    verify = bk.verify_signature_sets
+
+    def counted(sets):
+        ok = verify(sets)
+        calls.append((len(sets), ok))
+        return ok
+
+    api.register_backend(bk)
+    api.set_backend("torch")
+    bk.verify_signature_sets = counted  # on the instance: the copies call it through the api
+    keys0 = set(bk.builds)
+    backend.reset_launch_counts()  # the counts just before the node path
+    try:
+        # -- (a) a signed block through BlockSignatureVerifier ----------------
+        block_rows = []
+        for poison, signed, cache, get_pk, oracle_verdict in prep.blocks:
+            v = BlockSignatureVerifier(prep.block_state, get_pk, prep.block_spec)
+            v.include_all(signed, lambda epoch, cache=cache: cache)
+            t0 = time.perf_counter()
+            got = v.verify()
+            dev_s = time.perf_counter() - t0
+            block_rows.append({"poisoned": poison, "sets": len(v.sets), "verdict": got,
+                               "device_s": dev_s, "oracle": oracle_verdict})
+        emit({"phase": "node", "step": "block", "card": smi, "rows": block_rows,
+              "calls": calls[:], "prepared_s": prep.seconds})
+        check([(r["sets"], r["verdict"], r["oracle"]) for r in block_rows]
+              == [(6, True, True), (6, False, False)] and calls == [(6, True), (6, False)],
+              "the block's verdicts")
+
+        # -- (b) range sync of one epoch, its bulk verify on the card ---------
+        ahead = prep.ahead
+        c.set_arm(NODE_SYNC_ARM)
+        serve = serve_blocks_by_range(ahead.chain, "altair")
+
+        def request_blocks(start_slot, count):
+            return [rpc.decode_response_chunk(x) for x in serve(start_slot, count)]
+
+        sync_rows = {}
+        for name in ("honest", "forger"):
+            fresh = prep.fresh[name]
+            pm = PeerManager()
+            mgr = SyncManager(fresh.chain, peer_manager=pm, batch_slots=NODE_SYNC_SLOTS,
+                              max_batch_attempts=1)
+            serve_peer = request_blocks
+            if name == "forger":
+                chunks = request_blocks(1, NODE_SYNC_SLOTS)
+                cls = ahead.chain.types.SignedBeaconBlock_BY_FORK["altair"]
+                blocks = [cls.deserialize_value(ssz) for _, ssz in chunks]
+                blocks[2].signature = bytes(blocks[1].signature)
+
+                def serve_peer(start_slot, count, blocks=blocks):
+                    return [(rpc.SUCCESS, b.encode()) for b in blocks]
+            mgr.add_peer(SyncPeer(peer_id=name, head_slot=NODE_SYNC_SLOTS,
+                                  request_blocks=serve_peer))
+            n0, sets0 = len(calls), M.SYNC_SEGMENT_SETS_VERIFIED.value()
+            t0 = time.perf_counter()
+            got = mgr.tick()
+            sync_rows[name] = {
+                "state": got.name, "s": time.perf_counter() - t0, "imported": mgr.imported,
+                "failed_batches": mgr.failed_batches, "calls": calls[n0:],
+                "sets_verified": M.SYNC_SEGMENT_SETS_VERIFIED.value() - sets0,
+                "head_is_peers": fresh.chain.head_root == ahead.chain.head_root,
+                "greylisted": pm.greylisted(name)}
+        c.set_arm("default")
+        new_keys = sorted(set(bk.builds) - keys0, key=str)
+        emit({"phase": "node", "step": "sync", "card": smi, "slots": NODE_SYNC_SLOTS,
+              "validators": NODE_VALIDATORS, "arm": NODE_SYNC_ARM,
+              "peer_chain_s": prep.peer_chain_s, **sync_rows,
+              "keys_built": new_keys,
+              "builds": {str(k): {f: bk.builds[k].get(f) for f in ("build_s", "warmup_s",
+                                                                   "capture_s", "instantiate_s")}
+                         for k in new_keys}})
+        honest, forger = sync_rows["honest"], sync_rows["forger"]
+        n_sets = honest["sets_verified"]
+        check(honest["state"] == "SYNCED" and honest["head_is_peers"]
+              and honest["imported"] == NODE_SYNC_SLOTS and honest["calls"] == [(n_sets, True)]
+              and not honest["greylisted"], "the honest sync")
+        check(forger["state"] == "STALLED" and forger["failed_batches"] == 1
+              and forger["calls"] == [(n_sets, False)] and forger["greylisted"]
+              and not forger["head_is_peers"], "the forger's batch")
+        check(new_keys == [(bk._padded_size(n_sets), True, False, True, True)],
+              "the node phase builds one key: the sync batch's, on its arm")
+    finally:
+        del bk.verify_signature_sets
+        c.set_arm("default")
+    node_counts = backend.launch_counts()  # read just after the node path
+
+    # -- (c) the epoch transition, its balance step on the card ----------------
+    host, dev = prep.epoch_host, prep.epoch_dev
+    t0 = time.perf_counter()
+    PE.process_epoch_altair(dev, prep.epoch_spec, device=True)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    same = {
+        "balances": list(dev.balances) == list(host.balances),
+        "inactivity_scores": list(dev.inactivity_scores) == list(host.inactivity_scores),
+        "effective_balances": [v.effective_balance for v in dev.validators]
+        == [v.effective_balance for v in host.validators],
+        "exit_epochs": [v.exit_epoch for v in dev.validators]
+        == [v.exit_epoch for v in host.validators]}
+    n_epoch = prep.epoch_validators
+    emit({"phase": "node", "step": "epoch", "card": smi, "validators": n_epoch,
+          "state_s": prep.epoch_state_s, "host_s": prep.epoch_host_s, "device_s": device_s,
+          "equal": same, "balances_moved": prep.epoch_moved})
+    check(all(same.values()) and len(dev.validators) == n_epoch
+          and prep.epoch_moved > n_epoch // 2, "the epoch on the card")
+    emit({"phase": "node", "step": "cost", "card": smi,
+          "seconds": time.perf_counter() - t_phase, "keys": len(bk.builds),
+          "host_rss_gib": PG._host_rss_bytes() / 2**30, "launches": node_counts,
+          "failures": failures})
+    check(all(node_counts[k] > 0 for k in ("mont_mul", "miller_step_dbl", "miller_step_add",
+                                            "fp_chain", "fp2_chain", "wsm_step_g1",
+                                            "wsm_step_g2"))
+          and not any(node_counts[k] for k in MXU_NAMES),
+          "the node path did not launch the chain-and-WSM arm's kernels")
+    if failures:
+        emit({"phase": "node", "error": "a node check failed", "failures": failures})
+        return None
+    return node_counts
 
 
 def main() -> int:
@@ -2600,10 +3028,11 @@ def main() -> int:
             return 1
 
     # -- warm boot: the arm plan, the store, a second boot in a fresh process --
+    node_prep = types.SimpleNamespace()  # the node phase's host set-up, made beside it
     ctx = types.SimpleNamespace(
         torch=torch, api=api, backend=backend, bk=bk, dev=dev, smi=smi, F=F, PG=PG,
         entry_points=entry_points, keep_steps=keep_steps, eager_dispatch=eager_dispatch,
-        hold=hold)
+        hold=hold, beside_child=lambda: node_prepare(api, node_prep))
     # the marshal does not depend on the arm: the default arm's batches serve
     if boot_phase(ctx, marshalled["default"]) is None:
         return 1
@@ -2618,7 +3047,7 @@ def main() -> int:
         torch=torch, api=api, backend=backend, bk=bk, dev=dev, smi=smi, rng=rng,
         set_arm=set_arm, products=products, funcs=funcs, checked=checked,
         max_abs_err=max_abs_err, bound_ms=bound_ms, hash_to_g2=hash_to_g2, F=F, P=P, PG=PG,
-        MK=MK, X=X, pool=pool, mesh_batches=mesh_batches, batches=batches)
+        MK=MK, X=X, pool=pool, mesh_batches=mesh_batches, batches=batches, node_prep=node_prep)
     agg_counts = aggregate_phase(ctx)
     if agg_counts is None:
         return 1
@@ -2637,6 +3066,10 @@ def main() -> int:
     # -- the front door: the ladder, the guard and the service -----------------
     serve_counts = serve_phase(ctx)
     if serve_counts is None:
+        return 1
+    # -- the node layers: block import, range sync, the epoch transition -------
+    node_counts = node_phase(ctx)
+    if node_counts is None:
         return 1
     built_keys = {key: rec["capture_s"] for key, rec in bk.builds.items()}  # with the new keys
 
@@ -2942,7 +3375,8 @@ def main() -> int:
                "launches_by_arm": {arm: counts[arm][name] for arm in ARMS},
                "launches_aggregate_by_arm": {arm: agg_counts[arm][name] for arm in ARMS},
                "launches_epoch_by_arm": {arm: ep_counts[arm][name] for arm in ARMS},
-               "launches_mesh": mesh_counts[name], "launches_serve": serve_counts[name]}
+               "launches_mesh": mesh_counts[name], "launches_serve": serve_counts[name],
+               "launches_node": node_counts[name]}
         if name in epoch_widths:  # the epoch tree's widest calls
             row["epoch_widths"] = [r for r in epoch_widths[name]["by_width"]
                                    if r["n"] in EPOCH_CHECK_WIDTHS]

@@ -53,6 +53,8 @@ SPANS: dict[str, str] = {
     "serve.dispatch": "VerifyService: one coalesced batch through the verifier",
     "pod.dispatch": "pod: one dispatch round over the mesh (sharded program or shard threads)",
     "pod.reshard": "pod: a round lost a seat and the batch re-shards onto the survivors",
+    "block.import": "BeaconChain.process_block end-to-end (beacon/chain.py)",
+    "sync.batch": "SyncManager: one range batch, request through import (beacon/sync.py)",
 }
 
 

@@ -3,6 +3,7 @@
     python -m lighthouse_tpu_torch.serve --port 5053
     python -m lighthouse_tpu_torch.serve --port 0 --flush-margin 0.005
     python -m lighthouse_tpu_torch.serve --port 5053 --rate 500 --burst 1000
+    python -m lighthouse_tpu_torch.serve --port 5053 --datadir /var/lib/lh --prewarm --selfcheck
 
 The port's counterpart of the JAX package's ``tools/serve.py``, with the same
 flags: selects the ``"torch"`` backend (``TorchBackend`` on the current CUDA
@@ -15,9 +16,18 @@ oracle.  Tenants submit with::
     curl -X POST http://127.0.0.1:5053/eth/v1/verify/batch \\
          -d '{"tenant": "vc-7", "deadline_ms": 250, "sets": [...]}'
 
-and poll ``GET /eth/v1/verify/batch/<request_id>`` for verdicts.  The first
-batch of each padded size builds its CUDA-graph key (tens of seconds), so
-the first requests miss their deadlines, with correct verdicts.
+and poll ``GET /eth/v1/verify/batch/<request_id>`` for verdicts.
+
+Before the service or its listener is made, ``cli.device_boot`` sets the card
+up as ``bn`` does (``--datadir``, ``--tune``, ``--prewarm``, ``--selfcheck``,
+with ``bn``'s meanings): the kernels' build cache and the AOT store under the
+datadir, the tuned arm plan, every stored key built before the first request,
+and the known-answer sweep, whose failure exits 1 with no listener opened.
+A key is a CUDA graph, which cannot be stored: what the store keeps is the
+key's operand skeleton, and ``--prewarm`` builds each key from it (tens of
+seconds each) before the "up" line.  A padded size no stored key covers
+builds inside its first request, which then misses its deadline with correct
+verdicts.
 """
 
 from __future__ import annotations
@@ -44,16 +54,43 @@ def main(argv=None) -> int:
     ap.add_argument("--tick-interval", type=float, default=0.002,
                     help="pump period of the dispatch loop (seconds)")
     ap.add_argument("--run-secs", type=float, default=None, help="exit after N seconds")
+    ap.add_argument("--datadir", default=None,
+                    help="node data directory: the kernels' build cache (kernel_cache/) and "
+                         "the AOT store (aot_cache/) live under it (none if unset)")
+    ap.add_argument("--prewarm", action="store_true",
+                    help="warm-boot phase: build the program of every current entry of the "
+                         "AOT store (<datadir>/aot_cache/, populated by earlier runs) and "
+                         "build any rejected verify key from a probe BEFORE the service or its "
+                         "listener opens, so that no stored key builds inside a request "
+                         "(requires --datadir)")
+    ap.add_argument("--tune", action="store_true",
+                    help="first-contact kernel autotune: run timed trials of every kernel arm "
+                         "across the batch-shape ladder on THIS card, persist the winning "
+                         "plan into the AOT store's signed manifest, and install it before "
+                         "any listener opens; subsequent boots reinstall the plan via "
+                         "--prewarm with zero trials (requires --datadir; LIGHTHOUSE_TPU_MXU "
+                         "overrides the plan when set)")
+    ap.add_argument("--selfcheck", action="store_true",
+                    help="boot-time known-answer suite: run the verdict-integrity canary "
+                         "corpus through the active backend's batch path AND every verify "
+                         "key it holds (pairs with --prewarm, which builds the store's "
+                         "working set first), refusing to boot on any verdict mismatch: a "
+                         "silently-corrupting device fails the boot, never a tenant")
     args = ap.parse_args(argv)
 
     import torch
 
+    from ..cli import device_boot
     from ..crypto.bls import api
     from . import ServeApiServer, TenantPolicy, VerifyService
 
     if not torch.cuda.is_available():
         raise RuntimeError("the verify service runs on a CUDA card, and none is available")
     api.set_backend("torch")
+    rc = device_boot(args.datadir, tune=args.tune, prewarm=args.prewarm,
+                     selfcheck=args.selfcheck)
+    if rc != 0:
+        return rc
     service = VerifyService.standalone(
         default_policy=TenantPolicy(rate=args.rate, burst=args.burst, max_queue=args.max_queue),
         flush_margin=args.flush_margin,

@@ -1,5 +1,21 @@
-"""Host-side utilities of the port (the fault injector, the metrics, the
-device identity)."""
+"""Host-side utilities of the port: the supervised task executor, the fault
+injector, structured logging, the metrics, the slot clocks and the device
+identity (the JAX package's ``utils/__init__.py``, with ``device_kind``
+asking PyTorch)."""
+
+from .executor import ShutdownReason, TaskExecutor  # noqa: F401
+from .faults import (  # noqa: F401
+    INJECTOR,
+    DeviceFault,
+    FaultError,
+    FaultInjector,
+    InjectedCrash,
+    StorageFault,
+    TornWrite,
+)
+from .logging import get_logger, log_with  # noqa: F401
+from .metrics import Counter, Gauge, Histogram, render  # noqa: F401
+from .slot_clock import ManualSlotClock, SlotClock, SystemTimeSlotClock  # noqa: F401
 
 
 def device_kind() -> str:

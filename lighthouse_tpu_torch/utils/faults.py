@@ -24,6 +24,15 @@ The port's sites:
                          payload (serve/service.py): slow or garbage clients
   ``serve.dispatch``     ``VerifyService``'s device-batch dispatch: an
                          infrastructure failure under a full batch
+  ``executor.task.<name>``
+                         each (re)start of a supervised task
+                         (utils/executor.py)
+  ``store.open``         ``SlabStore`` open (store/kv.py): disk gone at start
+  ``store.put``          each ``SlabStore`` append: I/O errors and torn writes
+  ``store.flush``        ``SlabStore`` fsync: a failed durability point
+  ``sync.request``       ``SyncManager``'s decoded chunk list (beacon/sync.py)
+  ``gossip.route``       each delivery of the simulator's gossip mesh
+                         (beacon/simulator.py): lossy or bit-flipping hops
 
 Fault kinds:
 
@@ -55,6 +64,16 @@ Fault kinds:
                    becomes None): a client sending garbage
 * ``overflow``     ``check(site)`` reports the site saturated; ``fire`` is a
                    no-op for it
+* ``corrupt``      apply ``mutate`` to the payload (unchanged without one)
+* ``io-error``     raise :class:`StorageFault` (an ``OSError``): the disk
+                   failed the operation
+* ``torn-write``   raise :class:`TornWrite` carrying ``fraction``: the site
+                   appends only that share of the framed record, then fails
+* ``drop``         raise :class:`NetworkFault`: the request or response
+                   vanishes on the wire
+* ``corrupt-chunk``, ``wrong-blocks``, ``extra-blocks``
+                   a req/resp chunk list with one byte flipped mid-payload of
+                   its last chunk, reversed, or with its last chunk twice
 
 ``times=N`` disarms a site after N firings; ``probability`` gates each
 firing on a draw from the injector's own stream (``FaultInjector(seed=N)``
@@ -84,6 +103,25 @@ class InjectedCrash(FaultError):
     """Injected task death."""
 
 
+class StorageFault(FaultError, OSError):
+    """Injected storage I/O failure (also an OSError so generic disk-error
+    handlers catch it)."""
+
+
+class TornWrite(FaultError):
+    """Injected torn write: the armed site must append only ``fraction`` of
+    the framed record — exactly what a SIGKILL mid-``fwrite`` leaves on
+    disk — and then fail the operation as a crash would."""
+
+    def __init__(self, msg: str = "injected torn write", fraction: float = 0.5):
+        super().__init__(msg)
+        self.fraction = fraction
+
+
+class NetworkFault(FaultError):
+    """Injected network loss: the request or response never arrives."""
+
+
 def _stuck_true(ok):
     """The targeted ``False -> True`` verdict lie (the wrong accept)."""
     return True if isinstance(ok, bool) else ok
@@ -92,6 +130,25 @@ def _stuck_true(ok):
 def _silent_flip(ok):
     """Invert a boolean verdict payload; anything else passes through."""
     return (not ok) if isinstance(ok, bool) else ok
+
+
+def _flip_mid_byte(b: bytes) -> bytes:
+    if not b:
+        return b
+    mid = len(b) // 2
+    return b[:mid] + bytes([b[mid] ^ 0xFF]) + b[mid + 1:]
+
+
+def _corrupt_last_chunk(chunks):
+    chunks = list(chunks)
+    if chunks:
+        last = chunks[-1]
+        if isinstance(last, tuple):
+            code, payload = last
+            chunks[-1] = (code, _flip_mid_byte(payload))
+        else:
+            chunks[-1] = _flip_mid_byte(last)
+    return chunks
 
 
 def _malform_submission(payload):
@@ -104,13 +161,17 @@ def _malform_submission(payload):
     return None
 
 
-_RAISING = {"error": DeviceFault, "crash": InjectedCrash, "shard-drop": DeviceFault}
+_RAISING = {"error": DeviceFault, "crash": InjectedCrash, "shard-drop": DeviceFault,
+            "io-error": StorageFault, "drop": NetworkFault}
 _DELAYS = ("slow", "stall", "device-hang", "slow-client")
 # kind -> its default payload mutator
 _MUTATING = {"corrupt-shard-result": lambda ok: not ok, "silent-stuck-true": _stuck_true,
-             "silent-flip": _silent_flip, "malformed-request": _malform_submission}
+             "silent-flip": _silent_flip, "malformed-request": _malform_submission,
+             "corrupt": lambda payload: payload, "corrupt-chunk": _corrupt_last_chunk,
+             "wrong-blocks": lambda chunks: list(reversed(list(chunks))),
+             "extra-blocks": lambda chunks: list(chunks) + list(chunks)[-1:]}
 _CHECKED = ("overflow",)  # read by check(site); fire passes them
-_KINDS = (*_RAISING, *_DELAYS, *_MUTATING, *_CHECKED)
+_KINDS = (*_RAISING, *_DELAYS, *_MUTATING, *_CHECKED, "torn-write")
 
 
 @dataclass
@@ -120,6 +181,7 @@ class Fault:
     mutate: Callable[[Any], Any] | None = None
     remaining: int | None = None  # None = until disarmed
     probability: float = 1.0
+    fraction: float = 0.5  # torn-write: share of the record that hits disk
 
 
 class FaultInjector:
@@ -136,12 +198,12 @@ class FaultInjector:
 
     def arm(self, site: str, kind: str = "error", *, delay: float = 0.0,
             mutate: Callable[[Any], Any] | None = None, times: int | None = None,
-            probability: float = 1.0) -> None:
+            probability: float = 1.0, fraction: float = 0.5) -> None:
         if kind not in _KINDS:
             raise ValueError(f"unknown fault kind {kind!r}; have {_KINDS}")
         with self._lock:
             self._armed[site] = Fault(kind=kind, delay=delay, mutate=mutate, remaining=times,
-                                      probability=probability)
+                                      probability=probability, fraction=fraction)
 
     def disarm(self, site: str | None = None) -> None:
         """Disarm one site, or every site when ``site`` is None."""
@@ -158,8 +220,10 @@ class FaultInjector:
     def arm_from_spec(self, spec: str) -> None:
         """Arm from a command-line spec ``site=kind[:arg][xN]``, for
         example ``bls.device_verify=errorx3``, ``bls.device_verify=slow:0.5``,
-        ``pod.dispatch=shard-dropx1`` or
-        ``pod.gather=corrupt-shard-result:stuck-true``."""
+        ``pod.dispatch=shard-dropx1``,
+        ``pod.gather=corrupt-shard-result:stuck-true`` or
+        ``store.put=torn-write:0.4x1`` (the argument of ``torn-write`` is
+        the share of the record that reaches the disk)."""
         site, _, rest = spec.partition("=")
         if not site or not rest:
             raise ValueError(f"bad fault spec {spec!r}; want site=kind[:arg][xN]")
@@ -170,8 +234,9 @@ class FaultInjector:
         kind, _, arg = rest.partition(":")
         kind = kind.strip()
         delay = float(arg) if arg and kind in _DELAYS else 0.0
+        fraction = float(arg) if arg and kind == "torn-write" else 0.5
         mutate = _stuck_true if kind == "corrupt-shard-result" and arg == "stuck-true" else None
-        self.arm(site.strip(), kind, delay=delay, mutate=mutate, times=times)
+        self.arm(site.strip(), kind, delay=delay, mutate=mutate, times=times, fraction=fraction)
 
     def _take(self, site: str) -> Fault | None:
         with self._lock:
@@ -207,7 +272,17 @@ class FaultInjector:
             return (f.mutate or _MUTATING[f.kind])(payload)
         if f.kind in _CHECKED:
             return payload
+        if f.kind == "torn-write":
+            raise TornWrite(fraction=f.fraction)
         raise _RAISING[f.kind](f"injected {f.kind} at {site}")
+
+    def maybe_fire(self, site: str, payload: Any = None) -> Any:
+        """Never-raise variant of :meth:`fire`: delay and mutation kinds
+        still apply, a raising kind is absorbed and the payload returned."""
+        try:
+            return self.fire(site, payload)
+        except Exception:
+            return payload
 
     def check(self, site: str) -> bool:
         """Non-raising peek for saturation sites: True when an ``overflow``
@@ -226,4 +301,5 @@ INJECTOR = FaultInjector()
 arm = INJECTOR.arm
 disarm = INJECTOR.disarm
 fire = INJECTOR.fire
+maybe_fire = INJECTOR.maybe_fire
 arm_from_spec = INJECTOR.arm_from_spec

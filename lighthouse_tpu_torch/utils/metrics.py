@@ -1,22 +1,25 @@
-"""Process-global counters, gauges and histograms of the port.
+"""Process-global counters, gauges and histograms of the port, and their
+Prometheus text exposition (``render()``).
 
-The port's own copy of the parts of the JAX package's ``utils/metrics.py``
-that it reads.  The ingest engine's: the cache counters prove that repeat
-signers skip aggregation and limb encode, the rate gauge and the pool depth
-say whether the marshal keeps pace with the card, and the fallback counter
-counts every degradation of the vectorized marshal.  Warm boot's: the
-program build histogram, the AOT store's hit, miss and reject counters and
-the compile-cache error counter.  The pod's (parallel/pod.py): the live mesh
+The port's own copy of the JAX package's ``utils/metrics.py``: the registry
+and the metric classes as there, and the metrics the port's layers write.
+The ingest engine's: the cache counters prove that repeat signers skip
+aggregation and limb encode, the rate gauge and the pool depth say whether
+the marshal keeps pace with the card, and the fallback counter counts every
+degradation of the vectorized marshal.  Warm boot's: the program build
+histogram, the AOT store's hit, miss and reject counters and the
+compile-cache error counter.  The pod's (parallel/pod.py): the live mesh
 width, exclusions, re-arms, re-shards, retries and ladder fallbacks, and the
 batch latency.  The verifier ladder's (beacon/processor.py): breaker
 transitions, device retries, batches on the CPU rung, shed work, and the
 pipeline's busy times, occupancy and fallbacks.  The verify service's
-(serve/) and the integrity guard's (integrity/), under the reference's
-names and labels.  Each counter and gauge is thread-safe and has ``inc``,
-``set`` and ``value()``; a histogram has ``observe``, ``count()``,
-``sum()`` and ``timer()``.  Every method takes an optional ``labels``
-tuple (the reference's label values, in its order); ``()`` is the
-unlabelled series.
+(serve/) and the integrity guard's (integrity/), and the node layers'
+(beacon/, store/, network/, utils/executor.py), under the reference's names
+and labels.  Each counter and gauge is thread-safe and has ``inc`` and
+``value()`` (a gauge also ``set`` and ``dec``); a histogram has ``observe``,
+``count()``, ``sum()``, ``timer()``, ``bucket_counts()`` and ``quantile()``.
+Every method takes an optional ``labels`` tuple (the reference's label
+values, in its order); ``()`` is the unlabelled series.
 """
 
 from __future__ import annotations
@@ -26,88 +29,154 @@ import time
 from collections import defaultdict
 
 
+_REGISTRY: list["_Metric"] = []
+_REG_LOCK = threading.Lock()
+
+
 class _Metric:
     kind = "untyped"
 
-    def __init__(self, name: str, help_: str, label_names: tuple = ()):
+    def __init__(self, name: str, help_: str, label_names: tuple[str, ...] = ()):
         self.name = name
         self.help = help_
-        self.label_names = tuple(label_names)
-        self._values: dict = defaultdict(float)
+        self.label_names = label_names
+        self._values: dict[tuple, float] = defaultdict(float)
         self._lock = threading.Lock()
+        with _REG_LOCK:
+            _REGISTRY.append(self)
 
-    def inc(self, amount: float = 1.0, labels: tuple = ()) -> None:
-        with self._lock:
-            self._values[labels] += amount
+    def _fmt_labels(self, labels: tuple) -> str:
+        if not labels:
+            return ""
+        if self.label_names and len(self.label_names) == len(labels):
+            inner = ",".join(
+                f'{n}="{v}"' for n, v in zip(self.label_names, labels)
+            )
+        else:
+            inner = ",".join(f'l{i}="{v}"' for i, v in enumerate(labels))
+        return "{" + inner + "}"
 
-    def set(self, v: float, labels: tuple = ()) -> None:
+    def samples(self):
         with self._lock:
-            self._values[labels] = v
-
-    def value(self, labels: tuple = ()) -> float:
-        with self._lock:
-            return self._values.get(labels, 0.0)
-
-    def samples(self) -> dict:
-        """Every series, labels -> value."""
-        with self._lock:
-            return dict(self._values)
+            return list(self._values.items())
 
 
 class Counter(_Metric):
     kind = "counter"
 
+    def inc(self, amount: float = 1.0, labels: tuple = ()):
+        with self._lock:
+            self._values[labels] += amount
+
+    def value(self, labels: tuple = ()) -> float:
+        with self._lock:
+            return self._values[labels]
+
 
 class Gauge(_Metric):
     kind = "gauge"
 
+    def set(self, v: float, labels: tuple = ()):
+        with self._lock:
+            self._values[labels] = v
 
-class Histogram:
-    """Observations of one quantity, counted and summed per label tuple (the
-    reference's buckets are not kept: nothing in the port reads them; a
-    build's seconds are in its build record)."""
+    def inc(self, amount: float = 1.0, labels: tuple = ()):
+        with self._lock:
+            self._values[labels] += amount
 
+    def dec(self, amount: float = 1.0, labels: tuple = ()):
+        with self._lock:
+            self._values[labels] -= amount
+
+    def value(self, labels: tuple = ()) -> float:
+        with self._lock:
+            return self._values[labels]
+
+
+class Histogram(_Metric):
     kind = "histogram"
 
-    def __init__(self, name: str, help_: str, label_names: tuple = ()):
-        self.name = name
-        self.help = help_
-        self.label_names = tuple(label_names)
-        self._counts: dict = defaultdict(int)
-        self._sums: dict = defaultdict(float)
-        self._lock = threading.Lock()
+    DEFAULT_BUCKETS = (
+        0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+        1.0, 2.5, 5.0, 10.0,
+    )
 
-    def observe(self, v: float, labels: tuple = ()) -> None:
+    def __init__(self, name, help_, buckets=None, label_names=()):
+        super().__init__(name, help_, label_names)
+        self.buckets = tuple(buckets or self.DEFAULT_BUCKETS)
+        self._counts: dict[tuple, list[int]] = defaultdict(
+            lambda: [0] * (len(self.buckets) + 1)
+        )
+        self._sums: dict[tuple, float] = defaultdict(float)
+
+    def observe(self, v: float, labels: tuple = ()):
         with self._lock:
-            self._counts[labels] += 1
+            counts = self._counts[labels]
+            for i, edge in enumerate(self.buckets):
+                if v <= edge:
+                    counts[i] += 1
+                    break
+            else:
+                counts[-1] += 1
             self._sums[labels] += v
+            self._values[labels] += 1  # total count
+
+    def timer(self, labels: tuple = ()):
+        return _Timer(self, labels)
 
     def count(self, labels: tuple = ()) -> int:
         with self._lock:
-            return self._counts.get(labels, 0)
+            return int(self._values[labels])
 
     def sum(self, labels: tuple = ()) -> float:
         with self._lock:
-            return self._sums.get(labels, 0.0)
+            return self._sums[labels]
 
-    def timer(self, labels: tuple = ()):
-        """A context manager observing the seconds of its block."""
-        return _Timer(self, labels)
+    def bucket_counts(self, labels: tuple = ()) -> list[int]:
+        """Snapshot of per-bucket counts (last entry = +Inf overflow).
+        SLO evaluators subtract two snapshots to get a window's
+        distribution and feed the delta back through :meth:`quantile`."""
+        with self._lock:
+            c = self._counts.get(labels)
+            return list(c) if c else [0] * (len(self.buckets) + 1)
+
+    def quantile(self, q: float, labels: tuple = (),
+                 counts: list[int] | None = None) -> float:
+        """Bucket-interpolated quantile estimate (``histogram_quantile``
+        semantics): linear within the winning bucket, clamped to the
+        highest finite edge when the rank lands in +Inf, 0.0 when empty.
+        Pass ``counts`` (e.g. a snapshot delta) to evaluate a window
+        instead of the lifetime distribution."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        if counts is None:
+            counts = self.bucket_counts(labels)
+        total = sum(counts)
+        if total <= 0:
+            return 0.0
+        rank = q * total
+        cum = 0
+        lo = 0.0
+        for edge, c in zip(self.buckets, counts):
+            cum += c
+            if c > 0 and cum >= rank:
+                frac = (rank - (cum - c)) / c
+                return lo + (edge - lo) * frac
+            lo = edge
+        return self.buckets[-1]  # rank fell in the +Inf bucket
 
 
 class _Timer:
-    def __init__(self, hist: Histogram, labels: tuple = ()):
-        self._hist = hist
-        self._labels = labels
-        self._t0 = 0.0
+    def __init__(self, hist: Histogram, labels: tuple):
+        self.hist = hist
+        self.labels = labels
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self._hist.observe(time.perf_counter() - self._t0, self._labels)
-        return False
+        self.hist.observe(time.perf_counter() - self.t0, self.labels)
 
 
 INGEST_CACHE_HITS = Counter(
@@ -284,12 +353,12 @@ SERVE_QUEUE_WAIT = Histogram(
     "serve_queue_wait_seconds",
     "Wait between admission and batch dispatch, by tenant: the price of "
     "the fill/flush knob",
-    ("tenant",),
+    label_names=("tenant",),
 )
 SERVE_E2E_LATENCY = Histogram(
     "serve_e2e_latency_seconds",
     "End-to-end submit-to-verdict latency, by tenant",
-    ("tenant",),
+    label_names=("tenant",),
 )
 
 # The verdict-integrity guard (integrity/).
@@ -335,3 +404,156 @@ INTEGRITY_GUARD_BACKSTOPS = Counter(
     "IntegrityGuard.verify_batch never-raise backstop activations "
     "(batch failed closed all-False)",
 )
+
+# The node layers (the copies of beacon/, store/, network/, utils/executor.py
+# and consensus/ssz.py): the supervised tasks' restarts, block import
+# latency, the store's torn-tail recovery, range sync and peer scoring, the
+# deposit queue, the attestation pool's verify cost and the SSZ hash cache.
+FAULTS_INJECTED = Counter(
+    "faults_injected_total",
+    "Faults fired by the FaultInjector, by site",
+    ("site",),
+)
+TASKS_RESTARTED = Counter(
+    "executor_tasks_restarted_total",
+    "Supervised task restarts after a crash, by name",
+    ("name",),
+)
+TASKS_ABANDONED = Counter(
+    "executor_tasks_abandoned_total",
+    "Supervised tasks that exhausted their restart cap, by name",
+    ("name",),
+)
+BLOCK_IMPORT_LATENCY = Histogram(
+    "block_import_latency_seconds",
+    "End-to-end block import latency (process_block entry to fork choice "
+    "update + store durability point)",
+)
+STORE_TORN_TAIL_RECOVERIES = Counter(
+    "store_torn_tail_recoveries_total",
+    "Store opens that detected and truncated a torn or corrupt log tail",
+)
+STORE_RECORDS_DROPPED = Counter(
+    "store_records_dropped_total",
+    "Log record frames lost past the valid prefix in torn-tail recovery",
+)
+STORE_BYTES_TRUNCATED = Counter(
+    "store_bytes_truncated_total",
+    "Bytes cut from the log tail by torn-tail recovery",
+)
+STORE_CRC_FAILURES = Counter(
+    "store_crc_failures_total",
+    "CRC32-C record mismatches detected (engine replay + offline verify)",
+)
+SYNC_BATCHES_REQUESTED = Counter(
+    "sync_batches_requested_total",
+    "BlocksByRange batch requests issued by the sync manager",
+)
+SYNC_BATCHES_IMPORTED = Counter(
+    "sync_batches_imported_total",
+    "Batches that validated, bulk-verified, and imported cleanly",
+)
+SYNC_BATCHES_INVALID = Counter(
+    "sync_batches_invalid_total",
+    "Batches rejected before import, by validation failure reason",
+    ("reason",),
+)
+SYNC_BATCH_RETRIES = Counter(
+    "sync_batch_retries_total",
+    "Batch attempts past the first (failed batches re-requested)",
+)
+SYNC_PEER_ROTATIONS = Counter(
+    "sync_peer_rotations_total",
+    "Batches moved to a different peer after a failed attempt",
+)
+SYNC_STALLS = Counter(
+    "sync_stalls_total",
+    "Times sync parked as STALLED (no viable peer / batch budget exhausted)",
+)
+SYNC_SEGMENT_SETS_VERIFIED = Counter(
+    "sync_segment_signature_sets_verified_total",
+    "Signature sets bulk-verified across whole sync segments (one device "
+    "batch per accepted range batch)",
+)
+SYNC_BLOCKS_IMPORTED = Counter(
+    "sync_blocks_imported_total",
+    "Blocks imported through the sync manager's validated batch path",
+)
+PEER_PENALTIES = Counter(
+    "peer_behaviour_penalties_total",
+    "Behaviour penalties applied by the peer manager, by reason",
+    ("reason",),
+)
+PEER_BANS = Counter(
+    "peer_bans_total",
+    "Peers banned after their score crossed BAN_THRESHOLD",
+)
+DEPOSIT_QUEUE_DEPTH = Gauge(
+    "deposit_queue_depth",
+    "Eth1 deposits voted in but not yet drained on-chain "
+    "(effective eth1_data.deposit_count - state.eth1_deposit_index) at "
+    "the last block production",
+)
+POOL_ESTIMATED_VERIFY_COST = Gauge(
+    "pool_estimated_verify_cost",
+    "Estimated marginal batch-verify cost of the naive aggregation pool "
+    "(resident signatures across groups — superlinear under "
+    "committee-overlap aggregation storms)",
+)
+SSZ_CACHE_BYTES = Gauge(
+    "ssz_cache_bytes",
+    "Approximate bytes pinned by the SSZ root/serialize caches and the "
+    "active-indices caches (keys + pinned values), budget-evicted",
+)
+SSZ_CACHE_EVICTIONS = Counter(
+    "ssz_cache_evictions_total",
+    "SSZ/state cache entries evicted (capacity cap or byte-budget bound)",
+)
+
+
+def render() -> str:
+    """Prometheus text exposition of every registered metric."""
+    out = []
+    with _REG_LOCK:
+        metrics = list(_REGISTRY)
+    for m in metrics:
+        out.append(f"# HELP {m.name} {m.help}")
+        out.append(f"# TYPE {m.name} {m.kind}")
+        if isinstance(m, Histogram):
+            with m._lock:
+                for labels, counts in m._counts.items():
+                    cum = 0
+                    base = m._fmt_labels(labels)[1:-1] if labels else ""
+                    for edge, c in zip(m.buckets, counts):
+                        cum += c
+                        lbl = f'{{le="{edge}"' + (f",{base}" if base else "") + "}"
+                        out.append(f"{m.name}_bucket{lbl} {cum}")
+                    cum += counts[-1]
+                    lbl = '{le="+Inf"' + (f",{base}" if base else "") + "}"
+                    out.append(f"{m.name}_bucket{lbl} {cum}")
+                    out.append(
+                        f"{m.name}_sum{m._fmt_labels(labels)} {m._sums[labels]}"
+                    )
+                    out.append(
+                        f"{m.name}_count{m._fmt_labels(labels)} "
+                        f"{int(m._values[labels])}"
+                    )
+                    # quantile export (p50/p99): summary-style convenience
+                    # samples next to the raw buckets, so SLO gates and
+                    # dashboards read latency percentiles straight off the
+                    # scrape without a histogram_quantile() evaluator
+                    for q, suffix in ((0.5, "p50"), (0.99, "p99")):
+                        est = m.quantile(q, counts=list(counts))
+                        out.append(
+                            f"{m.name}_{suffix}{m._fmt_labels(labels)} "
+                            f"{est:.6g}"
+                        )
+        else:
+            for labels, v in m.samples():
+                out.append(f"{m.name}{m._fmt_labels(labels)} {v}")
+    return "\n".join(out) + "\n"
+
+
+def registry_names() -> list[str]:
+    with _REG_LOCK:
+        return [m.name for m in _REGISTRY]
